@@ -1,36 +1,56 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (torchft_tpu_torch) on one GPU.
 
-Drives the port's main path — the per-step fault-tolerant training
-transaction — through the entry points a user calls, at the full width of
+Drives the port's two main paths — the per-step fault-tolerant training
+transaction on the dense LM, and on the flash-attention LM — through the
+entry points a user calls, at full width (random weights from a seed):
 the transformer LM the repository benchmarks by default (vocab 8192,
 d_model 512, 8 heads, 6 layers, d_ff 2048, sequence 512, batch 16: 39 f32
-leaves, 23,337,472 parameters; random weights from a seed):
+leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
+(vocab 8192, d_model 1024, 16 heads of 64, 8 layers, d_ff 4096, sequence
+2048, batch 16: 51 f32 leaves, 111,166,464 parameters, use_flash=True):
 
 1. build   the native control plane and the CUDA kernels from the sources
-           in the checkout (in parallel);
-2. kernels every kernel of the path (K1a q8 absmax, K1b q8 quantize, K3
-           bf16 cast) against its plain PyTorch version on the card, bit
-           for bit, at the path's 39 leaf shapes and special cases (ragged,
-           all-zero, NaN, Inf, NaN bit patterns); times each kernel, its
-           plain version and the PyTorch library call where one exists;
-3. train   an in-process lighthouse and two replica-group worker processes
+           in the checkout (in parallel, one nvcc per source);
+2. kernels every wire kernel (K1a q8 absmax, K1b q8 quantize, K2 q8
+           decode, K3 bf16 cast) against its plain PyTorch version on the
+           card, bit for bit, at the dense path's 39 leaf shapes and
+           special cases (ragged, all-zero, NaN, Inf, NaN bit patterns);
+           times each kernel, its plain version and the PyTorch library
+           call where one exists;
+3. flash   the flash-attention kernels (K4 forward, K5 backward) against
+           their plain versions on the card within printed tolerances: the
+           big LM's call (16, 2047, 16, 64) bf16 causal, S 2048,
+           non-causal, windows 1/16/200/1000, block_k 32 (the general
+           path), head_dim 128 and f32 inputs; K5 run twice must give the
+           same bits; times both at the big LM's call beside their bounds,
+           their plain versions and scaled_dot_product_attention's (timed
+           only, never used by the port);
+4. train   an in-process lighthouse and two replica-group worker processes
            sharing the GPU, each running Manager + HostCollectives +
            FTTrainState/AdamW + PipelinedDDP(compress="q8",
            transport="plan", device_pack=True), which gates every update
            on the commit vote: 2 warm-up steps (first quorum, ring, plan,
            staging), 6 timed steps, 3 steps under a torch.profiler trace
            of the card (group 0), then one step with compress="bf16";
-4. heal    a third worker joins late, heals from a live peer through the
-           CheckpointServer onto the card, and all three train on.
+5. heal    a third worker joins late, heals from a live peer through the
+           CheckpointServer onto the card, and all three train on;
+6. flash train  two replica-group workers train the big LM with
+           use_flash=True through the same PipelinedDDP(compress="q8")
+           transaction: 2 warm-up steps, 4 timed steps, then 2 steps under
+           a torch.profiler trace of the card (group 0); group 0 first
+           holds the flash loss against the dense loss on the same weights
+           (forward only, batch 2).
 
 Checks: every step commits; every loss is finite; each worker's kernel
-launch counts equal leaves x q8 steps (K1a, K1b) and groups x bf16 steps
-(K3) — the counts are reset to 0 in each worker just before it drives the
-path and read just after; all groups end bit-identical, the healed one
-included. Prints one ``kernels`` JSON line, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
-phase exits non-zero.
+launch counts equal leaves x q8 steps (K1a, K1b), groups x bf16 steps
+(K3), layers x forward/backward passes (K4) and 2 x layers x passes (K5;
+a pass per step, and one more for a step whose gradients a heal made
+stale), and 0 for every other kernel — the counts are reset to 0 in each worker just before it
+drives a path and read just after; all groups end bit-identical, the
+healed one included. Prints one ``kernels`` JSON line, the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
+failed phase exits non-zero.
 
 Usage: ``python3 chip_smoke.py`` (needs one CUDA device; the workers are
 this script re-run with ``--worker``).
@@ -57,15 +77,44 @@ BATCH, SEQ = 16, 512
 WARM_STEPS = 2         # untimed q8 steps: first quorum, ring, plan, staging
 Q8_STEPS = 6           # timed PipelinedDDP(q8) steps of the train phase
 TRACED_STEPS = 3       # q8 steps under the profiler (not timed)
+TRACED_FLASH_STEPS = 2  # flash steps under the profiler (not timed)
 HEAL_STEPS = 3         # steps all three groups take after the late join
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-KERNEL_SOURCE = "torchft_tpu_torch/csrc/quantize_kernels.cu"
+# bench.py's "big" LM (bench.py:131-147) on its flash path
+BIG_LM = dict(vocab_size=8192, d_model=1024, n_heads=16, n_layers=8,
+              d_ff=4096, max_seq_len=2048, use_flash=True)
+BIG_BATCH, BIG_SEQ = 16, 2048
+FLASH_STEPS = 4        # timed flash steps, after WARM_STEPS untimed ones
+# the big LM's attention call: (B, S, H, head_dim), S = 2048 less the
+# token loss_fn drops
+FLASH_SHAPE = (BIG_BATCH, BIG_SEQ - 1, 16, 64)
+# flash vs dense loss on the same weights, bf16 compute: two bf16 steps
+# (2**-7) relative. The paths round attention probabilities to bf16 at
+# different points (dense: normalised, flash: against each tile's
+# running max), a fraction of a bf16 step per output element.
+FLASH_DENSE_LOSS_RTOL = 2.0 ** -7
+# H100 SXM (NVIDIA data sheet): HBM3 rate, dense bf16 tensor-core and
+# f32 (non-tensor) peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+KERNEL_SOURCES = {
+    "q8_absmax": "torchft_tpu_torch/csrc/quantize_kernels.cu",
+    "q8_quantize": "torchft_tpu_torch/csrc/quantize_kernels.cu",
+    "q8_dequantize": "torchft_tpu_torch/csrc/quantize_kernels.cu",
+    "cast_bf16": "torchft_tpu_torch/csrc/quantize_kernels.cu",
+    "flash_fwd": "torchft_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd": "torchft_tpu_torch/csrc/flash_attention.cu",
+}
 PACK_KERNELS = ("absmax_kernel", "quantize_kernel", "cast_bf16_kernel")
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                 "flash_bwd_dq_kernel")
 TRACE_FILE = "trace_g0.json"
 REPLACES = {
     "q8_absmax": "torchft_tpu/ops/quantize_kernels.py:109",
     "q8_quantize": "torchft_tpu/ops/quantize_kernels.py:175",
+    "q8_dequantize": "torchft_tpu/ops/quantize_kernels.py:253",
     "cast_bf16": "torchft_tpu/ops/quantize_kernels.py:281",
+    "flash_fwd": "torchft_tpu/ops/flash_attention.py:261",
+    "flash_bwd": "torchft_tpu/ops/flash_attention.py:382",
 }
 
 
@@ -174,7 +223,23 @@ def _trace_summary(path: str) -> dict:
         "traced_ms": round(span[1] - span[0], 3),
         "card_busy_share": round(_union_ms(_intervals_ms(dev))
                                  / (span[1] - span[0]), 4),
+        "flash_kernel_ms_total": round(sum(
+            e["dur"] for e in dev if e["cat"] == "kernel"
+            and any(k in e["name"] for k in FLASH_KERNELS)) / 1e3, 3),
+        "top_kernels": _top_kernels(dev),
     }
+
+
+def _top_kernels(dev, top: int = 6) -> list:
+    """The kernels that took the most device time in the trace, by name."""
+    by_name: dict = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            n, ms = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return [{"name": name[:90], "n": n, "ms": round(ms, 3)}
+            for name, (n, ms) in ranked]
 
 
 def _wait_for(path: str, timeout_s: float) -> None:
@@ -183,6 +248,21 @@ def _wait_for(path: str, timeout_s: float) -> None:
         if time.monotonic() > deadline:
             raise TimeoutError(f"gate {path} never opened")
         time.sleep(0.05)
+
+
+def _flash_vs_dense(model_cfg, params, cfg: dict, device: torch.device) -> dict:
+    """The flash path's loss and the dense path's on the same weights and
+    tokens, forward only, at batch 2 (the dense path's f32 (S, S) scores
+    are then 0.5 GB a layer)."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import transformer as tt
+
+    tokens = _tokens({**cfg, "batch": 2}, 10**6 + 1, device)
+    dense_cfg = dataclasses.replace(model_cfg, use_flash=False)
+    with torch.no_grad():
+        return {"flash": float(tt.loss_fn(model_cfg, params, tokens)),
+                "dense": float(tt.loss_fn(dense_cfg, params, tokens))}
 
 
 def worker(cfg: dict) -> None:
@@ -196,7 +276,17 @@ def worker(cfg: dict) -> None:
     model_cfg = tt.TransformerConfig(**cfg["lm"])
     model = tt.TransformerLM(model_cfg, seed=0, device=device)
     state = tft.FTTrainState(model.params(), tft.AdamW(1e-3, weight_decay=1e-4))
-    grad_fn = tt.make_grad_fn(model_cfg)
+    model_grad_fn = tt.make_grad_fn(model_cfg)
+    grad_calls = [0]  # forward/backward passes: steps plus heal recomputes
+
+    def grad_fn(params, tokens):
+        grad_calls[0] += 1
+        return model_grad_fn(params, tokens)
+
+    out = {"group": g, "phases": {}}
+    if cfg["role"] == "flash" and g == 0:
+        out["flash_vs_dense"] = _flash_vs_dense(model_cfg, state.params, cfg,
+                                                device)
     # Warm up before joining (library init, allocator), and time the
     # forward/backward alone: a step's compute, against which the
     # transaction's overhead is read. Both founders run this at once, so
@@ -215,8 +305,9 @@ def worker(cfg: dict) -> None:
         state_dict=state.state_dict, min_replica_size=2, rank=0,
         world_size=1, lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}",
     )
-    out = {"group": g, "phases": {}, "compute_s": sorted(compute_s[1:])[1]}
-    n_leaves = len(state.params["blocks"]) * 6 + 3
+    out["compute_s"] = sorted(compute_s[1:])[1]
+    n_layers = len(state.params["blocks"])
+    n_leaves = n_layers * 6 + 3
 
     def run(phase: str, compress: str, more, trace: bool = False) -> None:
         """PipelinedDDP steps while ``more(i, committed_step)``, then a
@@ -230,7 +321,8 @@ def worker(cfg: dict) -> None:
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
-        timers_before = manager.metrics().snapshot()["timers_s"]
+        before = manager.metrics().snapshot()
+        calls_before = grad_calls[0]
         qk.reset_launch_counts()
         losses, commits, dispatches, step_s = [], [], 0, []
         t_start = t_prev = time.perf_counter()
@@ -251,6 +343,7 @@ def worker(cfg: dict) -> None:
             torch.cuda.synchronize()
         window_s = time.perf_counter() - t_start
         launches = dict(qk.launch_counts)
+        grad_passes = grad_calls[0] - calls_before
         if prof:
             prof.__exit__(None, None, None)
             prof.export_chrome_trace(os.path.join(workdir, TRACE_FILE))
@@ -261,10 +354,14 @@ def worker(cfg: dict) -> None:
             "commits": commits,
             "losses": [float(l) for l in losses],
             "launches": launches,
+            "grad_passes": grad_passes,
             "step_s": step_s,
             "window_s": window_s,
             "timers_ms": _timer_means_ms(
-                timers_before, manager.metrics().snapshot()["timers_s"]),
+                before["timers_s"], manager.metrics().snapshot()["timers_s"]),
+            "heals": {k: v - before["counters"].get(k, 0) for k, v in
+                      manager.metrics().snapshot()["counters"].items()
+                      if "heals" in k},
             "step": manager.current_step(),
             "digest": _digest(state.params),
         }
@@ -286,6 +383,11 @@ def worker(cfg: dict) -> None:
             run("heal", "q8", until_healed_and_on)
             out["heals"] = manager.metrics().snapshot()["counters"].get("heals", 0)
             out["fetch"] = manager.checkpoint_transport().last_fetch_stats
+        elif cfg["role"] == "flash":
+            run("warm", "q8", lambda i, step: i < WARM_STEPS)
+            run("flash", "q8", lambda i, step: i < FLASH_STEPS)
+            run("traced", "q8", lambda i, step: i < TRACED_FLASH_STEPS,
+                trace=g == 0)
         else:
             run("warm", "q8", lambda i, step: i < WARM_STEPS)
             run("q8", "q8", lambda i, step: i < Q8_STEPS)
@@ -295,7 +397,9 @@ def worker(cfg: dict) -> None:
             open(os.path.join(workdir, f"ready_{g}"), "w").close()
             _wait_for(os.path.join(workdir, "late_up"), 300)
             run("heal", "q8", until_healed_and_on)
-        out["n_leaves"] = n_leaves
+        out["n_leaves"], out["n_layers"] = n_leaves, n_layers
+        if on_card:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
     finally:
         manager.shutdown()
         collectives.shutdown()
@@ -410,7 +514,8 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
              enumerate(zip(shapes, grads, ress))]
     cases += [(k, x, torch.zeros_like(x)) for k, x in specials.items()]
 
-    err = {"q8_absmax": 0.0, "q8_quantize": 0.0, "cast_bf16": 0.0}
+    err = {"q8_absmax": 0.0, "q8_quantize": 0.0, "q8_dequantize": 0.0,
+           "cast_bf16": 0.0}
     for name, x, r in cases:
         a_k, a_p = qk.q8_absmax(x, r), qk.plain["q8_absmax"](x, r)
         if torch.isnan(a_p):  # which NaN is not part of the contract
@@ -426,6 +531,11 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
             if not _bits_equal(u, v):
                 fail(f"K1b q8_quantize disagrees on {name} ({part})")
             err["q8_quantize"] = max(err["q8_quantize"], _max_abs_err(u, v))
+        d_k = qk.dequantize_q8(got[0], got[1])
+        d_p = qk.plain["q8_dequantize"](got[0], got[1])
+        if not _bits_equal(d_k, d_p):
+            fail(f"K2 dequantize_q8 disagrees on {name}")
+        err["q8_dequantize"] = max(err["q8_dequantize"], _max_abs_err(d_k, d_p))
         if not _bits_equal(qk.cast_bf16(x), qk.plain["cast_bf16"](x)):
             fail(f"K3 cast_bf16 disagrees on {name}")
     canon = qk.cast_bf16(nan_bits).view(torch.int16).tolist()
@@ -436,14 +546,19 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
     if q.tolist() != [0, 0, 0] or s.view(torch.int32).item() != 0x7FC00000 or \
             (r.view(torch.int32) != 0x7FC00000).any():
         fail("K1 non-finite leaf does not poison with 0x7FC00000")
+    if (qk.dequantize_q8(q, s).view(torch.int32) != 0x7FC00000).any():
+        fail("K2 NaN scale does not poison the leaf with 0x7FC00000")
+    if qk.dequantize_q8(torch.zeros(0, dtype=torch.int8, device=dev), s).shape != (0,):
+        fail("K2 empty leaf")
     # the bf16 wire's one f32 group, as the packer concatenates it
     group = torch.cat([x.reshape(-1) for x in grads])
     b_k, b_p = qk.cast_bf16(group), qk.plain["cast_bf16"](group)
     if not _bits_equal(b_k, b_p):
         fail("K3 cast_bf16 disagrees on the 23.3M-element group")
     err["cast_bf16"] = max(err["cast_bf16"], _max_abs_err(b_k, b_p))
-    log(f"  {len(cases)} cases + the bf16 group: kernels bit-identical to "
-        "their plain versions")
+    log(f"  {len(cases)} cases + the bf16 group: K1a, K1b, K2, K3 bit-identical"
+        " to their plain versions (K2 on K1b's codes and scales, NaN scale "
+        "and empty leaf included)")
 
     if not timing:
         return {}
@@ -453,9 +568,13 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
     k1a = lambda: [qk.q8_absmax(x, r) for x, r in zip(grads, ress)]
     k1b = lambda: [qk.q8_quantize(x, r, a) for x, r, a in
                    zip(grads, ress, absmaxes)]
+    codes = [qk.q8_quantize(x, r, a)[:2] for x, r, a in
+             zip(grads, ress, absmaxes)]
+    k2 = lambda: [qk.dequantize_q8(c, sc) for c, sc in codes]
     k3 = lambda: qk.cast_bf16(group)
     log(f"  eager per step (launch overhead included): K1a {_time_ms(k1a):.4f}"
-        f" ms, K1b {_time_ms(k1b):.4f} ms, K3 {_time_ms(k3):.4f} ms")
+        f" ms, K1b {_time_ms(k1b):.4f} ms, K2 {_time_ms(k2):.4f} ms, "
+        f"K3 {_time_ms(k3):.4f} ms")
     # ms, plain ms, library ms: device time of one step's launches (CUDA
     # graph replay), except the plain quantize, which synchronises per
     # leaf and is timed eagerly.
@@ -476,6 +595,14 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
             None,    # no single PyTorch call quantizes with error feedback
             13 * n,  # reads x and res, writes int8 codes and the residual
         ),
+        "q8_dequantize": (
+            _graph_ms(k2),
+            _graph_ms(lambda: [qk.plain["q8_dequantize"](c, sc)
+                               for c, sc in codes]),
+            # one PyTorch call: int8 codes times the f32 0-d scale
+            _graph_ms(lambda: [torch.mul(c, sc) for c, sc in codes]),
+            5 * n,   # reads int8 codes, writes f32
+        ),
         "cast_bf16": (
             _graph_ms(k3),
             _graph_ms(lambda: qk.plain["cast_bf16"](group)),
@@ -486,7 +613,7 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
     rows = {}
     for name, (ms, plain_ms, lib_ms, nbytes) in times.items():
         rows[name] = {
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -495,6 +622,176 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
         log(f"  {name}: {ms:.4f} ms/step (39 leaves) vs plain {plain_ms:.4f}"
             f" ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
             f"ms, bound {rows[name]['bound_ms']:.4f} ms")
+    return rows
+
+
+def _flash_pairs(S: int, causal: bool, window) -> int:
+    """Live (query, key) pairs of one (batch, head) slice."""
+    if window is not None:
+        w = min(window, S)  # row q sees min(q + 1, w) keys
+        return w * (w + 1) // 2 + (S - w) * w
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def _flash_bound(kind: str, shape, dtype, causal: bool, window) -> tuple:
+    """(bound ms, what bounds it) of one K4 ("fwd") or K5 ("bwd") call:
+    the larger of the minimal operations (2 products of 2 flops per live
+    pair and head dim forward, 5 backward) over the dtype's peak, and the
+    bytes (forward reads q, k, v and writes out and the f32 lse; backward
+    reads q, k, v, out, do and lse and writes dq, dk, dv) over HBM's."""
+    B, S, H, D = shape
+    flops = (4 if kind == "fwd" else 10) * B * H * _flash_pairs(S, causal, window) * D
+    n, elt, rows = B * S * H * D, torch.finfo(dtype).bits // 8, B * H * S
+    nbytes = (4 * n * elt + 4 * rows) if kind == "fwd" else (8 * n * elt + 4 * rows)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _flash_tol(name: str, ref: torch.Tensor) -> float:
+    """f32: 2e-5 of the tensor's largest magnitude (at least 1), the JAX
+    package's flash tolerance (the two sides differ in f32 summation
+    order); lse 1e-5 likewise. bf16: two bf16 steps (2**-6) of the
+    tensor's largest magnitude: the kernel rounds p to bf16 against each
+    tile's running max, the plain version against the row's final max, so
+    single elements of p, ds and the outputs may land a step apart."""
+    big = float(ref.float().abs().max())
+    if name == "lse":
+        return 1e-5 * max(1.0, big)
+    if ref.dtype == torch.float32:
+        return 2e-5 * max(1.0, big)
+    return 2.0 ** -6 * big
+
+
+def _flash_case(tfa, label: str, shape, dtype, causal=True, window=None,
+                block_k=None, chunk: int = 2, device: str = "cuda") -> dict:
+    """K4 and K5 on the card against their plain versions on the same
+    inputs (the plain backward gets the kernel's lse, out and delta), in
+    batch chunks of ``chunk`` so the plain (S, S) scores stay small.
+    Fails past the tolerance; returns the inputs and errors."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + (window or 0))
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(4))
+    cfg = tfa.FlashConfig(causal, window, *tfa.resolve_blocks(
+        shape[1], dev, None, block_k))
+    out, lse = tfa.flash_fwd(q, k, v, cfg)
+    grads = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    names = ("out", "lse", "dq", "dk", "dv")
+    err = dict.fromkeys(names, 0.0)
+    tol = dict.fromkeys(names, 0.0)
+    for b0 in range(0, shape[0], chunk):
+        sl = slice(b0, b0 + chunk)
+        want = (*tfa.flash_fwd_plain(q[sl], k[sl], v[sl], cfg),
+                *tfa.flash_bwd_plain(q[sl], k[sl], v[sl], do[sl], lse[sl],
+                                     delta[sl], cfg))
+        for name, got, ref in zip(names, (out, lse, *grads), want):
+            got = got[sl]
+            if got.dtype != ref.dtype or got.shape != ref.shape:
+                fail(f"flash {label}: {name} is {got.dtype} {tuple(got.shape)}")
+            if not torch.isfinite(got).all():
+                fail(f"flash {label}: non-finite {name}")
+            err[name] = max(err[name], float((got.float() - ref.float()).abs().max()))
+            tol[name] = max(tol[name], _flash_tol(name, ref))
+    bad = [n for n in names if err[n] > tol[n]]
+    log(f"  flash {label} {tuple(shape)} {str(dtype)[6:]} causal={causal} "
+        f"window={window} blocks={cfg.block_q}x{cfg.block_k} fast={cfg.fast}: "
+        + ", ".join(f"{n} err {err[n]:.3g} (tol {tol[n]:.3g})" for n in names))
+    if bad:
+        fail(f"flash {label}: {bad} past tolerance")
+    return {"q": q, "k": k, "v": v, "do": do, "out": out, "lse": lse,
+            "delta": delta, "cfg": cfg, "grads": grads, "err": err}
+
+
+def _sdpa_forward(q, k, v, causal: bool):
+    """One PyTorch call computing K4's output on the same (pre-scaled)
+    inputs. Timed only; the port never calls it."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=1.0)
+
+
+def _sdpa_backward(q, k, v, do, causal: bool):
+    """One PyTorch call computing K5's function on the same (pre-scaled)
+    inputs: aten's flash-attention backward, given its own forward's out
+    and lse. Timed only; the port never calls it."""
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, causal, False, scale=1.0)
+    out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset,
+        scale=1.0)
+
+
+def phase_flash_kernels() -> dict:
+    import importlib
+
+    tfa = importlib.import_module("torchft_tpu_torch.ops.flash_attention")
+    from torchft_tpu_torch.ops._lib import _kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 products
+    B, S, H, D = FLASH_SHAPE
+    path = _flash_case(tfa, "path", FLASH_SHAPE, torch.bfloat16)
+    _flash_case(tfa, "S2048", (4, S + 1, H, D), torch.bfloat16)
+    _flash_case(tfa, "non-causal", (2, S, H, D), torch.bfloat16, causal=False)
+    for w in (1, 16, 200, 1000):
+        _flash_case(tfa, f"window{w}", (2, S, H, D), torch.bfloat16, window=w)
+    _flash_case(tfa, "block_k32", (2, S, H, D), torch.bfloat16, block_k=32)
+    _flash_case(tfa, "head_dim128", (2, S, H // 2, 2 * D), torch.bfloat16)
+    _flash_case(tfa, "f32", (2, S, H, D), torch.float32)
+    q, k, v, do, out, lse, delta, cfg = (path[n] for n in (
+        "q", "k", "v", "do", "out", "lse", "delta", "cfg"))
+    again = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    if not all(_bits_equal(a, b) for a, b in zip(path["grads"], again)):
+        fail("K5 flash_bwd is not bit-identical run to run")
+    log("  K5 run twice on the path's inputs: bit-identical")
+
+    # device times at the path's shape (graph replay; the plain versions,
+    # one to a few seconds a call, eagerly)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # the stream is read at each launch: the capture's, not the default
+    args = lambda: tfa._kernel_args(cfg, (q, k, v, do))
+    split = {
+        "dkdv": _graph_ms(lambda: _kernels.launch(
+            "flash_bwd", "tft_flash_bwd_dkdv", *ptrs, dk.data_ptr(),
+            dv.data_ptr(), *args())),
+        "dq": _graph_ms(lambda: _kernels.launch(
+            "flash_bwd", "tft_flash_bwd_dq", *ptrs, dq.data_ptr(), *args())),
+    }
+    times = {
+        "flash_fwd": (
+            _graph_ms(lambda: tfa.flash_fwd(q, k, v, cfg)),
+            _time_ms(lambda: tfa.flash_fwd_plain(q, k, v, cfg), iters=3, warmup=1),
+            _graph_ms(_sdpa_forward(q, k, v, True)),
+            _flash_bound("fwd", FLASH_SHAPE, torch.bfloat16, True, None),
+            max(path["err"]["out"], path["err"]["lse"]),
+        ),
+        "flash_bwd": (
+            _graph_ms(lambda: tfa.flash_bwd(q, k, v, out, lse, do, cfg)),
+            _time_ms(lambda: tfa.flash_bwd_plain(q, k, v, do, lse, delta, cfg),
+                     iters=2, warmup=1),
+            _graph_ms(_sdpa_backward(q, k, v, do, True)),
+            _flash_bound("bwd", FLASH_SHAPE, torch.bfloat16, True, None),
+            max(path["err"][n] for n in ("dq", "dk", "dv")),
+        ),
+    }
+    rows = {}
+    for name, (ms, plain_ms, lib_ms, (bound_ms, bound_by), err) in times.items():
+        rows[name] = {
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+        }
+        log(f"  {name} at {FLASH_SHAPE} bf16 causal: {ms:.3f} ms vs plain "
+            f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}; the kernel at "
+            f"{bound_ms / ms:.1%} of it)")
+    log(f"  flash_bwd split: dk/dv kernel {split['dkdv']:.3f} ms, dq kernel "
+        f"{split['dq']:.3f} ms")
     return rows
 
 
@@ -568,7 +865,7 @@ def phase_train_and_heal(workdir: str, device: str = "cuda", lm: dict = LM,
 def check_training(res: dict, expect_leaves: int = 39,
                    on_card: bool = True) -> dict:
     results = res["results"]
-    launches = {"q8_absmax": 0, "q8_quantize": 0, "cast_bf16": 0}
+    launches = {}
     step_s, compute_s = [], []
     for r in results:
         g, n_leaves = r["group"], r["n_leaves"]
@@ -579,17 +876,17 @@ def check_training(res: dict, expect_leaves: int = 39,
                 fail(f"group {g} {phase}: uncommitted step {ph['commits']}")
             if not all(map(_finite, ph["losses"])):
                 fail(f"group {g} {phase}: non-finite loss {ph['losses']}")
-            want = {
-                "q8_absmax": n_leaves * ph["dispatches"] if phase != "bf16" else 0,
-                "q8_quantize": n_leaves * ph["dispatches"] if phase != "bf16" else 0,
-                "cast_bf16": ph["dispatches"] if phase == "bf16" else 0,
-            }
-            if not on_card:  # the plain versions ran: nothing launched
-                want = {k: 0 for k in want}
+            want = dict.fromkeys(ph["launches"], 0)
+            if on_card:  # (on the CPU the plain versions ran: no launches)
+                if phase == "bf16":
+                    want["cast_bf16"] = ph["dispatches"]
+                else:
+                    want["q8_absmax"] = want["q8_quantize"] = \
+                        n_leaves * ph["dispatches"]
             if ph["launches"] != want:
                 fail(f"group {g} {phase}: launches {ph['launches']} != {want}")
-            for k in launches:
-                launches[k] += ph["launches"][k]
+            for k, n in ph["launches"].items():
+                launches[k] = launches.get(k, 0) + n
             log(f"  group {g} {phase}: {ph['dispatches']} steps committed, "
                 f"step {ph['step']}, losses {[round(l, 4) for l in ph['losses']]}"
                 f", launches {ph['launches']}")
@@ -627,6 +924,96 @@ def check_training(res: dict, expect_leaves: int = 39,
             "trace": f0.get("trace")}
 
 
+def phase_flash_train(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+                      batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+    import torchft_tpu_torch as tft
+
+    lighthouse = tft.Lighthouse(min_replicas=2, join_timeout_ms=10000,
+                                quorum_tick_ms=50, heartbeat_timeout_ms=10000)
+    base = {"lighthouse": lighthouse.address(), "workdir": workdir,
+            "data_offset": 0, "device": device, "role": "flash",
+            "lm": lm, "batch": batch, "seq": seq}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs = [_spawn({**base, "group": g}, workdir) for g in (0, 1)]
+        _join(procs, time.monotonic() + 600, workdir)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        lighthouse.shutdown()
+    results = []
+    for g in (0, 1):
+        with open(os.path.join(workdir, f"result_{g}.json")) as f:
+            results.append(json.load(f))
+    return {"results": results, "total_s": time.perf_counter() - t0}
+
+
+def check_flash_training(res: dict, expect_leaves: int = 51,
+                         on_card: bool = True) -> dict:
+    results = res["results"]
+    launches = {}
+    step_s = []
+    for r in results:
+        g, n_leaves, n_layers = r["group"], r["n_leaves"], r["n_layers"]
+        if n_leaves != expect_leaves:
+            fail(f"flash group {g}: {n_leaves} leaves")
+        for phase, ph in r["phases"].items():
+            if not all(ph["commits"]) or not ph["commits"]:
+                fail(f"flash group {g} {phase}: uncommitted step {ph['commits']}")
+            if not all(map(_finite, ph["losses"])):
+                fail(f"flash group {g} {phase}: non-finite loss {ph['losses']}")
+            # a forward/backward pass per step, and one more for a step
+            # whose gradients a heal made stale (the manager's first
+            # quorum heals group 1 from group 0: its init sync)
+            steps, passes = ph["dispatches"], ph["grad_passes"]
+            if passes != steps + sum(ph["heals"].values()):
+                fail(f"flash group {g} {phase}: {passes} passes for {steps} "
+                     f"steps and heals {ph['heals']}")
+            want = dict.fromkeys(ph["launches"], 0)
+            if on_card:
+                want.update(q8_absmax=n_leaves * steps,
+                            q8_quantize=n_leaves * steps,
+                            flash_fwd=n_layers * passes,
+                            flash_bwd=2 * n_layers * passes)
+            if ph["launches"] != want:
+                fail(f"flash group {g} {phase}: launches {ph['launches']} != {want}")
+            for k, n in ph["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            log(f"  flash group {g} {phase}: {steps} steps committed, step "
+                f"{ph['step']}, {passes} forward/backward passes (heals "
+                f"{ph['heals']}), losses {[round(l, 4) for l in ph['losses']]}"
+                f", launches {ph['launches']}")
+        step_s += r["phases"]["flash"]["step_s"][1:]
+    f0, f1 = results
+    for phase in ("warm", "flash", "traced"):
+        if f0["phases"][phase]["digest"] != f1["phases"][phase]["digest"]:
+            fail(f"flash founders' parameters differ after the {phase} phase")
+    fvd = f0["flash_vs_dense"]
+    rel = abs(fvd["flash"] - fvd["dense"]) / abs(fvd["dense"])
+    if not (_finite(fvd["flash"]) and rel <= FLASH_DENSE_LOSS_RTOL):
+        fail(f"flash loss {fvd['flash']} vs dense {fvd['dense']}: rel {rel:.3g}"
+             f" > {FLASH_DENSE_LOSS_RTOL:.3g}")
+    step_s.sort()
+    timers = f0["phases"]["flash"]["timers_ms"]
+    return {
+        "launches": launches,
+        "step_ms_p50": 1e3 * step_s[len(step_s) // 2],
+        "step_ms_all": [round(1e3 * s, 3) for s in step_s],
+        "window_ms_per_step": [
+            round(1e3 * r["phases"]["flash"]["window_s"]
+                  / r["phases"]["flash"]["dispatches"], 3) for r in results],
+        "plan_allreduce_ms": timers.get("plan_allreduce", {}).get("mean"),
+        "timers_ms": timers,
+        "compute_ms": [round(1e3 * r["compute_s"], 3) for r in results],
+        "max_memory_allocated_gb": [
+            round(r.get("max_memory_allocated", 0) / 2**30, 3) for r in results],
+        "flash_vs_dense": {**fvd, "rel": rel},
+        "trace": f0.get("trace"),
+    }
+
+
 def _finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -651,12 +1038,13 @@ def main() -> int:
     log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
     log("phase kernels")
     rows = phase_kernels()
+    log("phase flash kernels")
+    rows.update(phase_flash_kernels())
+    torch.cuda.empty_cache()  # the card's memory goes to the workers next
     log("phase train + heal")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         res = phase_train_and_heal(workdir)
         summary = check_training(res)
-    for name, n in summary["launches"].items():
-        rows[name]["launches"] = n
     log(f"  train phase {res['train_s']:.1f} s, train+heal {res['total_s']:.1f} s; "
         f"q8 step p50 {summary['step_ms_p50']:.3f} ms over the steady steps "
         f"(all: {summary['step_ms_all']}); whole timed window "
@@ -669,6 +1057,31 @@ def main() -> int:
         f"{summary['q8_timers_ms']}")
     log(f"  trace of group 0's {TRACED_STEPS} traced steps (card clock): "
         f"{json.dumps(summary['trace'])}")
+    log("phase flash train")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as workdir:
+        fres = phase_flash_train(workdir)
+        fsum = check_flash_training(fres)
+    log(f"  flash train {fres['total_s']:.1f} s; step p50 "
+        f"{fsum['step_ms_p50']:.3f} ms over the steady steps (all: "
+        f"{fsum['step_ms_all']}); whole timed window "
+        f"{fsum['window_ms_per_step']} ms/step per founder; plan_allreduce "
+        f"mean {fsum['plan_allreduce_ms']} ms (group 0); forward/backward "
+        f"alone {fsum['compute_ms']} ms per founder; "
+        f"max_memory_allocated {fsum['max_memory_allocated_gb']} GiB per "
+        f"group; flash vs dense loss {json.dumps(fsum['flash_vs_dense'])}")
+    log(f"  group 0 transaction timers over the timed flash steps, ms: "
+        f"{fsum['timers_ms']}")
+    log(f"  trace of group 0's {TRACED_FLASH_STEPS} traced flash steps (card "
+        f"clock): {json.dumps(fsum['trace'])}")
+    # each kernel's launches over the main paths' runs (the counts each
+    # worker reset just before a path and read just after)
+    for name in rows:
+        rows[name]["launches"] = (summary["launches"].get(name, 0)
+                                  + fsum["launches"].get(name, 0))
+    for name in ("q8_absmax", "q8_quantize", "cast_bf16", "flash_fwd",
+                 "flash_bwd"):
+        if rows[name]["launches"] == 0:
+            fail(f"{name} is on a main path and never launched there")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     smi = subprocess.run(

@@ -1,20 +1,27 @@
-"""The port's CUDA kernels against their plain PyTorch versions, bit for
-bit, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card: the wire kernels bit for bit, the flash-attention kernels within
+the tolerances stated at ``_flash_tol``.
 
 Needs a CUDA device (the hand-written kernels have no CPU interpreter);
 without one every test skips with that reason, and the plain versions are
-held against the JAX kernels by tests/test_torch_quantize_kernels.py.
+held against the JAX kernels by tests/test_torch_quantize_kernels.py and
+tests/test_torch_flash_attention.py.
 This file imports no JAX, so it also runs on a machine with only the
 port's dependencies::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from torchft_tpu_torch.ops import quantize_kernels as tq
+
+# the module (the package's name `flash_attention` is its entry point)
+tfa = importlib.import_module("torchft_tpu_torch.ops.flash_attention")
 
 # f32 NaN/Inf bit patterns and the bf16 words they must cast to.
 NAN_BITS = {
@@ -112,6 +119,122 @@ def test_cast_matches_plain(cuda_device):
     words = got.view(torch.int16).cpu().numpy().view(np.uint16)
     assert words[-len(NAN_BITS):].tolist() == list(NAN_BITS.values())
     assert tq.launch_counts["cast_bf16"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_bits", [0x3C23D70A, 0, 0x7FC00000])
+def test_dequantize_matches_plain(cuda_device, scale_bits):
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.integers(-127, 128, 100003).astype(np.int8))
+    scale = torch.tensor([scale_bits], dtype=torch.int32).view(torch.float32)[0]
+    qd, sd = q.to(cuda_device), scale.to(cuda_device)
+    before = tq.launch_counts["q8_dequantize"]
+    got = tq.dequantize_q8(qd, sd)
+    assert _bytes(got) == _bytes(tq.plain["q8_dequantize"](qd, sd))
+    assert _bytes(got) == _bytes(tq.dequantize_q8(q, scale))  # the CPU body
+    assert tq.launch_counts["q8_dequantize"] == before + 1
+
+
+def _flash_inputs(device, shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device=device, dtype=dtype) for _ in range(4)]
+
+
+def _flash_tol(ref: torch.Tensor) -> float:
+    """f32: 2e-5 (the JAX package's own flash tolerance; the kernel and
+    the plain version differ only in f32 summation order). bf16: two bf16
+    steps at the tensor's largest magnitude (2**-6 of it): the kernel
+    rounds p to bf16 against each tile's running max, the plain version
+    against the row's final max, so single elements of p, ds and the
+    outputs may land one bf16 step apart."""
+    if ref.dtype == torch.float32:
+        return 2e-5 * max(1.0, float(ref.abs().max()))
+    return 2.0 ** -6 * float(ref.float().abs().max())
+
+
+def _flash_check(device, shape, dtype, causal=True, window=None, block_k=None):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 products
+    q, k, v, do = _flash_inputs(device, shape, dtype)
+    cfg = tfa.FlashConfig(causal, window, *tfa.resolve_blocks(
+        shape[1], device, None, block_k))
+    before = dict(tq.launch_counts)
+    out, lse = tfa.flash_fwd(q, k, v, cfg)
+    grads = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    assert tq.launch_counts["flash_fwd"] == before["flash_fwd"] + 1
+    assert tq.launch_counts["flash_bwd"] == before["flash_bwd"] + 2
+    want_out, want_lse = tfa.flash_fwd_plain(q, k, v, cfg)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    want = tfa.flash_bwd_plain(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                          (want_out, *want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= _flash_tol(w), (name, err, _flash_tol(w))
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    return q, k, v, do, out, lse, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 130, 3, 64), (1, 257, 2, 128),
+                                   (1, 64, 1, 64), (2, 33, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain(cuda_device, dtype, shape, causal):
+    _flash_check(cuda_device, shape, dtype, causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 16, 200, 1000])
+@pytest.mark.parametrize("block_k", [64, 32])
+def test_flash_kernels_window_and_blocks(cuda_device, window, block_k):
+    _flash_check(cuda_device, (1, 1100, 2, 64), torch.bfloat16,
+                 window=window, block_k=block_k)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_at_the_path_sequence(cuda_device):
+    """The LM's sequence (2047: the last token is dropped), bf16, causal,
+    at a reduced batch and head count."""
+    _flash_check(cuda_device, (1, 2047, 2, 64), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(cuda_device):
+    q, k, v, do, out, lse, cfg = _flash_check(
+        cuda_device, (2, 515, 2, 64), torch.bfloat16)
+    first = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    second = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    for a, b in zip(first, second):
+        assert _bytes(a) == _bytes(b)
+
+
+@pytest.mark.cuda
+def test_flash_reads_the_strided_qkv_split(cuda_device):
+    """q, k, v as views of one (B, S, 3D) tensor, as the model's qkv
+    split yields them: the same result as contiguous copies."""
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal((2, 100, 3 * 128))
+                           .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = (t.reshape(2, 100, 2, 64) for t in torch.split(qkv, 128, -1))
+    assert not k.is_contiguous()
+    got = tfa.flash_attention(q, k, v)
+    want = tfa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert _bytes(got) == _bytes(want)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 8, 1, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="CUDA kernels take"):
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 1, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 1, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="block_q"):
+        tfa.flash_attention(q, q, q, block_q=128)
 
 
 @pytest.mark.cuda

@@ -181,3 +181,56 @@ class TestCastBf16:
     def test_size_zero(self):
         out = tq.cast_bf16(torch.zeros(0))
         assert out.shape == (0,) and out.dtype == torch.bfloat16
+
+
+class TestDequantizeQ8:
+    """K2: ``q * scale`` in f32, bit for bit with the JAX kernel; a NaN
+    scale (the poison K1b writes) gives 0x7FC00000 everywhere."""
+
+    @pytest.mark.parametrize("scale_bits", [0x3C23D70A, 0x2B8CBCCC,
+                                            0x00000000, 0x7FC00000])
+    @pytest.mark.parametrize("shape", [(70001,), (13, 9), (1,)])
+    def test_bit_identical_to_jax_kernel(self, scale_bits, shape):
+        rng = np.random.default_rng(7)
+        q = rng.integers(-127, 128, shape).astype(np.int8)
+        scale = np.array(scale_bits, np.uint32).view(np.float32)
+        want = np.asarray(jq.dequantize_q8(jnp.asarray(q), jnp.asarray(scale),
+                                           interpret=True))
+        got = tq.dequantize_q8(torch.from_numpy(q), torch.from_numpy(scale))
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        assert _bits(got.numpy()) == _bits(want)
+
+    def test_subnormal_scale_matches_numpy_oracle(self):
+        """ROADMAP F3 again: XLA's CPU backend treats a subnormal scale as
+        zero in interpret mode (codes [1, -3, 127] times 0x0001A2B3 decode
+        to [+0, -0, +0] there), while the port, numpy and the H100 kernel
+        keep IEEE products. K1b never writes a scale below 1e-12, so the
+        wire never carries one."""
+        q = np.array([1, -3, 127], np.int8)
+        scale = np.array(0x0001A2B3, np.uint32).view(np.float32)
+        got = tq.dequantize_q8(torch.from_numpy(q), torch.from_numpy(scale))
+        assert _bits(got.numpy()) == _bits(q.astype(np.float32) * scale)
+
+    def test_nan_scale_poisons_the_leaf(self):
+        q = torch.tensor([0, 1, -127, 127], dtype=torch.int8)
+        got = tq.dequantize_q8(q, float("nan")).view(torch.int32)
+        assert (got == 0x7FC00000).all()
+
+    def test_round_trip_of_the_q8_pair(self):
+        rng = np.random.default_rng(8)
+        x = torch.from_numpy(rng.standard_normal(4099).astype(np.float32))
+        q, s, r = tq.quantize_q8_ef(x, torch.zeros_like(x))
+        # x = decode + residual, up to the residual's one rounding
+        np.testing.assert_allclose((tq.dequantize_q8(q, s) + r).numpy(),
+                                   x.numpy(), rtol=0, atol=1e-6)
+
+    def test_size_zero(self):
+        out = tq.dequantize_q8(torch.zeros(0, dtype=torch.int8), 1.0)
+        assert out.shape == (0,) and out.dtype == torch.float32
+        want = jq.dequantize_q8(jnp.zeros(0, jnp.int8), jnp.float32(1.0),
+                                interpret=True)
+        assert want.shape == (0,)
+
+    def test_refuses_non_int8_codes(self):
+        with pytest.raises(TypeError, match="int8"):
+            tq.dequantize_q8(torch.zeros(3, dtype=torch.int32), 1.0)

@@ -3,7 +3,9 @@ PipelinedDDP sync over the comm plan, commit vote, heal.
 
 - Two port replica groups against two JAX replica groups on the same
   data and the same weights (carried with ``params_from_jax``), f32
-  compute, three ``PipelinedDDP(compress="q8", transport="plan")`` steps:
+  compute, dense attention and again with ``use_flash=True`` (the port's
+  plain flash path against the JAX Pallas kernels in interpret mode),
+  three ``PipelinedDDP(compress="q8", transport="plan")`` steps:
   per-step losses agree to rel 1e-4 (f32 summation order differs between
   XLA and torch), and the first step's averaged gradients to 1e-5 of each
   leaf's absmax.
@@ -65,8 +67,8 @@ class _Recorder:
         state.apply_gradients = apply
 
 
-def _run_jax_group(g, lighthouse, init, steps):
-    cfg = jt.TransformerConfig(**_KW, dtype=jnp.float32)
+def _run_jax_group(g, lighthouse, init, steps, extra=None):
+    cfg = jt.TransformerConfig(**_KW, **(extra or {}), dtype=jnp.float32)
     vg = jax.jit(jax.value_and_grad(lambda p, t: jt.loss_fn(cfg, p, t)))
     state = jft.FTTrainState(
         jax.tree_util.tree_map(jnp.asarray, init),
@@ -94,8 +96,8 @@ def _run_jax_group(g, lighthouse, init, steps):
 
 
 def _port_group(g, lighthouse, init, min_replicas=2, device_pack=True,
-                compress="q8", grad_hook=None):
-    cfg = tt.TransformerConfig(**_KW, dtype=torch.float32)
+                compress="q8", grad_hook=None, extra=None):
+    cfg = tt.TransformerConfig(**_KW, **(extra or {}), dtype=torch.float32)
     model = tt.TransformerLM(cfg, device="cpu")
     model.load_params(tt.params_from_jax(init, device="cpu"))
     state = tft.FTTrainState(model.params(),
@@ -121,8 +123,9 @@ def _port_group(g, lighthouse, init, min_replicas=2, device_pack=True,
     return model, state, rec, collectives, manager, ddp
 
 
-def _run_port_group(g, lighthouse, init, steps):
-    model, state, rec, collectives, manager, ddp = _port_group(g, lighthouse, init)
+def _run_port_group(g, lighthouse, init, steps, extra=None):
+    model, state, rec, collectives, manager, ddp = _port_group(
+        g, lighthouse, init, extra=extra)
     try:
         losses = [float(ddp.step(torch.from_numpy(_tokens(g, i)).long()))
                   for i in range(steps)]
@@ -146,11 +149,11 @@ def _fleet(lighthouse_cls, run, *args, n=2):
         lighthouse.shutdown()
 
 
-def test_port_groups_track_jax_groups():
+def _groups_track_jax_groups(extra=None):
     init = _jax_init()
     steps = 3
-    jres = _fleet(jft.Lighthouse, _run_jax_group, init, steps)
-    tres = _fleet(tft.Lighthouse, _run_port_group, init, steps)
+    jres = _fleet(jft.Lighthouse, _run_jax_group, init, steps, extra)
+    tres = _fleet(tft.Lighthouse, _run_port_group, init, steps, extra)
     for j, t in zip(jres, tres):
         assert j["step"] == t["step"] == steps
         np.testing.assert_allclose(t["losses"], j["losses"], rtol=1e-4)
@@ -163,6 +166,14 @@ def test_port_groups_track_jax_groups():
         assert tl.shape == jl.shape
         np.testing.assert_allclose(tl, jl, rtol=0,
                                    atol=1e-5 * np.max(np.abs(jl)))
+
+
+def test_port_groups_track_jax_groups():
+    _groups_track_jax_groups()
+
+
+def test_port_groups_track_jax_groups_use_flash():
+    _groups_track_jax_groups({"use_flash": True})
 
 
 class _InjectedFailure(Exception):

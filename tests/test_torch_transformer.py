@@ -205,8 +205,12 @@ class TestTransformerBf16:
 
 
 def test_flash_path_is_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tt.TransformerConfig(use_flash=True)
+    """The flash path, once refused as the next slice, now builds; its
+    numerics are held in tests/test_torch_transformer_flash.py."""
+    cfg = tt.TransformerConfig(use_flash=True)
+    assert cfg.use_flash and cfg.attn_window is None
+    with pytest.raises(ValueError, match="use_flash"):
+        tt.TransformerConfig(attn_window=8)
 
 
 def test_default_device_is_the_card():

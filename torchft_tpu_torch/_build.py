@@ -8,7 +8,8 @@ Two products, both compiled from sources in the checkout:
   own directory, so the two packages speak one wire protocol.
 - ``libtft_kernels.so``: the hand-written CUDA kernels of ``csrc/``,
   compiled by ``nvcc`` for ``sm_90a`` with a plain C interface (bound with
-  ctypes, no PyTorch headers, so a build takes seconds).
+  ctypes, no PyTorch headers): one ``nvcc -c`` per source, all started
+  together, then one link.
 
 Each product's build is serialised across processes with an exclusive
 ``flock`` on its own lock file in ``_build/``: test workers and
@@ -28,12 +29,14 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NATIVE_SRC = os.path.join(os.path.dirname(PKG_DIR), "native")
 NATIVE_LIB = os.path.join(BUILD_DIR, "_libtorchft.so")
-KERNEL_SOURCES = [os.path.join(PKG_DIR, "csrc", "quantize_kernels.cu")]
+KERNEL_SOURCES = [
+    os.path.join(PKG_DIR, "csrc", name)
+    for name in ("quantize_kernels.cu", "flash_attention.cu")
+]
 KERNEL_LIB = os.path.join(BUILD_DIR, "libtft_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -58,19 +61,29 @@ _TOOLCHAIN_ENV = ("CC", "CXX", "CFLAGS", "CXXFLAGS", "CPPFLAGS", "LDFLAGS",
                   "LDLIBS", "EXTRA_CXXFLAGS")
 
 
-def _run(cmd: List[str], log_name: str) -> None:
+def _run_all(cmds: List[List[str]], log_name: str) -> None:
+    """Runs the commands at once; logs each one's output (in order) to
+    ``log_name`` and raises if any failed."""
     env = {k: v for k, v in os.environ.items() if k not in _TOOLCHAIN_ENV}
-    proc = subprocess.run(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env,
-    )
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=env)
+        for cmd in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
     with open(os.path.join(BUILD_DIR, log_name), "w") as log:
-        log.write(" ".join(cmd) + "\n" + proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"build failed ({' '.join(cmd[:3])} ...), exit "
-            f"{proc.returncode}:\n{proc.stdout[-4000:]}"
-        )
+        for cmd, out in zip(cmds, outs):
+            log.write(" ".join(cmd) + "\n" + out)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"build failed ({' '.join(cmd[:3])} ...), exit "
+                f"{p.returncode}:\n{out[-4000:]}"
+            )
+
+
+def _run(cmd: List[str], log_name: str) -> None:
+    _run_all([cmd], log_name)
 
 
 def build_native() -> str:
@@ -111,18 +124,27 @@ def _nvcc() -> str:
 
 def build_kernels() -> str:
     """Compiles ``csrc/*.cu`` into one shared library unless it is newer
-    than every source; returns its path. The ptxas report (registers,
-    shared memory, spills) lands in ``_build/kernels_build.log``."""
+    than every source; returns its path. The sources compile in parallel;
+    the ptxas report (registers, shared memory, spills) lands in
+    ``_build/kernels_build.log``."""
     with _locked("kernels"):
         stale = not os.path.exists(KERNEL_LIB) or any(
             os.path.getmtime(src) > os.path.getmtime(KERNEL_LIB)
             for src in KERNEL_SOURCES
         )
         if stale:
-            tmp = KERNEL_LIB + ".tmp"
-            _run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *KERNEL_SOURCES],
+            nvcc = _nvcc()
+            objs = [
+                os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + ".o")
+                for src in KERNEL_SOURCES
+            ]
+            _run_all(
+                [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src]
+                 for src, obj in zip(KERNEL_SOURCES, objs)],
                 "kernels_build.log",
             )
+            tmp = KERNEL_LIB + ".tmp"
+            _run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                 "kernels_link.log")
             os.replace(tmp, KERNEL_LIB)
     return KERNEL_LIB

@@ -1,10 +1,12 @@
 // Wire-compression kernels for Hopper (sm_90a): the q8 error-feedback
 // quantizer (absmax pass + quantize pass) and the f32 -> bf16 cast that
-// every compressed gradient step runs before its bytes leave the card.
+// every compressed gradient step runs before its bytes leave the card,
+// and the q8 decode.
 //
 // Replaces the Pallas kernels of torchft_tpu/ops/quantize_kernels.py:
 //   tft_q8_absmax   <- _absmax_kernel / _absmax     (pallas_call at :109)
 //   tft_q8_quantize <- _quant_kernel / _quantize_tiles (pallas_call at :175)
+//   tft_q8_dequantize <- _dequant_kernel / dequantize_q8 (pallas_call at :253)
 //   tft_cast_bf16   <- _cast_kernel / cast_bf16     (pallas_call at :281)
 //
 // The contract is BIT identity with the JAX kernels and with the native
@@ -19,7 +21,7 @@
 // them (3.35 TB/s of HBM on an H100 SXM). The q8 pair must at least read x
 // and the residual and write the codes and the new residual: 13 B/element
 // (the two-pass design reads x and res twice, 21 B/element). The cast reads
-// 4 B and writes 2 B per element.
+// 4 B and writes 2 B per element; the decode reads 1 B and writes 4 B.
 //
 // GPU design: blocks run in parallel and in no order, unlike the TPU's
 // sequential grid that carried the running max in the output block. The
@@ -117,6 +119,22 @@ __global__ void quantize_kernel(const float* __restrict__ x,
   }
 }
 
+// out = round32(float(q) * scale); every NaN (a NaN scale poisons the
+// leaf) is written as the canonical 0x7FC00000: the card's arithmetic
+// would give 0x7FFFFFFF, the host's decode keeps the scale's 0x7FC00000.
+__global__ void dequantize_kernel(const int8_t* __restrict__ q,
+                                  const float* __restrict__ scale, int64_t n,
+                                  float* __restrict__ out) {
+  const float s = *scale;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const float r = __fmul_rn(static_cast<float>(q[i]), s);
+    out[i] = (__float_as_uint(r) & kAbsMask) > kInfBits
+                 ? __uint_as_float(kCanonNaN) : r;
+  }
+}
+
 __global__ void cast_bf16_kernel(const float* __restrict__ x, int64_t n,
                                  uint16_t* __restrict__ out) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -161,6 +179,15 @@ int tft_q8_quantize(const void* x, const void* res, const void* absmax_bits,
       static_cast<const unsigned int*>(absmax_bits), n,
       static_cast<int8_t*>(q), static_cast<float*>(res_out),
       static_cast<float*>(scale_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tft_q8_dequantize(const void* q, const void* scale, int64_t n, void* out,
+                      void* stream) {
+  dequantize_kernel<<<blocks_for(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scale), n,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

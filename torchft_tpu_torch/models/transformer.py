@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense attention path).
+"""Decoder-only transformer LM (dense and flash attention paths).
 
 The port of ``torchft_tpu/models/transformer.py``. Parameters keep the
 JAX package's tree and layouts, so a JAX checkpoint carries straight
@@ -12,10 +12,12 @@ the same leaf order for the comm plan:
 
 Master parameters are f32; matmuls run in ``cfg.dtype`` (bf16 by
 default) with weights cast at use, ``x @ w`` with ``w`` laid out
-(in, out). Attention is dense: einsum scores, a causal mask and an f32
-softmax, as ``transformer.py:313-318`` of the JAX package. The fused
-flash-attention kernels, sliding windows, remat and context parallelism
-come with later slices.
+(in, out). Attention is dense by default: einsum scores, a causal mask
+and an f32 softmax, as ``transformer.py:313-318`` of the JAX package.
+With ``use_flash=True`` it runs through the fused flash-attention kernels
+(:func:`torchft_tpu_torch.ops.flash_attention`: no (S, S) score matrix in
+device memory), optionally as sliding-window attention
+(``attn_window``). Remat and context parallelism come with later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from torch import nn
 
 from .._device import resolve_device
 from .._tree import flatten, tree_map, unflatten
+from ..ops.flash_attention import flash_attention
 
 
 @dataclass(frozen=True)
@@ -41,13 +44,19 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq_len: int = 1024
     dtype: torch.dtype = torch.bfloat16  # activation/matmul dtype
+    # Fused flash attention (torchft_tpu_torch.ops.flash_attention) with
+    # its tile overrides (None: the kernel's own tiles) and sliding-window
+    # width (None: full causal attention; requires use_flash).
     use_flash: bool = False
+    flash_block_q: Optional[int] = None
+    flash_block_k: Optional[int] = None
+    attn_window: Optional[int] = None
 
     def __post_init__(self) -> None:
-        if self.use_flash:
-            raise NotImplementedError(
-                "flash attention lands in the next slice; use the dense "
-                "path (use_flash=False)"
+        if self.attn_window is not None and not self.use_flash:
+            raise ValueError(
+                "attn_window requires use_flash=True (the dense path does "
+                "not implement sliding windows)"
             )
         if self.d_model % self.n_heads:
             raise ValueError("d_model must be a multiple of n_heads")
@@ -134,6 +143,12 @@ def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tens
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if cfg.use_flash:
+        out = flash_attention(
+            q, k, v, window=cfg.attn_window, block_q=cfg.flash_block_q,
+            block_k=cfg.flash_block_k,
+        ).reshape(B, S, D)
+        return out @ p["wo"].to(cfg.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (cfg.head_dim ** -0.5)
     causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))
     scores = torch.where(

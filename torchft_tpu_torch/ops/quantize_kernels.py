@@ -1,4 +1,5 @@
-"""Wire-compression kernels: q8 error-feedback quantize and bf16 cast.
+"""Wire-compression kernels: q8 error-feedback quantize, q8 decode and
+bf16 cast.
 
 The port of ``torchft_tpu/ops/quantize_kernels.py``. Each function here
 has two bodies:
@@ -19,78 +20,28 @@ Numerics contract (bit identity with the JAX kernels and the native
 with a true IEEE divide; ``q = clip(round_half_even(d / scale), ±127)``;
 ``res' = d - round32(q * scale)`` with two roundings. A non-finite leaf
 gives codes 0, scale ``0x7FC00000`` and an all-``0x7FC00000`` residual.
-``cast_bf16`` rounds to nearest even and maps every NaN to
-``sign | 0x7FC0``.
+``dequantize_q8`` is ``round32(float(q) * scale)`` with every NaN written
+as ``0x7FC00000``, so a poisoned leaf (NaN scale) decodes to the same
+bits on the card as on the host. ``cast_bf16`` rounds to nearest even
+and maps every NaN to ``sign | 0x7FC0``.
 
 Bound on the card (H100 SXM, 3.35 TB/s): bytes. The q8 pair moves at
 least 13 B/element (read x and res, write the int8 code and the new
-residual), the cast 6 B/element.
+residual), the decode 5 B/element, the cast 6 B/element.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from ._lib import _kernels, device_kind
+from ._lib import launch_counts, reset_launch_counts  # noqa: F401 (re-exported)
+from ._lib import stream as _stream
+
 _SCALE_FLOOR = 1e-12
 _CANON_NAN_BITS = 0x7FC00000
-
-# Kernel name -> launches since the last reset (plain ints; bumped only
-# where a wrapper launches its CUDA kernel).
-launch_counts: Dict[str, int] = {
-    "q8_absmax": 0,     # K1a, replaces _absmax (pallas_call at :109)
-    "q8_quantize": 0,   # K1b, replaces _quantize_tiles (pallas_call at :175)
-    "cast_bf16": 0,     # K3,  replaces cast_bf16 (pallas_call at :281)
-}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-
-
-class _Kernels:
-    """The compiled library, loaded on first CUDA use (never at import:
-    the CPU tests import this module on hosts with no ``nvcc``)."""
-
-    def __init__(self) -> None:
-        self._lib: Optional[ctypes.CDLL] = None
-
-    def lib(self) -> ctypes.CDLL:
-        if self._lib is None:
-            from .._build import build_kernels
-
-            lib = ctypes.CDLL(build_kernels())
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.tft_q8_absmax.argtypes = [vp, vp, i64, vp, vp]
-            lib.tft_q8_quantize.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp]
-            lib.tft_cast_bf16.argtypes = [vp, i64, vp, vp]
-            for fn in (lib.tft_q8_absmax, lib.tft_q8_quantize,
-                       lib.tft_cast_bf16):
-                fn.restype = ctypes.c_int
-            lib.tft_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.tft_cuda_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
-
-    def launch(self, name: str, fn_name: str, *args: int) -> None:
-        lib = self.lib()
-        rc = getattr(lib, fn_name)(*args)
-        if rc != 0:
-            raise RuntimeError(
-                f"{fn_name} launch failed: "
-                f"{lib.tft_cuda_error_string(rc).decode()} ({rc})"
-            )
-        launch_counts[name] += 1
-
-
-_kernels = _Kernels()
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_pair(x: torch.Tensor, res: torch.Tensor) -> None:
@@ -100,12 +51,6 @@ def _check_pair(x: torch.Tensor, res: torch.Tensor) -> None:
         raise TypeError(f"residual must be float32, got {res.dtype}")
     if x.device != res.device:
         raise ValueError(f"x on {x.device}, res on {res.device}")
-
-
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
-        return t.device.type
-    raise ValueError(f"no kernel for tensors on {t.device}")
 
 
 # -- K1: q8 error-feedback quantize (K1a absmax, K1b quantize) ---------------
@@ -143,7 +88,7 @@ def q8_absmax(x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     propagate (the kernel keeps the largest NaN payload; which NaN is not
     part of the contract — the quantize pass canonicalizes it)."""
     _check_pair(x, res)
-    if _device_kind(x) == "cpu":
+    if device_kind(x) == "cpu":
         return _q8_absmax_plain(x, res)
     xf, rc = x.float().contiguous(), res.contiguous()
     out = torch.empty((), dtype=torch.float32, device=x.device)
@@ -158,7 +103,7 @@ def q8_quantize(
     """K1b: ``(q int8, scale f32 0-d, new_res f32)`` of the leaf given its
     ``absmax`` (from :func:`q8_absmax`)."""
     _check_pair(x, res)
-    if _device_kind(x) == "cpu":
+    if device_kind(x) == "cpu":
         return _q8_quantize_plain(x, res, absmax)
     if absmax.device != x.device or absmax.dtype != torch.float32 \
             or absmax.numel() != 1:
@@ -200,6 +145,36 @@ def quantize_q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+# -- K2: q8 decode ------------------------------------------------------------
+
+
+def _dequantize_q8_plain(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    out = q.float() * scale.float().reshape(())
+    nan = torch.full((), _CANON_NAN_BITS, dtype=torch.int32,
+                     device=out.device).view(torch.float32)
+    return torch.where(torch.isnan(out), nan, out)
+
+
+def dequantize_q8(q: torch.Tensor, scale) -> torch.Tensor:
+    """K2: the exact decode ``q * scale`` in f32 of an int8 leaf and its
+    0-d f32 scale (a float is taken as one); a NaN scale poisons the
+    whole leaf with ``0x7FC00000``. One launch on the card."""
+    if q.dtype != torch.int8:
+        raise TypeError(f"codes must be int8, got {q.dtype}")
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
+    if scale.numel() != 1:
+        raise ValueError(f"scale must be one element, got {tuple(scale.shape)}")
+    if q.numel() == 0:
+        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    if device_kind(q) == "cpu":
+        return _dequantize_q8_plain(q, scale)
+    qc, sc = q.contiguous(), scale.contiguous()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _kernels.launch("q8_dequantize", "tft_q8_dequantize", qc.data_ptr(),
+                    sc.data_ptr(), qc.numel(), out.data_ptr(), _stream(qc))
+    return out
+
+
 # -- K3: f32 -> bf16 cast -----------------------------------------------------
 
 
@@ -220,7 +195,7 @@ def cast_bf16(x: torch.Tensor) -> torch.Tensor:
     pack cast. One launch on the card."""
     if x.numel() == 0:
         return torch.zeros(x.shape, dtype=torch.bfloat16, device=x.device)
-    if _device_kind(x) == "cpu":
+    if device_kind(x) == "cpu":
         return _cast_bf16_plain(x)
     xc = x.float().contiguous()
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
@@ -234,5 +209,6 @@ def cast_bf16(x: torch.Tensor) -> torch.Tensor:
 plain = {
     "q8_absmax": _q8_absmax_plain,
     "q8_quantize": _q8_quantize_plain,
+    "q8_dequantize": _dequantize_q8_plain,
     "cast_bf16": _cast_bf16_plain,
 }
