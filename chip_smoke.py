@@ -11,21 +11,25 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
 2048, batch 16: 51 f32 leaves, 111,166,464 parameters, use_flash=True):
 
 1. build   the native control plane and the CUDA kernels from the sources
-           in the checkout (in parallel, one nvcc per source);
+           in the checkout (in parallel, one nvcc per source); prints each
+           kernel's registers and spills from ptxas (-Xptxas -v) and the
+           dynamic shared memory a launch of it takes;
 2. kernels every wire kernel (K1a q8 absmax, K1b q8 quantize, K2 q8
            decode, K3 bf16 cast) against its plain PyTorch version on the
            card, bit for bit, at the dense path's 39 leaf shapes and
            special cases (ragged, all-zero, NaN, Inf, NaN bit patterns);
            times each kernel, its plain version and the PyTorch library
            call where one exists;
-3. flash   the flash-attention kernels (K4 forward, K5 backward) against
-           their plain versions on the card within printed tolerances: the
-           big LM's call (16, 2047, 16, 64) bf16 causal, S 2048,
-           non-causal, windows 1/16/200/1000, block_k 32 (the general
-           path), head_dim 128 and f32 inputs; K5 run twice must give the
-           same bits; times both at the big LM's call beside their bounds,
-           their plain versions and scaled_dot_product_attention's (timed
-           only, never used by the port);
+3. flash   the flash-attention kernels (K4 forward, K5 backward: bf16 on
+           the tensor-core kernels, f32 on the scalar ones) against their
+           plain versions on the card within printed tolerances: the big
+           LM's call (16, 2047, 16, 64) bf16 causal, S 2048, non-causal,
+           windows 1/16/200/1000, block_k 32 (the general path), head_dim
+           128 and f32 inputs; K5 run twice must give the same bits; times
+           both (and K5's two kernels) at the big LM's call beside their
+           bounds and achieved TFLOP/s, their plain versions and
+           scaled_dot_product_attention's (timed only, never used by the
+           port);
 4. train   an in-process lighthouse and two replica-group worker processes
            sharing the GPU, each running Manager + HostCollectives +
            FTTrainState/AdamW + PipelinedDDP(compress="q8",
@@ -38,9 +42,10 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
 6. flash train  two replica-group workers train the big LM with
            use_flash=True through the same PipelinedDDP(compress="q8")
            transaction: 2 warm-up steps, 4 timed steps, then 2 steps under
-           a torch.profiler trace of the card (group 0); group 0 first
-           holds the flash loss against the dense loss on the same weights
-           (forward only, batch 2).
+           a torch.profiler trace of the card (group 0), which must show
+           the tensor-core flash kernels; group 0 first holds the flash
+           loss against the dense loss on the same weights (forward only,
+           batch 2).
 
 Checks: every step commits; every loss is finite; each worker's kernel
 launch counts equal leaves x q8 steps (K1a, K1b), groups x bf16 steps
@@ -62,6 +67,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -105,8 +111,11 @@ KERNEL_SOURCES = {
     "flash_bwd": "torchft_tpu_torch/csrc/flash_attention.cu",
 }
 PACK_KERNELS = ("absmax_kernel", "quantize_kernel", "cast_bf16_kernel")
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                 "flash_bwd_dq_kernel")
+# the flash kernels' names in a trace (both families), and the tensor-core
+# kernels the bf16 path runs
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+               "flash_bwd_dq_mma_kernel")
 TRACE_FILE = "trace_g0.json"
 REPLACES = {
     "q8_absmax": "torchft_tpu/ops/quantize_kernels.py:109",
@@ -226,6 +235,8 @@ def _trace_summary(path: str) -> dict:
         "flash_kernel_ms_total": round(sum(
             e["dur"] for e in dev if e["cat"] == "kernel"
             and any(k in e["name"] for k in FLASH_KERNELS)) / 1e3, 3),
+        "flash_kernels": _top_kernels(
+            [e for e in dev if any(k in e["name"] for k in FLASH_KERNELS)]),
         "top_kernels": _top_kernels(dev),
     }
 
@@ -433,12 +444,55 @@ def phase_build() -> dict:
         t.join()
     if errors:
         fail("build: " + "; ".join(errors))
-    with open(os.path.join(_build.BUILD_DIR, "kernels_build.log")) as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    for row in _ptxas_report(os.path.join(_build.BUILD_DIR, "kernels_build.log")):
+        log(f"  ptxas {row['name']}: {row.get('registers')} registers, "
+            f"spills {row.get('spill_stores')} B stored / "
+            f"{row.get('spill_loads')} B loaded"
+            + (f", {row['smem']} B dynamic shared memory" if "smem" in row else ""))
     times["total"] = time.perf_counter() - t0
     return times
+
+
+def _ptxas_report(path: str) -> list:
+    """Each kernel's registers and spill bytes from nvcc's ``-Xptxas -v``
+    log, and for the flash kernels the dynamic shared memory one launch
+    takes (which ptxas does not see), as the library reports it."""
+    from torchft_tpu_torch import _build
+    from torchft_tpu_torch.ops._lib import _kernels
+
+    kinds = {"fwd": 0, "dkdv": 1, "dq": 2}
+    names = []  # the kernels the sources declare
+    for src in _build.KERNEL_SOURCES:
+        with open(src) as f:
+            names += re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?"
+                                r"(\w+)\(", f.read())
+    rows = []
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                # mangled: the name follows its length
+                name = next((n for n in names if f"{len(n)}{n}" in m.group(1)),
+                            m.group(1))
+                shape = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
+                row = {"name": name}
+                if name.startswith("flash_") and shape:
+                    d, bn = map(int, shape.groups())
+                    row["name"] = f"{name}<D{d}, BN{bn}>"
+                    kind = kinds[name.split("_")[2 if "bwd" in name else 1]]
+                    row["smem"] = _kernels.lib().tft_flash_smem_bytes(
+                        kind, 1 if "_mma_" in name else 0, d, bn)
+                rows.append(row)
+            elif rows:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              line)
+                if m:
+                    rows[-1]["spill_stores"], rows[-1]["spill_loads"] = map(
+                        int, m.groups())
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    rows[-1]["registers"] = int(m.group(1))
+    return rows
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -792,6 +846,18 @@ def phase_flash_kernels() -> dict:
             f"{bound_ms / ms:.1%} of it)")
     log(f"  flash_bwd split: dk/dv kernel {split['dkdv']:.3f} ms, dq kernel "
         f"{split['dq']:.3f} ms")
+    # flops over the path's live (query, key) pairs: 2 per pair and head dim
+    # for each product (K4 2, K5 5 minimal; the split executes dk/dv 4, dq 3)
+    pair_flops = 2 * B * H * _flash_pairs(S, True, None) * D
+    tflops = lambda products, ms: products * pair_flops / ms / 1e9
+    log(f"  achieved at {FLASH_SHAPE} (bf16 bound {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f}"
+        f" TFLOP/s): K4 {tflops(2, rows['flash_fwd']['ms']):.1f} TFLOP/s; K5 "
+        f"{tflops(5, rows['flash_bwd']['ms']):.1f} TFLOP/s of its minimal "
+        f"work, the dk/dv kernel {tflops(4, split['dkdv']):.1f} and the dq "
+        f"kernel {tflops(3, split['dq']):.1f} of the products each executes "
+        f"(4 and 3); scaled_dot_product_attention forward "
+        f"{tflops(2, rows['flash_fwd']['library_ms']):.1f}, backward "
+        f"{tflops(5, rows['flash_bwd']['library_ms']):.1f}")
     return rows
 
 
@@ -990,6 +1056,10 @@ def check_flash_training(res: dict, expect_leaves: int = 51,
     for phase in ("warm", "flash", "traced"):
         if f0["phases"][phase]["digest"] != f1["phases"][phase]["digest"]:
             fail(f"flash founders' parameters differ after the {phase} phase")
+    traced = [k["name"] for k in (f0.get("trace") or {}).get("flash_kernels", [])]
+    missing = [k for k in MMA_KERNELS if not any(k in n for n in traced)]
+    if on_card and missing:
+        fail(f"the traced flash steps show no {missing} (flash kernels: {traced})")
     fvd = f0["flash_vs_dense"]
     rel = abs(fvd["flash"] - fvd["dense"]) / abs(fvd["dense"])
     if not (_finite(fvd["flash"]) and rel <= FLASH_DENSE_LOSS_RTOL):

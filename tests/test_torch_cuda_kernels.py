@@ -179,7 +179,11 @@ def _flash_check(device, shape, dtype, causal=True, window=None, block_k=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 130, 3, 64), (1, 257, 2, 128),
-                                   (1, 64, 1, 64), (2, 33, 2, 64)])
+                                   (1, 64, 1, 64), (2, 33, 2, 64),
+                                   # below one tile, and past tile multiples
+                                   (1, 8, 2, 64), (1, 65, 2, 64),
+                                   (1, 515, 2, 64), (1, 1100, 2, 64),
+                                   (1, 2047, 2, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_match_plain(cuda_device, dtype, shape, causal):
     _flash_check(cuda_device, shape, dtype, causal=causal)
@@ -201,13 +205,39 @@ def test_flash_kernels_at_the_path_sequence(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_backward_is_deterministic(cuda_device):
-    q, k, v, do, out, lse, cfg = _flash_check(
-        cuda_device, (2, 515, 2, 64), torch.bfloat16)
+@pytest.mark.parametrize("case", [
+    dict(shape=(2, 515, 2, 64)),
+    dict(shape=(1, 515, 2, 64), causal=False),
+    dict(shape=(1, 1100, 2, 64), window=1),
+    dict(shape=(1, 1100, 2, 64), window=200, block_k=32),
+    dict(shape=(2, 257, 2, 128), block_k=32),
+], ids=["causal", "non_causal", "window1", "window200_bk32", "d128_bk32"])
+def test_flash_backward_is_deterministic(cuda_device, case):
+    """dq, dk and dv carry the same bits run to run (no float atomics)."""
+    kw = dict(case)
+    shape = kw.pop("shape")
+    q, k, v, do, out, lse, cfg = _flash_check(cuda_device, shape,
+                                              torch.bfloat16, **kw)
     first = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
     second = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
-    for a, b in zip(first, second):
-        assert _bytes(a) == _bytes(b)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert _bytes(a) == _bytes(b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_k", [64, 32])
+def test_flash_kernels_window1_not_causal(cuda_device, block_k):
+    """window 1 without the causal mask: each query sees every key at or
+    after its own position (q_pos - k_pos < 1)."""
+    _flash_check(cuda_device, (1, 300, 2, 64), torch.bfloat16, causal=False,
+                 window=1, block_k=block_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_head_dim128_block_k32(cuda_device, causal):
+    _flash_check(cuda_device, (2, 257, 2, 128), torch.bfloat16,
+                 causal=causal, block_k=32)
 
 
 @pytest.mark.cuda
@@ -235,6 +265,19 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 8, 1, 64, device=cuda_device)
     with pytest.raises(ValueError, match="block_q"):
         tfa.flash_attention(q, q, q, block_q=128)
+    # cp.async copies 16-byte rows: a bf16 view at an odd storage offset,
+    # or with a row stride off the 8-element grid, raises (no copy)
+    base = torch.zeros(2 * 100 * 2 * 64 + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = base[1:].view(2, 100, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q, q, q)
+    qkv = torch.zeros(2, 100, 3 * 128 + 1, device=cuda_device,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.reshape(2, 100, 2, 64) for t in
+               torch.split(qkv[..., :3 * 128], 128, -1))
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q, k, v)
 
 
 @pytest.mark.cuda

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "tft_flash_fwd": [_VP] * 5 + _FLASH_TAIL,
     "tft_flash_bwd_dkdv": [_VP] * 8 + _FLASH_TAIL,
     "tft_flash_bwd_dq": [_VP] * 7 + _FLASH_TAIL,
+    # kind (0 forward, 1 dk/dv, 2 dq), dtype, D, block_k
+    "tft_flash_smem_bytes": [_INT] * 4,
 }
 
 

@@ -6,7 +6,12 @@ bodies, picked by the tensors' device alone:
 
 - a hand-written CUDA kernel (``csrc/flash_attention.cu``, built for
   ``sm_90a`` at first use) for tensors on the card: no (S, S) score matrix
-  ever reaches device memory; it launches or raises, never falls back;
+  ever reaches device memory; it launches or raises, never falls back.
+  The dtype picks the kernel (:func:`kernel_route`): bf16 runs the
+  tensor-core kernels (``mma.sync``, tiles streamed with ``cp.async``,
+  which needs every row 16-byte aligned: :func:`check_kernel_layout`),
+  f32 the scalar f32 kernels (f32 on tensor cores would be TF32, too
+  coarse for the f32 tolerance);
 - a plain PyTorch version (:func:`flash_fwd_plain`,
   :func:`flash_bwd_plain`) for tensors on the CPU: dense torch code with
   the kernels' masks, roundings and formulas (no
@@ -48,8 +53,9 @@ from ._lib import _kernels, device_kind
 from ._lib import stream as _stream
 
 _NEG_LARGE = -1e30
-# what the kernels take on the card
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# what the kernels take on the card: dtype -> (its code at the C entry
+# points, the kernels that code selects there)
+KERNEL_ROUTES = {torch.float32: (0, "scalar"), torch.bfloat16: (1, "mma")}
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_BLOCK_Q = 64
 KERNEL_BLOCKS_K = (64, 32)
@@ -163,6 +169,36 @@ def flash_bwd_plain(
 # -- kernels ---------------------------------------------------------------------
 
 
+def kernel_route(dtype: torch.dtype) -> str:
+    """The kernels a call on the card runs for q, k, v of ``dtype``:
+    ``"mma"`` (bf16: the tensor-core kernels) or ``"scalar"`` (f32: the
+    scalar f32 FMA kernels; f32 products on tensor cores would be TF32).
+    A dispatch by dtype, not a fallback: whichever kernel is picked
+    launches or the call raises. Raises TypeError for any other dtype."""
+    if dtype not in KERNEL_ROUTES:
+        raise TypeError(
+            f"the CUDA kernels take {sorted(map(str, KERNEL_ROUTES))}, "
+            f"got {dtype}"
+        )
+    return KERNEL_ROUTES[dtype][1]
+
+
+def check_kernel_layout(*ts: torch.Tensor) -> None:
+    """Raises ValueError unless each tensor's address and (batch, seq,
+    head) strides are 16-byte aligned, as the tensor-core kernels'
+    16-byte ``cp.async`` row copies need. The qkv split of a (B, S, 3HD)
+    projection is: its strides and offsets are multiples of the head dim.
+    A misaligned view raises rather than being copied."""
+    for t in ts:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(s * size % 16 for s in t.stride()[:3]):
+            raise ValueError(
+                "the tensor-core kernels need 16-byte aligned rows: address "
+                f"{t.data_ptr():#x} (storage offset {t.storage_offset()}), "
+                f"strides {tuple(t.stride())} of {t.dtype}"
+            )
+
+
 def _check_kernel_inputs(*ts: torch.Tensor) -> None:
     q = ts[0]
     for t in ts:
@@ -171,11 +207,8 @@ def _check_kernel_inputs(*ts: torch.Tensor) -> None:
                 "q, k, v (and do) must share device, dtype and shape; got "
                 f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in ts]}"
             )
-    if q.dtype not in KERNEL_DTYPES:
-        raise TypeError(
-            f"the CUDA kernels take {sorted(map(str, KERNEL_DTYPES))}, "
-            f"got {q.dtype}"
-        )
+    if kernel_route(q.dtype) == "mma":
+        check_kernel_layout(*ts)
     if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"the CUDA kernels take head_dim in {KERNEL_HEAD_DIMS}, got "
@@ -190,7 +223,7 @@ def _last_dim_dense(t: torch.Tensor) -> torch.Tensor:
 def _kernel_args(cfg: FlashConfig, ts) -> list:
     B, S, H, D = ts[0].shape
     strides = [s for t in ts for s in t.stride()[:3]]
-    return [KERNEL_DTYPES[ts[0].dtype], B, S, H, D,
+    return [KERNEL_ROUTES[ts[0].dtype][0], B, S, H, D,
             (ctypes.c_int64 * len(strides))(*strides), int(cfg.causal),
             cfg.window or 0, cfg.block_k, int(cfg.fast), _stream(ts[0])]
 
@@ -300,10 +333,12 @@ def flash_attention(
 
 __all__ = [
     "FlashConfig",
+    "check_kernel_layout",
     "flash_attention",
     "flash_bwd",
     "flash_bwd_plain",
     "flash_fwd",
     "flash_fwd_plain",
+    "kernel_route",
     "resolve_blocks",
 ]
