@@ -18,8 +18,15 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            decode, K3 bf16 cast) against its plain PyTorch version on the
            card, bit for bit, at the dense path's 39 leaf shapes and
            special cases (ragged, all-zero, NaN, Inf, NaN bit patterns);
-           times each kernel, its plain version and the PyTorch library
-           call where one exists;
+           K1a and K1b also as the segmented launches over whole plan
+           groups (the dense LM's 39 leaves, the flash LM's 51, the
+           specials with an empty leaf, views off the 16-byte grid, code
+           offsets off the 4-byte grid, more leaves than one table holds,
+           the dense group twice); times each kernel (K1a/K1b over the
+           dense and the flash group), its plain version and the PyTorch
+           library call where one exists, the eager time of one q8ef
+           device pack of each group, and K3 against
+           ``x.to(torch.bfloat16)`` in turns;
 3. flash   the flash-attention kernels (K4 forward, K5 backward: bf16 on
            the tensor-core kernels, f32 on the scalar ones) against their
            plain versions on the card within printed tolerances: the big
@@ -48,7 +55,8 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            batch 2).
 
 Checks: every step commits; every loss is finite; each worker's kernel
-launch counts equal leaves x q8 steps (K1a, K1b), groups x bf16 steps
+launch counts equal plan groups x q8 steps (K1a, K1b: one group, one
+launch each per step), groups x bf16 steps
 (K3), layers x forward/backward passes (K4) and 2 x layers x passes (K5;
 a pass per step, and one more for a step whose gradients a heal made
 stale), and 0 for every other kernel — the counts are reset to 0 in each worker just before it
@@ -102,6 +110,8 @@ FLASH_DENSE_LOSS_RTOL = 2.0 ** -7
 # f32 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# K3 against its library call: rounds, and graph replays of each per round
+K3_ROUNDS, K3_REPLAYS = 5, 200
 KERNEL_SOURCES = {
     "q8_absmax": "torchft_tpu_torch/csrc/quantize_kernels.cu",
     "q8_quantize": "torchft_tpu_torch/csrc/quantize_kernels.cu",
@@ -110,7 +120,8 @@ KERNEL_SOURCES = {
     "flash_fwd": "torchft_tpu_torch/csrc/flash_attention.cu",
     "flash_bwd": "torchft_tpu_torch/csrc/flash_attention.cu",
 }
-PACK_KERNELS = ("absmax_kernel", "quantize_kernel", "cast_bf16_kernel")
+PACK_KERNELS = ("q8_absmax_seg_kernel", "q8_quantize_seg_kernel",
+                "cast_bf16_kernel")
 # the flash kernels' names in a trace (both families), and the tensor-core
 # kernels the bf16 path runs
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -509,10 +520,9 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _graph_ms(fn, iters: int = 20) -> float:
-    """Device time of ``fn``'s launches, replayed as one CUDA graph: the
-    per-launch host overhead (Python, ctypes) drops out, so this is the
-    kernels' own time back to back."""
+def _capture(fn) -> "torch.cuda.CUDAGraph":
+    """``fn``'s launches captured as one CUDA graph (after a warm-up on a
+    side stream)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -525,7 +535,14 @@ def _graph_ms(fn, iters: int = 20) -> float:
             fn()
     except RuntimeError as e:
         fail(f"CUDA graph capture failed, no device time to report: {e}")
-    return _time_ms(graph.replay, iters=iters)
+    return graph
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device time of ``fn``'s launches, replayed as one CUDA graph: the
+    per-launch host overhead (Python, ctypes) drops out, so this is the
+    kernels' own time back to back."""
+    return _time_ms(_capture(fn).replay, iters=iters)
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -541,14 +558,89 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
 
 
-def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
+def _lm_shapes(lm: dict) -> list:
     from torchft_tpu_torch._tree import flatten
     from torchft_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(**lm)
+    return [tuple(p.shape) for p in flatten(tt.init_params(cfg, device="meta"))[0]]
+
+
+def _k1_group_case(qk, label: str, leaves, res0, at: int, cap: int) -> float:
+    """K1a and K1b over one plan group (the segmented launches of
+    ``quantize_q8_ef_group``) against the group's plain version on the same
+    inputs, bit for bit: codes, scales, carry, and K1a's absmax up to which
+    NaN. ``at`` puts the carry and the code buffer that many elements off
+    their allocations' start. Fails on a difference or on a launch count
+    other than one K1a and one K1b per table of up to ``cap`` segments (0:
+    the plain versions ran, no launches); returns the largest finite
+    difference (0 when it passes)."""
+    dev = res0.device
+    n = sum(x.numel() for x in leaves)
+    outs = []
+    for body in ("kernel", "plain"):
+        res = torch.empty(n + at, device=dev)[at:]
+        res.copy_(res0)
+        codes = torch.full((n + at,), 99, dtype=torch.int8, device=dev)[at:]
+        scales = torch.full((len(leaves),), 7.0, device=dev)
+        before = dict(qk.launch_counts)
+        if body == "kernel":
+            qk.quantize_q8_ef_group(leaves, res, codes, scales)
+            tables = -(-len(leaves) // cap) if cap else 0
+            got = (qk.launch_counts["q8_absmax"] - before["q8_absmax"],
+                   qk.launch_counts["q8_quantize"] - before["q8_quantize"])
+            if got != (tables, tables):
+                fail(f"K1 group {label}: launches {got}, want {tables} each")
+        else:
+            qk.plain_group["quantize_q8_ef"](leaves, res, codes, scales)
+        outs.append((codes, scales, res))
+    err = 0.0
+    for part, u, v in zip(("codes", "scales", "carry"), *outs):
+        if not _bits_equal(u, v):
+            fail(f"K1b q8_quantize disagrees on the group {label} ({part})")
+        err = max(err, _max_abs_err(u, v))
+    a_k = qk.q8_absmax_group(leaves, res0)
+    a_p = qk.plain_group["q8_absmax"](leaves, res0)
+    nan = torch.isnan(a_p)
+    if not (torch.equal(torch.isnan(a_k), nan) and _bits_equal(a_k[~nan], a_p[~nan])):
+        fail(f"K1a q8_absmax disagrees on the group {label}")
+    return err
+
+
+def _alternate_ms(fns: dict, rounds: int, iters: int) -> dict:
+    """Device ms per call of each function, each captured once as a CUDA
+    graph and replayed ``iters`` times per round, the functions in turns
+    round after round: {name: [ms of each round]}."""
+    graphs = {name: _capture(fn) for name, fn in fns.items()}
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, g in graphs.items():
+            out[name].append(_time_ms(g.replay, iters=iters))
+    return out
+
+
+def _host_ms(fn, iters: int = 20) -> float:
+    """Host ms per call of ``fn`` (dispatch only: the card is not waited
+    for), after a synchronised warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return 1e3 * t
+
+
+def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
+                  big_lm: dict = BIG_LM) -> dict:
+    from torchft_tpu_torch.collectives import _DeviceWirePacker
     from torchft_tpu_torch.ops import quantize_kernels as qk
+    from torchft_tpu_torch.ops._lib import _kernels
 
     dev = torch.device(device)
-    cfg = tt.TransformerConfig(**LM)
-    shapes = [tuple(p.shape) for p in flatten(tt.init_params(cfg, device="meta"))[0]]
+    on_card = dev.type == "cuda"  # (the plain versions launch nothing)
+    shapes = _lm_shapes(lm)
     if len(shapes) != 39:
         fail(f"expected 39 leaves, got {len(shapes)}")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -570,6 +662,7 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
 
     err = {"q8_absmax": 0.0, "q8_quantize": 0.0, "q8_dequantize": 0.0,
            "cast_bf16": 0.0}
+    # per leaf: K1a and K1b through their one-segment tables
     for name, x, r in cases:
         a_k, a_p = qk.q8_absmax(x, r), qk.plain["q8_absmax"](x, r)
         if torch.isnan(a_p):  # which NaN is not part of the contract
@@ -611,43 +704,102 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
         fail("K3 cast_bf16 disagrees on the 23.3M-element group")
     err["cast_bf16"] = max(err["cast_bf16"], _max_abs_err(b_k, b_p))
     log(f"  {len(cases)} cases + the bf16 group: K1a, K1b, K2, K3 bit-identical"
-        " to their plain versions (K2 on K1b's codes and scales, NaN scale "
-        "and empty leaf included)")
+        " to their plain versions (K1a/K1b through one-segment tables; K2 on "
+        "K1b's codes and scales, NaN scale and empty leaf included)")
+
+    # K1a/K1b over whole plan groups (one launch each per table)
+    res_flat = torch.cat([r.reshape(-1) for r in ress])
+    flash_shapes = _lm_shapes(big_lm)
+    if len(flash_shapes) != 51:
+        fail(f"expected 51 flash leaves, got {len(flash_shapes)}")
+    fgrads = [torch.randn(s, generator=gen, device=dev) * 1e-2 for s in flash_shapes]
+    fres = torch.randn(sum(x.numel() for x in fgrads), generator=gen,
+                       device=dev) * 1e-4
+    sp = list(specials.values())
+    sp_group = sp[:3] + [torch.zeros(0, device=dev)] + sp[3:] + [grads[0]]
+    unaligned = torch.randn(70001 + 16, generator=gen, device=dev)
+    emb = grads[0].reshape(-1)
+    cap = _kernels.lib().tft_q8_seg_capacity() if on_card else 512
+    sizes = torch.randint(0, 3000, (2 * cap + 77,), generator=torch.Generator()
+                          .manual_seed(8)).tolist()
+    small = [torch.randn(n, generator=gen, device=dev) for n in sizes]
+    group_cases = [
+        ("dense 39 leaves", grads, res_flat, 0),
+        ("flash 51 leaves", fgrads, fres, 0),
+        ("specials (ragged 1000003, all-zero, NaN, empty, Inf, NaN bit "
+         "patterns)", sp_group, None, 0),
+        ("views at storage offset 1", [unaligned[1:4100], unaligned[4101:70001]],
+         None, 1),
+        ("views at storage offset 3", [unaligned[3:65540], unaligned[65541:65542]],
+         None, 3),
+        ("code offsets off the 4-byte grid", [emb[:3], emb[8:13], emb[16:1019],
+                                              emb[2048:72049]], None, 0),
+        (f"{len(small)} leaves (past the {cap}-segment table)", small, None, 0),
+    ]
+    for label, leaves, res0, at in group_cases:
+        if res0 is None:
+            res0 = torch.randn(sum(x.numel() for x in leaves), generator=gen,
+                               device=dev) * 1e-3
+        e = _k1_group_case(qk, label, leaves, res0, at, cap if on_card else 0)
+        err["q8_quantize"] = max(err["q8_quantize"], e)
+    _k1_group_case(qk, "dense, again", grads, res_flat, 0, cap if on_card else 0)
+    log(f"  {len(group_cases)} plan groups ({', '.join(c[0] for c in group_cases)}):"
+        " K1a and K1b bit-identical to the plain group version, one launch each "
+        "per table; the dense group bit-identical run to run")
 
     if not timing:
         return {}
     n = sum(x.numel() for x in grads)
+    nf = sum(x.numel() for x in fgrads)
     absmaxes = [qk.q8_absmax(x, r) for x, r in zip(grads, ress)]
     neg_ress = [-r for r in ress]
-    k1a = lambda: [qk.q8_absmax(x, r) for x, r in zip(grads, ress)]
-    k1b = lambda: [qk.q8_quantize(x, r, a) for x, r, a in
-                   zip(grads, ress, absmaxes)]
     codes = [qk.q8_quantize(x, r, a)[:2] for x, r, a in
              zip(grads, ress, absmaxes)]
     k2 = lambda: [qk.dequantize_q8(c, sc) for c, sc in codes]
     k3 = lambda: qk.cast_bf16(group)
-    log(f"  eager per step (launch overhead included): K1a {_time_ms(k1a):.4f}"
-        f" ms, K1b {_time_ms(k1b):.4f} ms, K2 {_time_ms(k2):.4f} ms, "
-        f"K3 {_time_ms(k3):.4f} ms")
+    # the group passes over a copy of each carry (K1b advances it in place)
+    wire = {}
+    for key, xs, r0 in (("dense", grads, res_flat), ("flash", fgrads, fres)):
+        carry = r0.clone()
+        am = qk.q8_absmax_group(xs, carry)
+        c8 = torch.empty(carry.numel(), dtype=torch.int8, device=dev)
+        sc = torch.empty(len(xs), device=dev)
+        wire[key] = (
+            lambda xs=xs, carry=carry: qk.q8_absmax_group(xs, carry),
+            lambda xs=xs, carry=carry, am=am, c8=c8, sc=sc:
+                qk.q8_quantize_group(xs, carry, am, c8, sc),
+        )
+    log(f"  eager, launch overhead included: K1a {_time_ms(wire['dense'][0]):.4f}"
+        f" ms, K1b {_time_ms(wire['dense'][1]):.4f} ms over the dense group; "
+        f"K2 {_time_ms(k2):.4f} ms (39 leaves), K3 {_time_ms(k3):.4f} ms")
+    for key, xs in (("dense", grads), ("flash", fgrads)):
+        packer = _DeviceWirePacker(xs, "q8ef")
+        torch.cuda.synchronize()
+        pack = lambda packer=packer, xs=xs: packer._pack_on_device(xs)
+        log(f"  _DeviceWirePacker._pack_on_device, {key} group ({len(xs)} "
+            f"leaves): eager {_time_ms(pack):.4f} ms per call (card time with "
+            f"host dispatch in between), host dispatch alone "
+            f"{_host_ms(pack):.4f} ms")
+        del packer
     # ms, plain ms, library ms: device time of one step's launches (CUDA
     # graph replay), except the plain quantize, which synchronises per
     # leaf and is timed eagerly.
     times = {
         "q8_absmax": (
-            _graph_ms(k1a),
+            _graph_ms(wire["dense"][0]),
             _graph_ms(lambda: [qk.plain["q8_absmax"](x, r)
                                for x, r in zip(grads, ress)]),
-            # one PyTorch call computing max|x + res|: max|x - (-res)|
+            # one PyTorch call per leaf computing max|x + res|: max|x - (-res)|
             _graph_ms(lambda: [torch.dist(x, nr, p=float("inf"))
                                for x, nr in zip(grads, neg_ress)]),
-            8 * n,   # reads x and res
+            8,   # bytes per element: reads x and res
         ),
         "q8_quantize": (
-            _graph_ms(k1b),
+            _graph_ms(wire["dense"][1]),
             _time_ms(lambda: [qk.plain["q8_quantize"](x, r, a) for x, r, a in
                               zip(grads, ress, absmaxes)], iters=5),
-            None,    # no single PyTorch call quantizes with error feedback
-            13 * n,  # reads x and res, writes int8 codes and the residual
+            None,  # no single PyTorch call quantizes with error feedback
+            13,    # reads x and res, writes int8 codes and the residual
         ),
         "q8_dequantize": (
             _graph_ms(k2),
@@ -655,27 +807,50 @@ def phase_kernels(device: str = "cuda", timing: bool = True) -> dict:
                                for c, sc in codes]),
             # one PyTorch call: int8 codes times the f32 0-d scale
             _graph_ms(lambda: [torch.mul(c, sc) for c, sc in codes]),
-            5 * n,   # reads int8 codes, writes f32
+            5,   # reads int8 codes, writes f32
         ),
         "cast_bf16": (
             _graph_ms(k3),
             _graph_ms(lambda: qk.plain["cast_bf16"](group)),
             _graph_ms(lambda: group.to(torch.bfloat16)),
-            6 * n,   # reads f32, writes bf16
+            6,   # reads f32, writes bf16
         ),
     }
+    over = {"q8_absmax": "the dense group (39 leaves)",
+            "q8_quantize": "the dense group (39 leaves)",
+            "q8_dequantize": "39 leaves", "cast_bf16": "the 23.3M-element group"}
+    flash_ms = {"q8_absmax": _graph_ms(wire["flash"][0]),
+                "q8_quantize": _graph_ms(wire["flash"][1])}
     rows = {}
-    for name, (ms, plain_ms, lib_ms, nbytes) in times.items():
+    for name, (ms, plain_ms, lib_ms, per_elt) in times.items():
         rows[name] = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": per_elt * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": lib_ms,
         }
-        log(f"  {name}: {ms:.4f} ms/step (39 leaves) vs plain {plain_ms:.4f}"
+        log(f"  {name}: {ms:.4f} ms over {over[name]} vs plain {plain_ms:.4f}"
             f" ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
-            f"ms, bound {rows[name]['bound_ms']:.4f} ms")
+            f"ms, bound {rows[name]['bound_ms']:.4f} ms "
+            f"({rows[name]['bound_ms'] / ms:.1%} of it)")
+        if name in flash_ms:
+            rows[name]["ms_flash_group"] = flash_ms[name]
+            rows[name]["bound_ms_flash_group"] = per_elt * nf / HBM_BYTES_PER_S * 1e3
+            log(f"  {name}: {flash_ms[name]:.4f} ms over the flash group (51 "
+                f"leaves, {nf} elements), bound "
+                f"{rows[name]['bound_ms_flash_group']:.4f} ms "
+                f"({rows[name]['bound_ms_flash_group'] / flash_ms[name]:.1%})")
+    # K3 against x.to(torch.bfloat16) on the 23.3M-element group, in turns
+    k3_vs = _alternate_ms({"cast_bf16": k3,
+                           "to_bf16": lambda: group.to(torch.bfloat16)},
+                          rounds=K3_ROUNDS, iters=K3_REPLAYS)
+    log(f"  K3 vs x.to(torch.bfloat16), {K3_ROUNDS} rounds of {K3_REPLAYS} "
+        f"graph replays each, in turns, ms: {json.dumps(k3_vs)}")
+    for name in k3_vs:
+        vals = sorted(k3_vs[name])
+        log(f"    {name}: median {vals[len(vals) // 2]:.5f} ms, spread "
+            f"{vals[0]:.5f}-{vals[-1]:.5f} ms")
     return rows
 
 
@@ -947,8 +1122,9 @@ def check_training(res: dict, expect_leaves: int = 39,
                 if phase == "bf16":
                     want["cast_bf16"] = ph["dispatches"]
                 else:
-                    want["q8_absmax"] = want["q8_quantize"] = \
-                        n_leaves * ph["dispatches"]
+                    # one K1a and one K1b per plan group per step: a q8
+                    # plan is one f32 group, and its 39 leaves fit one table
+                    want["q8_absmax"] = want["q8_quantize"] = ph["dispatches"]
             if ph["launches"] != want:
                 fail(f"group {g} {phase}: launches {ph['launches']} != {want}")
             for k, n in ph["launches"].items():
@@ -1039,8 +1215,8 @@ def check_flash_training(res: dict, expect_leaves: int = 51,
                      f"steps and heals {ph['heals']}")
             want = dict.fromkeys(ph["launches"], 0)
             if on_card:
-                want.update(q8_absmax=n_leaves * steps,
-                            q8_quantize=n_leaves * steps,
+                want.update(q8_absmax=steps,  # one plan group per step
+                            q8_quantize=steps,
                             flash_fwd=n_layers * passes,
                             flash_bwd=2 * n_layers * passes)
             if ph["launches"] != want:

@@ -94,6 +94,195 @@ def test_q8ef_kernels_match_plain(cuda_device, case):
     assert tq.launch_counts["q8_quantize"] == before["q8_quantize"] + 1
 
 
+# -- K1a/K1b over a plan group (the segmented launches) -----------------------
+
+
+def _lm_shapes(**cfg):
+    from torchft_tpu_torch._tree import flatten
+    from torchft_tpu_torch.models import transformer as tt
+
+    params = tt.init_params(tt.TransformerConfig(**cfg), device="meta")
+    return [tuple(p.shape) for p in flatten(params)[0]]
+
+
+# the dense LM the repository benchmarks by default, and bench.py's "big"
+# LM (chip_smoke.py trains both)
+DENSE_LM = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=6,
+                d_ff=2048, max_seq_len=512)
+FLASH_LM = dict(vocab_size=8192, d_model=1024, n_heads=16, n_layers=8,
+                d_ff=4096, max_seq_len=2048, use_flash=True)
+
+
+def _seg_capacity() -> int:
+    from torchft_tpu_torch.ops._lib import _kernels
+
+    return _kernels.lib().tft_q8_seg_capacity()
+
+
+def _group_check(leaves, res0, at: int = 0):
+    """The group entry point on the card against its plain version on the
+    same inputs, bit for bit (codes, scales, carry; K1a's absmax too, up to
+    which NaN), with one K1a and one K1b launch per table of up to the
+    kernels' capacity. ``at`` shifts the carry and the code buffer that
+    many elements off their allocations' start (off the 16-byte grid, and
+    code offsets off the 4-byte grid). Returns the card's (codes, scales,
+    carry)."""
+    dev = res0.device
+    n = sum(l.numel() for l in leaves)
+    outs = []
+    for body in ("kernel", "plain"):
+        res = torch.empty(n + at, device=dev)[at:]
+        res.copy_(res0)
+        codes = torch.full((n + at,), 99, dtype=torch.int8, device=dev)[at:]
+        scales = torch.full((len(leaves),), 7.0, device=dev)
+        before = dict(tq.launch_counts)
+        if body == "kernel":
+            tq.quantize_q8_ef_group(leaves, res, codes, scales)
+            tables = -(-len(leaves) // _seg_capacity())
+            assert tq.launch_counts["q8_absmax"] == before["q8_absmax"] + tables
+            assert tq.launch_counts["q8_quantize"] == before["q8_quantize"] + tables
+        else:
+            tq.plain_group["quantize_q8_ef"](leaves, res, codes, scales)
+            assert tq.launch_counts == before
+        outs.append((codes, scales, res))
+    torch.cuda.synchronize()
+    for part, got, want in zip(("codes", "scales", "carry"), *outs):
+        assert _bytes(got) == _bytes(want), part
+    got = tq.q8_absmax_group(leaves, res0)
+    want = tq.plain_group["q8_absmax"](leaves, res0)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert _bytes(got[~nan]) == _bytes(want[~nan])
+    return outs[0]
+
+
+def _randn(shape, gen, dev, scale=1.0):
+    return torch.randn(shape, generator=gen, device=dev) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm", ["dense", "flash"])
+def test_q8_group_kernels_match_plain_at_the_lm_shapes(cuda_device, lm):
+    shapes = _lm_shapes(**(DENSE_LM if lm == "dense" else FLASH_LM))
+    assert len(shapes) == (39 if lm == "dense" else 51)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    leaves = [_randn(s, gen, cuda_device, 1e-2) for s in shapes]
+    res0 = _randn(sum(l.numel() for l in leaves), gen, cuda_device, 1e-4)
+    _group_check(leaves, res0)
+
+
+def _specials(dev, gen):
+    nan_bits = torch.tensor(list(NAN_BITS), dtype=torch.int64).to(torch.int32)
+    return [
+        _randn(1000003, gen, dev),
+        torch.zeros(4099, device=dev),
+        torch.tensor([1.0, float("nan"), -2.0], device=dev),
+        _randn(2048 * 3, gen, dev),
+        torch.tensor([1.0, float("inf"), 2.0], device=dev),
+        nan_bits.view(torch.float32).to(dev),
+        torch.zeros(0, device=dev),
+        _randn((37, 129), gen, dev),
+    ]
+
+
+@pytest.mark.cuda
+def test_q8_group_specials_poison_only_their_segment(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    leaves = _specials(cuda_device, gen)
+    res0 = _randn(sum(l.numel() for l in leaves), gen, cuda_device, 1e-3)
+    codes, scales, res = _group_check(leaves, res0)
+    poisoned = [bool((s.view(torch.int32) == 0x7FC00000).item()) for s in scales]
+    assert poisoned == [False, False, True, False, True, True, False, False]
+    assert scales[6].item() == np.float32(1e-12)  # the empty leaf's floor
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+def test_q8_group_misaligned_views(cuda_device, offset):
+    """Leaves, the carry and the codes at storage offsets off the 16-byte
+    grid take the scalar path of the same kernels."""
+    gen = torch.Generator(device=cuda_device).manual_seed(offset)
+    sizes = [4099, 2048, 65537, 1, 512]
+    base = _randn(sum(sizes) + offset + 8, gen, cuda_device)
+    leaves, at = [], offset
+    for n in sizes:
+        leaves.append(base[at:at + n])
+        at += n + 1
+    _group_check(leaves, _randn(sum(sizes), gen, cuda_device, 1e-3), at=offset)
+
+
+@pytest.mark.cuda
+def test_q8_group_code_offsets_off_the_4_byte_grid(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    leaves = [_randn(n, gen, cuda_device) for n in (3, 5, 7, 4096, 2049, 6, 70001)]
+    res0 = _randn(sum(l.numel() for l in leaves), gen, cuda_device, 1e-3)
+    _group_check(leaves, res0)
+
+
+@pytest.mark.cuda
+def test_q8_group_bf16_and_strided_leaves_are_copied(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    leaves = [_randn(4099, gen, cuda_device).to(torch.bfloat16),
+              _randn((64, 48), gen, cuda_device).t(),
+              _randn(1024, gen, cuda_device)]
+    res0 = _randn(sum(l.numel() for l in leaves), gen, cuda_device, 1e-3)
+    _group_check(leaves, res0)
+
+
+@pytest.mark.cuda
+def test_q8_group_past_the_table_capacity(cuda_device):
+    """More leaves than one launch's table holds: several launches, the
+    same bits."""
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    sizes = rng.integers(0, 3000, 2 * _seg_capacity() + 77).tolist()
+    leaves = [_randn(int(n), gen, cuda_device) for n in sizes]
+    res0 = _randn(sum(sizes), gen, cuda_device, 1e-3)
+    _group_check(leaves, res0)
+
+
+@pytest.mark.cuda
+def test_q8_group_is_bit_identical_run_to_run(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    leaves = [_randn(s, gen, cuda_device, 1e-2) for s in _lm_shapes(**DENSE_LM)]
+    leaves += _specials(cuda_device, gen)
+    res0 = _randn(sum(l.numel() for l in leaves), gen, cuda_device, 1e-4)
+    first = _group_check(leaves, res0)
+    second = _group_check(leaves, res0)
+    for a, b in zip(first, second):
+        assert _bytes(a) == _bytes(b)
+
+
+@pytest.mark.cuda
+def test_packer_launches_one_k1_pair_per_step(cuda_device):
+    """The q8ef device pack: one K1a and one K1b launch per plan group per
+    step, the carry advanced in place in its one flat buffer, and the
+    pack bit-identical to the plain pack of the same leaves on the CPU."""
+    from torchft_tpu_torch.collectives import _DeviceWirePacker
+
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    shapes = _lm_shapes(**DENSE_LM)
+    card = _DeviceWirePacker([torch.empty(s, device=cuda_device) for s in shapes],
+                             "q8ef")
+    host = _DeviceWirePacker([torch.empty(s) for s in shapes], "q8ef")
+    carry = card._carry.data_ptr()
+    for step in range(3):
+        leaves = [_randn(s, gen, cuda_device, 1e-2) for s in shapes]
+        before = dict(tq.launch_counts)
+        ready = torch.cuda.current_stream().record_event()
+        (pay,), (sc,) = card.pack_step(leaves, ready)
+        assert tq.launch_counts["q8_absmax"] == before["q8_absmax"] + 1
+        assert tq.launch_counts["q8_quantize"] == before["q8_quantize"] + 1
+        (hpay,), (hsc,) = host.pack_step([l.cpu() for l in leaves])
+        assert _bytes(pay) == _bytes(hpay) and _bytes(sc) == _bytes(hsc), step
+        torch.cuda.synchronize()
+        assert _bytes(card._carry) == _bytes(host._carry), step
+        assert card._carry.data_ptr() == carry
+    card.reset_feedback()
+    card.stream.synchronize()
+    assert not bool(card._carry.any())
+
+
 @pytest.mark.cuda
 def test_nonfinite_leaf_poisons_with_canonical_nan(cuda_device):
     x = torch.tensor([1.0, float("inf"), 2.0], device=cuda_device)

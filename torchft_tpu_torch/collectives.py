@@ -222,10 +222,13 @@ class _DeviceWirePacker:
     leaves' device, with the port's kernels (:mod:`.ops.quantize_kernels`),
     emitting the per-group buffers a prepacked CommPlan decodes:
 
-    - ``wire="q8ef"``: per-leaf int8 EF quantization (K1a + K1b per
-      leaf). The codes concatenate into the plan's single f32 group
-      layout, the per-leaf scales form the sidecar, and the error-feedback
-      carry lives here, on the device, never crossing to the host.
+    - ``wire="q8ef"``: per-leaf int8 EF quantization, one K1a and one
+      K1b launch for the plan's single f32 group
+      (:func:`.ops.quantize_kernels.quantize_q8_ef_group`). The codes
+      land in the group's concatenated layout in a device buffer
+      allocated once, the per-leaf scales form the sidecar, and the
+      error-feedback carry lives here as one flat f32 buffer on the
+      device, advanced in place, never crossing to the host.
     - ``wire="bf16"``: f32 leaves of a group concatenate and cast to bf16
       with one K3 launch per group; other dtypes pack natively.
     - ``wire=None``: the plain concat pack (one transfer per group).
@@ -258,15 +261,23 @@ class _DeviceWirePacker:
         # Everything the pack allocates or touches on the card lives on
         # this stream: the EF carry never meets the caller's stream.
         self.stream = torch.cuda.Stream(self.device) if self.staged else None
+        # q8ef: the EF carry (one flat f32 buffer; ``residuals`` are its
+        # per-leaf views, for any reader) and the group's wire buffers
         self.residuals: Optional[List[torch.Tensor]] = None
         if wire == "q8ef":
             ((_, idxs),) = self.groups  # q8 plans are a single f32 group
+            counts = [math.prod(self.sig[i][0]) for i in idxs]
             with self._on_stream():
-                self.residuals = [
-                    torch.zeros(self.sig[i][0], dtype=torch.float32,
-                                device=self.device)
-                    for i in idxs
-                ]
+                self._carry = torch.zeros(sum(counts), dtype=torch.float32,
+                                          device=self.device)
+                self._codes = torch.empty(sum(counts), dtype=torch.int8,
+                                          device=self.device)
+                self._scales = torch.empty(len(idxs), dtype=torch.float32,
+                                           device=self.device)
+            self.residuals = [
+                v.view(self.sig[i][0]) for i, v in
+                zip(idxs, torch.split(self._carry, counts))
+            ]
         self._host_payloads: List[torch.Tensor] = []
         self._host_scales: List[torch.Tensor] = []
         if self.staged:
@@ -291,14 +302,9 @@ class _DeviceWirePacker:
     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         if self.residuals is not None:
             ((_, idxs),) = self.groups
-            codes, scales, new_res = [], [], []
-            for k, i in enumerate(idxs):
-                q, s, r = qk.quantize_q8_ef(leaves[i], self.residuals[k])
-                codes.append(q.reshape(-1))
-                scales.append(s.reshape(1))
-                new_res.append(r)
-            self.residuals = new_res
-            return [torch.cat(codes)], [torch.cat(scales)]
+            qk.quantize_q8_ef_group([leaves[i] for i in idxs], self._carry,
+                                    self._codes, self._scales)
+            return [self._codes], [self._scales]
         payloads = []
         for gdt, idxs in self.groups:
             if gdt == torch.bfloat16 and any(
@@ -345,7 +351,7 @@ class _DeviceWirePacker:
         as the native plan carry)."""
         if self.residuals is not None:
             with self._on_stream():
-                self.residuals = [torch.zeros_like(r) for r in self.residuals]
+                self._carry.zero_()
 
 
 class _CommPlan:

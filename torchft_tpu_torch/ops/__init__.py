@@ -12,6 +12,7 @@ from .quantize_kernels import (
     dequantize_q8,
     quantize_q8,
     quantize_q8_ef,
+    quantize_q8_ef_group,
 )
 
 __all__ = [
@@ -21,5 +22,6 @@ __all__ = [
     "launch_counts",
     "quantize_q8",
     "quantize_q8_ef",
+    "quantize_q8_ef_group",
     "reset_launch_counts",
 ]

@@ -25,14 +25,21 @@ as ``0x7FC00000``, so a poisoned leaf (NaN scale) decodes to the same
 bits on the card as on the host. ``cast_bf16`` rounds to nearest even
 and maps every NaN to ``sign | 0x7FC0``.
 
-Bound on the card (H100 SXM, 3.35 TB/s): bytes. The q8 pair moves at
-least 13 B/element (read x and res, write the int8 code and the new
-residual), the decode 5 B/element, the cast 6 B/element.
+The q8 pair also runs over a whole plan group
+(:func:`quantize_q8_ef_group`): one K1a and one K1b launch over a segment
+table of the group's leaves, the codes written into the group's
+concatenated int8 buffer and the flat EF carry advanced in place; this
+is the q8ef device pack's path (``collectives._DeviceWirePacker``).
+
+Bound on the card (H100 SXM, 3.35 TB/s): bytes. K1a reads x and res (8
+B/element), K1b reads them again and writes the int8 code and the new
+residual (13 B/element); the decode moves 5 B/element, the cast 6.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import array
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +61,13 @@ def _check_pair(x: torch.Tensor, res: torch.Tensor) -> None:
 
 
 # -- K1: q8 error-feedback quantize (K1a absmax, K1b quantize) ---------------
+#
+# On the card both passes are segmented: one launch covers every leaf of a
+# table of segments (per leaf: x, carry in, carry out, element count,
+# offset in the code buffer), up to the kernels' capacity per launch. The
+# per-leaf wrappers launch them with a one-segment table; the group
+# wrappers with one segment per leaf of a plan group, writing the codes
+# into the group's concatenated buffer and the carry in place.
 
 
 def _q8_absmax_plain(x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
@@ -83,6 +97,53 @@ def _q8_quantize_plain(
     return v.to(torch.int8), scale, d - v * scale
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """The leaf as the kernels read it: itself when f32 and contiguous,
+    else an f32 copy (the only copy the q8 pair makes)."""
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
+    return x.float().contiguous()
+
+
+def _seg_table(xs: Sequence[torch.Tensor], res_ptrs: Sequence[int],
+               res_out_ptrs: Sequence[int], code_offs: Sequence[int]) -> array.array:
+    """The segment table as the entry points read it: five int64 per
+    segment (x, res, res_out, n, code_off)."""
+    rows: List[int] = []
+    for x, r, o, off in zip(xs, res_ptrs, res_out_ptrs, code_offs):
+        rows += (x.data_ptr(), r, o, x.numel(), off)
+    return array.array("q", rows)
+
+
+def _launch_seg(name: str, fn_name: str, table: array.array, tail) -> None:
+    """Launches ``fn_name`` over the segments of ``table`` in pieces of the
+    kernels' capacity, one launch each; ``tail(b)`` gives the entry
+    point's arguments after the table for the piece whose first segment
+    is ``b``."""
+    cap = _kernels.lib().tft_q8_seg_capacity()
+    addr, count = table.buffer_info()[0], len(table) // 5
+    for b in range(0, count, cap):
+        _kernels.launch(name, fn_name, addr + 40 * b, min(cap, count - b),
+                        *tail(b))
+
+
+def _absmax_launch(table: array.array, out: torch.Tensor) -> None:
+    """K1a: max |x + res| of segment i into ``out[i]`` (f32)."""
+    st, ptr = _stream(out), out.data_ptr()
+    _launch_seg("q8_absmax", "tft_q8_absmax_seg", table,
+                lambda b: (ptr + 4 * b, st))
+
+
+def _quantize_launch(table: array.array, absmax: torch.Tensor,
+                     codes: torch.Tensor, scales: torch.Tensor) -> None:
+    """K1b: segment i's codes into ``codes`` from its code offset on, its
+    scale into ``scales[i]``, its new carry at its res_out."""
+    st, a, q, sc = (_stream(codes), absmax.data_ptr(), codes.data_ptr(),
+                    scales.data_ptr())
+    _launch_seg("q8_quantize", "tft_q8_quantize_seg", table,
+                lambda b: (a + 4 * b, q, sc + 4 * b, st))
+
+
 def q8_absmax(x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     """K1a: max |x + res| over the leaf, a 0-d f32 tensor. NaN and Inf
     propagate (the kernel keeps the largest NaN payload; which NaN is not
@@ -90,11 +151,10 @@ def q8_absmax(x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     _check_pair(x, res)
     if device_kind(x) == "cpu":
         return _q8_absmax_plain(x, res)
-    xf, rc = x.float().contiguous(), res.contiguous()
-    out = torch.empty((), dtype=torch.float32, device=x.device)
-    _kernels.launch("q8_absmax", "tft_q8_absmax", xf.data_ptr(),
-                    rc.data_ptr(), xf.numel(), out.data_ptr(), _stream(xf))
-    return out
+    xf, rc = _f32(x), res.contiguous()
+    out = torch.empty(1, dtype=torch.float32, device=x.device)
+    _absmax_launch(_seg_table([xf], [rc.data_ptr()], [0], [0]), out)
+    return out.reshape(())
 
 
 def q8_quantize(
@@ -108,15 +168,13 @@ def q8_quantize(
     if absmax.device != x.device or absmax.dtype != torch.float32 \
             or absmax.numel() != 1:
         raise ValueError("absmax must be one f32 element on the leaf's device")
-    xf, rc = x.float().contiguous(), res.contiguous()
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     new_res = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    scale = torch.empty((), dtype=torch.float32, device=x.device)
-    _kernels.launch("q8_quantize", "tft_q8_quantize", xf.data_ptr(),
-                    rc.data_ptr(), absmax.data_ptr(), xf.numel(),
-                    q.data_ptr(), new_res.data_ptr(), scale.data_ptr(),
-                    _stream(xf))
-    return q, scale, new_res
+    scale = torch.empty(1, dtype=torch.float32, device=x.device)
+    xf, rc = _f32(x), res.contiguous()
+    _quantize_launch(_seg_table([xf], [rc.data_ptr()], [new_res.data_ptr()], [0]),
+                     absmax.contiguous(), q, scale)
+    return q, scale.reshape(()), new_res
 
 
 def quantize_q8_ef(
@@ -134,6 +192,140 @@ def quantize_q8_ef(
                 torch.full((), _SCALE_FLOOR, device=x.device),
                 torch.zeros(x.shape, dtype=torch.float32, device=x.device))
     return q8_quantize(x, res, q8_absmax(x, res))
+
+
+# -- K1 over a plan group -----------------------------------------------------
+
+
+def _check_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
+                 codes_out: Optional[torch.Tensor] = None,
+                 scales_out: Optional[torch.Tensor] = None) -> None:
+    n = sum(l.numel() for l in leaves)
+    want = [(res_flat, "res_flat", torch.float32, n)]
+    if codes_out is not None:
+        want.append((codes_out, "codes_out", torch.int8, n))
+    if scales_out is not None:
+        want.append((scales_out, "scales_out", torch.float32, len(leaves)))
+    dev = res_flat.device
+    for t, name, dtype, count in want:
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous 1-D {dtype} tensor, "
+                            f"got {t.dtype} {tuple(t.shape)}")
+        if t.numel() != count:
+            raise ValueError(f"{name} holds {t.numel()} elements, the group "
+                             f"needs {count}")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, res_flat on {dev}")
+    for l in leaves:
+        if l.device != dev:
+            raise ValueError(f"a leaf on {l.device}, res_flat on {dev}")
+        if not l.is_floating_point():
+            raise TypeError(f"leaves must be floating point, got {l.dtype}")
+
+
+def _code_offsets(leaves: Sequence[torch.Tensor]) -> List[int]:
+    offs, off = [], 0
+    for l in leaves:
+        offs.append(off)
+        off += l.numel()
+    return offs
+
+
+def _group_table(xs: Sequence[torch.Tensor], res_flat: torch.Tensor) -> array.array:
+    """One segment per leaf, its carry (read and written in place) being
+    its slice of ``res_flat`` and its codes at the same offset."""
+    offs = _code_offsets(xs)
+    res = [res_flat.data_ptr() + 4 * off for off in offs]
+    return _seg_table(xs, res, res, offs)
+
+
+def _q8_absmax_group_plain(leaves: Sequence[torch.Tensor],
+                           res_flat: torch.Tensor) -> torch.Tensor:
+    return torch.stack([
+        _q8_absmax_plain(l.reshape(-1), res_flat[off:off + l.numel()])
+        if l.numel() else torch.zeros((), device=res_flat.device)
+        for l, off in zip(leaves, _code_offsets(leaves))
+    ]) if leaves else torch.zeros(0, device=res_flat.device)
+
+
+def _q8_quantize_group_plain(leaves: Sequence[torch.Tensor],
+                             res_flat: torch.Tensor, absmax: torch.Tensor,
+                             codes_out: torch.Tensor,
+                             scales_out: torch.Tensor) -> None:
+    """The per-leaf plain quantize pass, concatenated: codes into
+    ``codes_out``, scales into ``scales_out``, the carry in place."""
+    for k, (l, off) in enumerate(zip(leaves, _code_offsets(leaves))):
+        r = res_flat[off:off + l.numel()]
+        q, s, new = _q8_quantize_plain(l.reshape(-1), r, absmax[k])
+        codes_out[off:off + l.numel()] = q
+        scales_out[k] = s
+        r.copy_(new)
+
+
+def _quantize_q8_ef_group_plain(leaves: Sequence[torch.Tensor],
+                                res_flat: torch.Tensor, codes_out: torch.Tensor,
+                                scales_out: torch.Tensor) -> None:
+    _q8_quantize_group_plain(leaves, res_flat,
+                             _q8_absmax_group_plain(leaves, res_flat),
+                             codes_out, scales_out)
+
+
+def q8_absmax_group(leaves: Sequence[torch.Tensor],
+                    res_flat: torch.Tensor) -> torch.Tensor:
+    """K1a over a plan group: ``(len(leaves),)`` f32, max |x + res| per
+    leaf (0 for an empty leaf), where leaf k's carry is its slice of the
+    flat f32 ``res_flat``. One launch on the card (per 512 leaves)."""
+    _check_group(leaves, res_flat)
+    if device_kind(res_flat) == "cpu":
+        return _q8_absmax_group_plain(leaves, res_flat)
+    out = torch.empty(len(leaves), dtype=torch.float32, device=res_flat.device)
+    if leaves:
+        xs = [_f32(l) for l in leaves]
+        _absmax_launch(_group_table(xs, res_flat), out)
+    return out
+
+
+def q8_quantize_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
+                      absmax: torch.Tensor, codes_out: torch.Tensor,
+                      scales_out: torch.Tensor) -> None:
+    """K1b over a plan group given :func:`q8_absmax_group`'s ``absmax``:
+    leaf k's codes into ``codes_out`` at its offset in the group's
+    concatenation, its scale into ``scales_out[k]``, and its new carry
+    over its slice of ``res_flat`` (in place). One launch on the card
+    (per 512 leaves)."""
+    _check_group(leaves, res_flat, codes_out, scales_out)
+    if absmax.dtype != torch.float32 or absmax.shape != (len(leaves),) \
+            or absmax.device != res_flat.device or not absmax.is_contiguous():
+        raise ValueError("absmax must be one f32 element per leaf, on the "
+                         "group's device")
+    if device_kind(res_flat) == "cpu":
+        _q8_quantize_group_plain(leaves, res_flat, absmax, codes_out, scales_out)
+    elif leaves:
+        xs = [_f32(l) for l in leaves]
+        _quantize_launch(_group_table(xs, res_flat), absmax, codes_out, scales_out)
+
+
+def quantize_q8_ef_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
+                         codes_out: torch.Tensor, scales_out: torch.Tensor) -> None:
+    """:func:`quantize_q8_ef` over every leaf of a plan group at once, into
+    the group's wire buffers: ``codes_out`` (int8, the leaves' element
+    count) gets the codes concatenated in leaf order, ``scales_out`` (f32,
+    one per leaf) the scales, and ``res_flat`` (f32, the concatenated EF
+    carry) advances in place. Bit-identical to the per-leaf function leaf
+    by leaf. On the card: one K1a and one K1b launch (per 512 leaves) over
+    one segment table; non-f32 or non-contiguous leaves are copied to f32
+    first."""
+    _check_group(leaves, res_flat, codes_out, scales_out)
+    if device_kind(res_flat) == "cpu":
+        _quantize_q8_ef_group_plain(leaves, res_flat, codes_out, scales_out)
+        return
+    if not leaves:
+        return
+    xs = [_f32(l) for l in leaves]
+    table = _group_table(xs, res_flat)
+    absmax = torch.empty(len(xs), dtype=torch.float32, device=res_flat.device)
+    _absmax_launch(table, absmax)
+    _quantize_launch(table, absmax, codes_out, scales_out)
 
 
 def quantize_q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -205,10 +397,15 @@ def cast_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 # Plain versions by kernel name (the names of launch_counts), for holding
-# a kernel against its plain version on the same (CUDA) inputs.
+# a kernel against its plain version on the same (CUDA) inputs; and of the
+# q8 pair over a plan group.
 plain = {
     "q8_absmax": _q8_absmax_plain,
     "q8_quantize": _q8_quantize_plain,
     "q8_dequantize": _dequantize_q8_plain,
     "cast_bf16": _cast_bf16_plain,
+}
+plain_group = {
+    "q8_absmax": _q8_absmax_group_plain,
+    "quantize_q8_ef": _quantize_q8_ef_group_plain,
 }
