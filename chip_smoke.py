@@ -16,17 +16,21 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            dynamic shared memory a launch of it takes;
 2. kernels every wire kernel (K1a q8 absmax, K1b q8 quantize, K2 q8
            decode, K3 bf16 cast) against its plain PyTorch version on the
-           card, bit for bit, at the dense path's 39 leaf shapes and
-           special cases (ragged, all-zero, NaN, Inf, NaN bit patterns);
-           K1a and K1b also as the segmented launches over whole plan
-           groups (the dense LM's 39 leaves, the flash LM's 51, the
-           specials with an empty leaf, views off the 16-byte grid, code
-           offsets off the 4-byte grid, more leaves than one table holds,
-           the dense group twice); times each kernel (K1a/K1b over the
-           dense and the flash group), its plain version and the PyTorch
-           library call where one exists, the eager time of one q8ef
-           device pack of each group, and K3 against
-           ``x.to(torch.bfloat16)`` in turns;
+           card, bit for bit, through one-segment tables at the dense
+           path's 39 leaf shapes and special cases (ragged, all-zero, NaN,
+           Inf, NaN bit patterns), and as the segmented launches over
+           whole plan groups (the dense LM's 39 leaves, the flash LM's
+           51, the specials with an empty leaf, views off the 16-byte
+           grid, wire offsets off the vector grid, more leaves than one
+           table holds, the dense group twice; K3 also over a mixed
+           f32/bf16 group and its bit patterns, K2 on the codes and scales
+           of a q8ef pack of each group and on NaN, Inf and subnormal
+           scales); times each kernel over the dense group (K1a, K1b and
+           K2 also over the flash group, K2 also as one launch per leaf),
+           its plain version and the PyTorch library call where one
+           exists, the eager time of one q8ef and one bf16 device pack of
+           each group, and K3 in turns against ``x.to(torch.bfloat16)``
+           and against the f32 concatenation then a flat cast;
 3. flash   the flash-attention kernels (K4 forward, K5 backward: bf16 on
            the tensor-core kernels, f32 on the scalar ones) against their
            plain versions on the card within printed tolerances: the big
@@ -121,7 +125,7 @@ KERNEL_SOURCES = {
     "flash_bwd": "torchft_tpu_torch/csrc/flash_attention.cu",
 }
 PACK_KERNELS = ("q8_absmax_seg_kernel", "q8_quantize_seg_kernel",
-                "cast_bf16_kernel")
+                "cast_bf16_seg_kernel")
 # the flash kernels' names in a trace (both families), and the tensor-core
 # kernels the bf16 path runs
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -346,10 +350,12 @@ def worker(cfg: dict) -> None:
         before = manager.metrics().snapshot()
         calls_before = grad_calls[0]
         qk.reset_launch_counts()
-        losses, commits, dispatches, step_s = [], [], 0, []
+        losses, commits, dispatches, step_s, mem_start = [], [], 0, [], []
         t_start = t_prev = time.perf_counter()
         i = 0
         while more(i, manager.current_step()):
+            if on_card:  # what the pipelined steps before this one hold
+                mem_start.append(torch.cuda.memory_allocated(device))
             losses.append(ddp.step(_tokens(cfg, cfg["data_offset"] + i, device)))
             i += 1
             dispatches += 1
@@ -378,6 +384,7 @@ def worker(cfg: dict) -> None:
             "launches": launches,
             "grad_passes": grad_passes,
             "step_s": step_s,
+            "mem_start": mem_start,
             "window_s": window_s,
             "timers_ms": _timer_means_ms(
                 before["timers_s"], manager.metrics().snapshot()["timers_s"]),
@@ -607,6 +614,46 @@ def _k1_group_case(qk, label: str, leaves, res0, at: int, cap: int) -> float:
     return err
 
 
+def _k3_k2_group_case(qk, label: str, leaves, at: int, cap: int) -> tuple:
+    """K3 and K2 over one plan group against their plain group versions on
+    the same inputs, bit for bit: K3 casts the leaves into a bf16 wire
+    buffer, K2 decodes the codes and scales of a q8ef pack of the same
+    leaves. ``at`` puts the bf16 buffer, the codes and K2's output that
+    many elements off their allocations' start. Fails on a difference or
+    on a launch count other than one K3 and one K2 per table of up to
+    ``cap`` segments (0: the plain versions ran, no launches); returns the
+    card's (bf16 words, decoded values)."""
+    dev = leaves[0].device
+    counts = [x.numel() for x in leaves]
+    n = sum(counts)
+    codes = torch.empty(n + at, dtype=torch.int8, device=dev)[at:]
+    scales = torch.empty(len(leaves), device=dev)
+    qk.quantize_q8_ef_group(leaves, torch.zeros(n, device=dev), codes, scales)
+    outs = []
+    for body in ("kernel", "plain"):
+        words = torch.full((n + at,), 3.0, dtype=torch.bfloat16, device=dev)[at:]
+        vals = torch.full((n + at,), 7.0, device=dev)[at:]
+        before = dict(qk.launch_counts)
+        if body == "kernel":
+            qk.cast_bf16_group(leaves, words)
+            qk.dequantize_q8_group(codes, scales, counts, vals)
+            tables = -(-len(leaves) // cap) if cap else 0
+            got = (qk.launch_counts["cast_bf16"] - before["cast_bf16"],
+                   qk.launch_counts["q8_dequantize"] - before["q8_dequantize"])
+            if got != (tables, tables):
+                fail(f"K3/K2 group {label}: launches {got}, want {tables} each")
+        else:
+            qk.plain_group["cast_bf16"](leaves, words)
+            qk.plain_group["q8_dequantize"](codes, scales, counts, vals)
+        outs.append((words, vals))
+    (w_k, v_k), (w_p, v_p) = outs
+    if not _bits_equal(w_k, w_p):
+        fail(f"K3 cast_bf16 disagrees on the group {label}")
+    if not _bits_equal(v_k, v_p):
+        fail(f"K2 dequantize_q8 disagrees on the group {label}")
+    return w_k, v_k
+
+
 def _alternate_ms(fns: dict, rounds: int, iters: int) -> dict:
     """Device ms per call of each function, each captured once as a CUDA
     graph and replayed ``iters`` times per round, the functions in turns
@@ -637,6 +684,7 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
     from torchft_tpu_torch.collectives import _DeviceWirePacker
     from torchft_tpu_torch.ops import quantize_kernels as qk
     from torchft_tpu_torch.ops._lib import _kernels
+    from torchft_tpu_torch.ops.wire_bits import CAST_BF16_WORDS, Q8_DECODE_SPECIALS
 
     dev = torch.device(device)
     on_card = dev.type == "cuda"  # (the plain versions launch nothing)
@@ -697,15 +745,16 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
         fail("K2 NaN scale does not poison the leaf with 0x7FC00000")
     if qk.dequantize_q8(torch.zeros(0, dtype=torch.int8, device=dev), s).shape != (0,):
         fail("K2 empty leaf")
-    # the bf16 wire's one f32 group, as the packer concatenates it
+    # the bf16 wire's one f32 group, flat (one segment)
     group = torch.cat([x.reshape(-1) for x in grads])
     b_k, b_p = qk.cast_bf16(group), qk.plain["cast_bf16"](group)
     if not _bits_equal(b_k, b_p):
-        fail("K3 cast_bf16 disagrees on the 23.3M-element group")
+        fail("K3 cast_bf16 disagrees on the flat 23.3M-element group")
     err["cast_bf16"] = max(err["cast_bf16"], _max_abs_err(b_k, b_p))
-    log(f"  {len(cases)} cases + the bf16 group: K1a, K1b, K2, K3 bit-identical"
-        " to their plain versions (K1a/K1b through one-segment tables; K2 on "
-        "K1b's codes and scales, NaN scale and empty leaf included)")
+    log(f"  {len(cases)} cases + the flat bf16 group: K1a, K1b, K2, K3 "
+        "bit-identical to their plain versions (each through one-segment "
+        "tables; K2 on K1b's codes and scales, NaN scale and empty leaf "
+        "included)")
 
     # K1a/K1b over whole plan groups (one launch each per table)
     res_flat = torch.cat([r.reshape(-1) for r in ress])
@@ -719,7 +768,7 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
     sp_group = sp[:3] + [torch.zeros(0, device=dev)] + sp[3:] + [grads[0]]
     unaligned = torch.randn(70001 + 16, generator=gen, device=dev)
     emb = grads[0].reshape(-1)
-    cap = _kernels.lib().tft_q8_seg_capacity() if on_card else 512
+    cap = _kernels.lib().tft_seg_capacity() if on_card else 64
     sizes = torch.randint(0, 3000, (2 * cap + 77,), generator=torch.Generator()
                           .manual_seed(8)).tolist()
     small = [torch.randn(n, generator=gen, device=dev) for n in sizes]
@@ -747,18 +796,65 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
         " K1a and K1b bit-identical to the plain group version, one launch each "
         "per table; the dense group bit-identical run to run")
 
+    # K3 and K2 over whole plan groups (one launch each per table): the
+    # same groups, a mixed f32/bf16 group (a bf16 NaN payload 0x7FC1 among
+    # its leaves), and the cast's bit patterns
+    k_cap = cap if on_card else 0
+    payload_nan = torch.tensor([0x7FC1, -0x7F], dtype=torch.int16,
+                                device=dev).view(torch.bfloat16)
+    patterns = torch.tensor(list(CAST_BF16_WORDS), dtype=torch.int64,
+                            device=dev).to(torch.int32).view(torch.float32)
+    wire_cases = [(label, leaves, at) for label, leaves, _, at in group_cases]
+    wire_cases += [
+        ("mixed f32/bf16", [grads[0], grads[1].to(torch.bfloat16), payload_nan,
+                            grads[2], fgrads[3].to(torch.bfloat16)], 0),
+        ("cast bit patterns", [grads[4], patterns, torch.zeros(0, device=dev)], 0),
+    ]
+    wire_out = {}
+    for label, leaves, at in wire_cases:
+        wire_out[label] = _k3_k2_group_case(qk, label, leaves, at, k_cap)
+    tail = wire_out["cast bit patterns"][0][-len(CAST_BF16_WORDS):]
+    words = [v & 0xFFFF for v in tail.view(torch.int16).tolist()]
+    if words != list(CAST_BF16_WORDS.values()):
+        fail(f"K3 bit patterns wrong: {[hex(v) for v in words]}")
+    mixed = wire_out["mixed f32/bf16"][0]
+    off = grads[0].numel() + grads[1].numel()
+    if [v & 0xFFFF for v in mixed[off:off + 2].view(torch.int16).tolist()] != \
+            [0x7FC0, 0xFFC0]:
+        fail("K3 does not turn a bf16 NaN payload into sign | 0x7FC0")
+    again = _k3_k2_group_case(qk, "dense, again", grads, 0, k_cap)
+    first = wire_out[group_cases[0][0]]
+    if not (_bits_equal(again[0], first[0]) and _bits_equal(again[1], first[1])):
+        fail("K3/K2 over the dense group differ run to run")
+    # K2's special scales
+    sc_bits, sc_codes, want_bits = Q8_DECODE_SPECIALS
+    k2_codes = torch.tensor([c for cs in sc_codes for c in cs], dtype=torch.int8,
+                            device=dev)
+    k2_scales = torch.tensor(sc_bits, dtype=torch.int64,
+                             device=dev).to(torch.int32).view(torch.float32)
+    counts = [len(cs) for cs in sc_codes]
+    vals = []
+    for fn in (qk.dequantize_q8_group, qk.plain_group["q8_dequantize"]):
+        vals.append(torch.empty(sum(counts), device=dev))
+        fn(k2_codes, k2_scales, counts, vals[-1])
+    got = [v & 0xFFFFFFFF for v in vals[0].view(torch.int32).tolist()]
+    if got != want_bits or not _bits_equal(vals[0], vals[1]):
+        fail(f"K2 special scales wrong: {[hex(v) for v in got]}")
+    log(f"  {len(wire_cases)} plan groups ({', '.join(c[0] for c in wire_cases)}):"
+        " K3 and K2 (on a q8ef pack of the same leaves) bit-identical to the "
+        "plain group versions, one launch each per table; the dense group "
+        "bit-identical run to run; K3's bit patterns, the bf16 NaN payload and "
+        "K2's NaN, Inf and subnormal scales as specified")
+
     if not timing:
         return {}
     n = sum(x.numel() for x in grads)
     nf = sum(x.numel() for x in fgrads)
     absmaxes = [qk.q8_absmax(x, r) for x, r in zip(grads, ress)]
     neg_ress = [-r for r in ress]
-    codes = [qk.q8_quantize(x, r, a)[:2] for x, r, a in
-             zip(grads, ress, absmaxes)]
-    k2 = lambda: [qk.dequantize_q8(c, sc) for c, sc in codes]
-    k3 = lambda: qk.cast_bf16(group)
-    # the group passes over a copy of each carry (K1b advances it in place)
-    wire = {}
+    # the group passes over a copy of each carry (K1b advances it in place);
+    # K2 decodes a q8ef pack of each group, K3 casts it into its wire buffer
+    wire, dec = {}, {}
     for key, xs, r0 in (("dense", grads, res_flat), ("flash", fgrads, fres)):
         carry = r0.clone()
         am = qk.q8_absmax_group(xs, carry)
@@ -769,18 +865,35 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
             lambda xs=xs, carry=carry, am=am, c8=c8, sc=sc:
                 qk.q8_quantize_group(xs, carry, am, c8, sc),
         )
+        qk.quantize_q8_ef_group(xs, r0.clone(), c8, sc)
+        counts = [x.numel() for x in xs]
+        out = torch.empty(carry.numel(), device=dev)
+        dec[key] = (
+            lambda c8=c8, sc=sc, counts=counts, out=out:
+                qk.dequantize_q8_group(c8, sc, counts, out),
+            [(c.view(x.shape), s) for c, s, x in
+             zip(torch.split(c8, counts), sc, xs)],  # each leaf's codes, scale
+        )
+    words = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    k3_group = lambda: qk.cast_bf16_group(grads, words)
+    k3_flat = lambda: qk.cast_bf16_group([group], words)
+    # the parent's bf16 pack: the f32 concatenation, then one flat cast
+    cat_then_k3 = lambda: qk.cast_bf16(torch.cat([x.reshape(-1) for x in grads]))
+    k2_leaves = lambda: [qk.dequantize_q8(c, s) for c, s in dec["dense"][1]]
     log(f"  eager, launch overhead included: K1a {_time_ms(wire['dense'][0]):.4f}"
-        f" ms, K1b {_time_ms(wire['dense'][1]):.4f} ms over the dense group; "
-        f"K2 {_time_ms(k2):.4f} ms (39 leaves), K3 {_time_ms(k3):.4f} ms")
+        f" ms, K1b {_time_ms(wire['dense'][1]):.4f} ms, K2 "
+        f"{_time_ms(dec['dense'][0]):.4f} ms, K3 {_time_ms(k3_group):.4f} ms "
+        f"over the dense group")
     for key, xs in (("dense", grads), ("flash", fgrads)):
-        packer = _DeviceWirePacker(xs, "q8ef")
-        torch.cuda.synchronize()
-        pack = lambda packer=packer, xs=xs: packer._pack_on_device(xs)
-        log(f"  _DeviceWirePacker._pack_on_device, {key} group ({len(xs)} "
-            f"leaves): eager {_time_ms(pack):.4f} ms per call (card time with "
-            f"host dispatch in between), host dispatch alone "
-            f"{_host_ms(pack):.4f} ms")
-        del packer
+        for wire_name in ("q8ef", "bf16"):
+            packer = _DeviceWirePacker(xs, wire_name)
+            torch.cuda.synchronize()
+            pack = lambda packer=packer, xs=xs: packer._pack_on_device(xs)
+            log(f"  _DeviceWirePacker._pack_on_device, {wire_name} wire, {key} "
+                f"group ({len(xs)} leaves): eager {_time_ms(pack):.4f} ms per "
+                f"call (card time with host dispatch in between), host "
+                f"dispatch alone {_host_ms(pack):.4f} ms")
+            del packer
     # ms, plain ms, library ms: device time of one step's launches (CUDA
     # graph replay), except the plain quantize, which synchronises per
     # leaf and is timed eagerly.
@@ -802,25 +915,25 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
             13,    # reads x and res, writes int8 codes and the residual
         ),
         "q8_dequantize": (
-            _graph_ms(k2),
-            _graph_ms(lambda: [qk.plain["q8_dequantize"](c, sc)
-                               for c, sc in codes]),
-            # one PyTorch call: int8 codes times the f32 0-d scale
-            _graph_ms(lambda: [torch.mul(c, sc) for c, sc in codes]),
+            _graph_ms(dec["dense"][0]),
+            _graph_ms(lambda: [qk.plain["q8_dequantize"](c, s)
+                               for c, s in dec["dense"][1]]),
+            # one PyTorch call per leaf: int8 codes times the f32 0-d scale
+            _graph_ms(lambda: [torch.mul(c, s) for c, s in dec["dense"][1]]),
             5,   # reads int8 codes, writes f32
         ),
         "cast_bf16": (
-            _graph_ms(k3),
-            _graph_ms(lambda: qk.plain["cast_bf16"](group)),
+            _graph_ms(k3_group),
+            _graph_ms(lambda: qk.plain_group["cast_bf16"](grads, words)),
+            # one PyTorch call on the flat group (the same values)
             _graph_ms(lambda: group.to(torch.bfloat16)),
             6,   # reads f32, writes bf16
         ),
     }
-    over = {"q8_absmax": "the dense group (39 leaves)",
-            "q8_quantize": "the dense group (39 leaves)",
-            "q8_dequantize": "39 leaves", "cast_bf16": "the 23.3M-element group"}
+    over = dict.fromkeys(times, "the dense group (39 leaves)")
     flash_ms = {"q8_absmax": _graph_ms(wire["flash"][0]),
-                "q8_quantize": _graph_ms(wire["flash"][1])}
+                "q8_quantize": _graph_ms(wire["flash"][1]),
+                "q8_dequantize": _graph_ms(dec["flash"][0])}
     rows = {}
     for name, (ms, plain_ms, lib_ms, per_elt) in times.items():
         rows[name] = {
@@ -841,16 +954,25 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
                 f"leaves, {nf} elements), bound "
                 f"{rows[name]['bound_ms_flash_group']:.4f} ms "
                 f"({rows[name]['bound_ms_flash_group'] / flash_ms[name]:.1%})")
-    # K3 against x.to(torch.bfloat16) on the 23.3M-element group, in turns
-    k3_vs = _alternate_ms({"cast_bf16": k3,
-                           "to_bf16": lambda: group.to(torch.bfloat16)},
+    rows["q8_dequantize"]["ms_per_leaf_launches"] = _graph_ms(k2_leaves)
+    log(f"  q8_dequantize: {rows['q8_dequantize']['ms_per_leaf_launches']:.4f} ms"
+        " as 39 one-segment launches (one per leaf) over the dense group")
+    # In turns: K3 over the dense group in place, over the flat group (one
+    # segment), the parent's pack sequence (f32 torch.cat, then the flat
+    # cast) and x.to(torch.bfloat16) on the flat group
+    k3_vs = _alternate_ms({"cast_bf16_group": k3_group, "cast_bf16_flat": k3_flat,
+                           "to_bf16": lambda: group.to(torch.bfloat16),
+                           "cat_then_cast_bf16": cat_then_k3},
                           rounds=K3_ROUNDS, iters=K3_REPLAYS)
-    log(f"  K3 vs x.to(torch.bfloat16), {K3_ROUNDS} rounds of {K3_REPLAYS} "
-        f"graph replays each, in turns, ms: {json.dumps(k3_vs)}")
+    log(f"  K3 in turns, {K3_ROUNDS} rounds of {K3_REPLAYS} graph replays "
+        f"each, ms: {json.dumps(k3_vs)}")
     for name in k3_vs:
         vals = sorted(k3_vs[name])
         log(f"    {name}: median {vals[len(vals) // 2]:.5f} ms, spread "
             f"{vals[0]:.5f}-{vals[-1]:.5f} ms")
+    medians = {k: sorted(v)[len(v) // 2] for k, v in k3_vs.items()}
+    rows["cast_bf16"]["ms_flat"] = medians["cast_bf16_flat"]
+    rows["cast_bf16"]["ms_cat_then_cast"] = medians["cat_then_cast_bf16"]
     return rows
 
 
@@ -1255,6 +1377,9 @@ def check_flash_training(res: dict, expect_leaves: int = 51,
         "compute_ms": [round(1e3 * r["compute_s"], 3) for r in results],
         "max_memory_allocated_gb": [
             round(r.get("max_memory_allocated", 0) / 2**30, 3) for r in results],
+        "step_start_allocated_gb": [
+            [round(b / 2**30, 3) for b in r["phases"]["flash"]["mem_start"]]
+            for r in results],
         "flash_vs_dense": {**fvd, "rel": rel},
         "trace": f0.get("trace"),
     }
@@ -1314,7 +1439,8 @@ def main() -> int:
         f"mean {fsum['plan_allreduce_ms']} ms (group 0); forward/backward "
         f"alone {fsum['compute_ms']} ms per founder; "
         f"max_memory_allocated {fsum['max_memory_allocated_gb']} GiB per "
-        f"group; flash vs dense loss {json.dumps(fsum['flash_vs_dense'])}")
+        f"group, allocated at each timed step's start "
+        f"{fsum['step_start_allocated_gb']} GiB; flash vs dense loss {json.dumps(fsum['flash_vs_dense'])}")
     log(f"  group 0 transaction timers over the timed flash steps, ms: "
         f"{fsum['timers_ms']}")
     log(f"  trace of group 0's {TRACED_FLASH_STEPS} traced flash steps (card "

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: the wire kernels bit for bit, the flash-attention kernels within
-the tolerances stated at ``_flash_tol``.
+card: the wire kernels bit for bit (per leaf through one-segment tables,
+and over whole plan groups), the flash-attention kernels within the
+tolerances stated at ``_flash_tol``.
 
 Needs a CUDA device (the hand-written kernels have no CPU interpreter);
 without one every test skips with that reason, and the plain versions are
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from torchft_tpu_torch.ops import quantize_kernels as tq
+from torchft_tpu_torch.ops.wire_bits import CAST_BF16_WORDS, Q8_DECODE_SPECIALS
 
 # the module (the package's name `flash_attention` is its entry point)
 tfa = importlib.import_module("torchft_tpu_torch.ops.flash_attention")
@@ -116,7 +118,7 @@ FLASH_LM = dict(vocab_size=8192, d_model=1024, n_heads=16, n_layers=8,
 def _seg_capacity() -> int:
     from torchft_tpu_torch.ops._lib import _kernels
 
-    return _kernels.lib().tft_q8_seg_capacity()
+    return _kernels.lib().tft_seg_capacity()
 
 
 def _group_check(leaves, res0, at: int = 0):
@@ -294,6 +296,7 @@ def test_nonfinite_leaf_poisons_with_canonical_nan(cuda_device):
 
 @pytest.mark.cuda
 def test_cast_matches_plain(cuda_device):
+    """The per-leaf cast: one launch of the segmented K3, one segment."""
     rng = np.random.default_rng(9)
     x = np.concatenate([
         rng.standard_normal(100003).astype(np.float32),
@@ -313,6 +316,7 @@ def test_cast_matches_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scale_bits", [0x3C23D70A, 0, 0x7FC00000])
 def test_dequantize_matches_plain(cuda_device, scale_bits):
+    """The per-leaf decode: one launch of the segmented K2, one segment."""
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.integers(-127, 128, 100003).astype(np.int8))
     scale = torch.tensor([scale_bits], dtype=torch.int32).view(torch.float32)[0]
@@ -322,6 +326,194 @@ def test_dequantize_matches_plain(cuda_device, scale_bits):
     assert _bytes(got) == _bytes(tq.plain["q8_dequantize"](qd, sd))
     assert _bytes(got) == _bytes(tq.dequantize_q8(q, scale))  # the CPU body
     assert tq.launch_counts["q8_dequantize"] == before + 1
+
+
+# -- K3 and K2 over a plan group (the segmented launches) ---------------------
+
+
+def _tables(n_segments: int) -> int:
+    return -(-n_segments // _seg_capacity())
+
+
+def _cast_group_check(leaves, at: int = 0):
+    """K3 over the group on the card against its plain version on the same
+    inputs, bit for bit, with one launch per table. ``at`` puts the bf16
+    buffer that many words off its allocation's start (offsets off the
+    8-byte grid). Returns the card's words."""
+    n = sum(l.numel() for l in leaves)
+    outs = []
+    for body in ("kernel", "plain"):
+        out = torch.full((n + at,), 3.0, dtype=torch.bfloat16,
+                         device=leaves[0].device)[at:]
+        before = dict(tq.launch_counts)
+        if body == "kernel":
+            tq.cast_bf16_group(leaves, out)
+            assert tq.launch_counts["cast_bf16"] == before["cast_bf16"] + _tables(len(leaves))
+        else:
+            tq.plain_group["cast_bf16"](leaves, out)
+            assert tq.launch_counts == before
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert _bytes(outs[0]) == _bytes(outs[1])
+    return outs[0]
+
+
+def _dequant_group_check(codes, scales, counts, at: int = 0):
+    """K2 over the group on the card against its plain version, bit for
+    bit, with one launch per table; ``at`` shifts the f32 output off the
+    16-byte grid. Returns the card's values."""
+    n = sum(counts)
+    outs = []
+    for body in ("kernel", "plain"):
+        out = torch.full((n + at,), 7.0, device=codes.device)[at:]
+        before = dict(tq.launch_counts)
+        if body == "kernel":
+            tq.dequantize_q8_group(codes, scales, counts, out)
+            assert tq.launch_counts["q8_dequantize"] == \
+                before["q8_dequantize"] + _tables(len(counts))
+        else:
+            tq.plain_group["q8_dequantize"](codes, scales, counts, out)
+            assert tq.launch_counts == before
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert _bytes(outs[0]) == _bytes(outs[1])
+    return outs[0]
+
+
+def _q8_wire(leaves, at: int = 0):
+    """The codes and scales of a q8ef group pack of ``leaves`` (the codes
+    ``at`` bytes off their allocation's start) and the leaves' counts."""
+    dev = leaves[0].device
+    n = sum(l.numel() for l in leaves)
+    codes = torch.empty(n + at, dtype=torch.int8, device=dev)[at:]
+    scales = torch.empty(len(leaves), device=dev)
+    tq.quantize_q8_ef_group(leaves, torch.zeros(n, device=dev), codes, scales)
+    return codes, scales, [l.numel() for l in leaves]
+
+
+def _wire_group(case: str, dev):
+    """(leaves, buffer offset) of a named group for K3 and K2."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    if case in ("dense", "flash"):
+        shapes = _lm_shapes(**(DENSE_LM if case == "dense" else FLASH_LM))
+        return [_randn(s, gen, dev, 1e-2) for s in shapes], 0
+    if case == "specials":
+        return _specials(dev, gen) + [
+            torch.tensor(list(CAST_BF16_WORDS), dtype=torch.int64)
+            .to(torch.int32).view(torch.float32).to(dev)], 0
+    if case in ("views_at_offset_1", "views_at_offset_3"):
+        offset = int(case[-1])
+        sizes = [4099, 2048, 65537, 1, 512]
+        base = _randn(sum(sizes) + offset + 8, gen, dev)
+        leaves, at = [], offset
+        for n in sizes:
+            leaves.append(base[at:at + n])
+            at += n + 1
+        return leaves, offset
+    if case == "offsets_off_the_vector_grid":
+        return [_randn(n, gen, dev) for n in (3, 5, 7, 4096, 2049, 6, 70001)], 0
+    if case == "past_the_table_capacity":
+        sizes = np.random.default_rng(8).integers(0, 3000, 2 * _seg_capacity() + 77)
+        return [_randn(int(n), gen, dev) for n in sizes], 0
+    raise KeyError(case)
+
+
+WIRE_GROUPS = ("dense", "flash", "specials", "views_at_offset_1",
+               "views_at_offset_3", "offsets_off_the_vector_grid",
+               "past_the_table_capacity")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIRE_GROUPS)
+def test_cast_group_matches_plain(cuda_device, case):
+    leaves, at = _wire_group(case, cuda_device)
+    words = _cast_group_check(leaves, at)
+    if case == "specials":
+        got = words[-len(CAST_BF16_WORDS):].view(torch.int16).cpu().numpy()
+        assert got.view(np.uint16).tolist() == list(CAST_BF16_WORDS.values())
+
+
+@pytest.mark.cuda
+def test_cast_group_mixed_bf16_and_strided_leaves(cuda_device):
+    """Native bf16 leaves (a NaN payload 0x7FC1 among them) and a strided
+    view are copied to f32 first: the words are those of the f32 cast."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    nan_payload = torch.tensor([0x7FC1, -0x7F], dtype=torch.int16).view(torch.bfloat16)
+    leaves = [_randn(4099, gen, cuda_device).to(torch.bfloat16),
+              _randn((64, 48), gen, cuda_device).t(),
+              nan_payload.to(cuda_device), _randn(1024, gen, cuda_device)]
+    words = _cast_group_check(leaves)
+    nan_words = words[4099 + 64 * 48:][:2].view(torch.int16).cpu().numpy()
+    assert nan_words.view(np.uint16).tolist() == [0x7FC0, 0xFFC0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIRE_GROUPS)
+def test_dequantize_group_matches_plain(cuda_device, case):
+    """K2 on the codes and scales of a real q8ef group pack; the code
+    buffer and the output shifted off their vector grids for the views
+    cases."""
+    leaves, at = _wire_group(case, cuda_device)
+    codes, scales, counts = _q8_wire(leaves, at)
+    _dequant_group_check(codes, scales, counts, at)
+
+
+@pytest.mark.cuda
+def test_dequantize_group_special_scales(cuda_device):
+    """A NaN scale and an Inf scale on zero codes poison their leaf with
+    0x7FC00000; the subnormal scale 0x0001A2B3 keeps IEEE products (F5)."""
+    scale_bits, leaf_codes, want = Q8_DECODE_SPECIALS
+    codes = torch.tensor([c for cs in leaf_codes for c in cs], dtype=torch.int8,
+                         device=cuda_device)
+    scales = torch.tensor(scale_bits, dtype=torch.int64).to(torch.int32)
+    got = _dequant_group_check(codes, scales.view(torch.float32).to(cuda_device),
+                               [len(cs) for cs in leaf_codes])
+    assert got.view(torch.int32).cpu().numpy().view(np.uint32).tolist() == want
+
+
+@pytest.mark.cuda
+def test_wire_groups_are_bit_identical_run_to_run(cuda_device):
+    leaves, _ = _wire_group("dense", cuda_device)
+    leaves += _wire_group("specials", cuda_device)[0]
+    assert _bytes(_cast_group_check(leaves)) == _bytes(_cast_group_check(leaves))
+    codes, scales, counts = _q8_wire(leaves)
+    assert _bytes(_dequant_group_check(codes, scales, counts)) == \
+        _bytes(_dequant_group_check(codes, scales, counts))
+
+
+@pytest.mark.cuda
+def test_packer_launches_one_k3_per_bf16_group_per_step(cuda_device):
+    """The bf16 device pack: one K3 launch per bf16 group with f32 leaves
+    per step, into the wire buffer allocated once, no other kernel of the
+    port, and the payloads bit-identical to the plain pack on the CPU."""
+    from torchft_tpu_torch.collectives import _DeviceWirePacker
+
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    shapes = _lm_shapes(**DENSE_LM)
+
+    def leaves_of(dev):
+        return [torch.empty(s, device=dev) for s in shapes] + [
+            torch.empty(5, dtype=torch.bfloat16, device=dev),
+            torch.empty(3, dtype=torch.int32, device=dev)]
+
+    card = _DeviceWirePacker(leaves_of(cuda_device), "bf16")
+    host = _DeviceWirePacker(leaves_of("cpu"), "bf16")
+    assert len(card.groups) == 2
+    wire = card._casts[0].data_ptr()
+    for step in range(3):
+        leaves = [_randn(s, gen, cuda_device, 1e-2) for s in shapes]
+        leaves += [_randn(5, gen, cuda_device).to(torch.bfloat16),
+                   torch.arange(3, dtype=torch.int32, device=cuda_device) + step]
+        before = dict(tq.launch_counts)
+        ready = torch.cuda.current_stream().record_event()
+        pays, scales = card.pack_step(leaves, ready)
+        want = dict(before, cast_bf16=before["cast_bf16"] + 1)
+        assert tq.launch_counts == want
+        hpays, _ = host.pack_step([l.cpu() for l in leaves])
+        assert scales == []
+        for a, b in zip(pays, hpays):
+            assert _bytes(a) == _bytes(b), step
+        assert card._casts[0].data_ptr() == wire
 
 
 def _flash_inputs(device, shape, dtype, seed=0):

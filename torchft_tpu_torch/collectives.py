@@ -229,8 +229,11 @@ class _DeviceWirePacker:
       allocated once, the per-leaf scales form the sidecar, and the
       error-feedback carry lives here as one flat f32 buffer on the
       device, advanced in place, never crossing to the host.
-    - ``wire="bf16"``: f32 leaves of a group concatenate and cast to bf16
-      with one K3 launch per group; other dtypes pack natively.
+    - ``wire="bf16"``: a bf16 group with f32 leaves is cast by one K3
+      launch (:func:`.ops.quantize_kernels.cast_bf16_group`) that reads
+      the leaves in place and writes the group's bf16 wire buffer,
+      allocated once here; an all-bf16 group and other dtypes pack
+      natively (concatenated).
     - ``wire=None``: the plain concat pack (one transfer per group).
 
     For leaves on the card the pack runs on the packer's own stream,
@@ -278,6 +281,18 @@ class _DeviceWirePacker:
                 v.view(self.sig[i][0]) for i, v in
                 zip(idxs, torch.split(self._carry, counts))
             ]
+        # bf16: each group's bf16 wire buffer where K3 casts (None: the
+        # group concatenates natively)
+        self._casts: List[Optional[torch.Tensor]] = [None] * len(self.groups)
+        if wire == "bf16":
+            with self._on_stream():
+                for g, (gdt, idxs) in enumerate(self.groups):
+                    if gdt == torch.bfloat16 and any(
+                        self.sig[i][1] != torch.bfloat16 for i in idxs
+                    ):
+                        self._casts[g] = torch.empty(
+                            sum(math.prod(self.sig[i][0]) for i in idxs),
+                            dtype=torch.bfloat16, device=self.device)
         self._host_payloads: List[torch.Tensor] = []
         self._host_scales: List[torch.Tensor] = []
         if self.staged:
@@ -306,14 +321,14 @@ class _DeviceWirePacker:
                                     self._codes, self._scales)
             return [self._codes], [self._scales]
         payloads = []
-        for gdt, idxs in self.groups:
-            if gdt == torch.bfloat16 and any(
-                self.sig[i][1] != torch.bfloat16 for i in idxs
-            ):
-                # f32 (or mixed) sources: concat in f32, one cast launch
-                # per group (bf16 -> f32 -> bf16 round-trips exactly).
-                buf = torch.cat([leaves[i].float().reshape(-1) for i in idxs])
-                payloads.append(qk.cast_bf16(buf))
+        for (gdt, idxs), buf in zip(self.groups, self._casts):
+            if buf is not None:
+                # f32 (or mixed) sources: one cast launch per group into
+                # its wire buffer (bf16 -> f32 -> bf16 round-trips exactly).
+                # Reusing the buffer is safe: its d2h copy runs on this
+                # stream and pack_step waits for it before returning.
+                qk.cast_bf16_group([leaves[i] for i in idxs], buf)
+                payloads.append(buf)
             else:
                 payloads.append(
                     torch.cat([leaves[i].to(gdt).reshape(-1) for i in idxs])

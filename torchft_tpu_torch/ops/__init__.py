@@ -9,7 +9,9 @@ from ._lib import launch_counts, reset_launch_counts
 from .flash_attention import flash_attention
 from .quantize_kernels import (
     cast_bf16,
+    cast_bf16_group,
     dequantize_q8,
+    dequantize_q8_group,
     quantize_q8,
     quantize_q8_ef,
     quantize_q8_ef_group,
@@ -17,7 +19,9 @@ from .quantize_kernels import (
 
 __all__ = [
     "cast_bf16",
+    "cast_bf16_group",
     "dequantize_q8",
+    "dequantize_q8_group",
     "flash_attention",
     "launch_counts",
     "quantize_q8",

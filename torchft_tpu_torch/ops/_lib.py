@@ -20,10 +20,10 @@ import torch
 # where a wrapper launches its CUDA kernel, never by a plain version).
 launch_counts: Dict[str, int] = {
     "q8_absmax": 0,     # K1a, replaces _absmax (quantize_kernels.py:109);
-                        # a launch covers a leaf or <= 512 leaves of a group
+                        # a launch covers a leaf or <= 64 leaves of a group
     "q8_quantize": 0,   # K1b, replaces _quantize_tiles (:175); likewise
-    "q8_dequantize": 0,  # K2, replaces dequantize_q8 (:253)
-    "cast_bf16": 0,     # K3,  replaces cast_bf16 (:281)
+    "q8_dequantize": 0,  # K2, replaces dequantize_q8 (:253); likewise
+    "cast_bf16": 0,     # K3,  replaces cast_bf16 (:281); likewise
     "flash_fwd": 0,     # K4,  replaces _flash_fwd_call (flash_attention.py:261)
     "flash_bwd": 0,     # K5,  replaces _flash_bwd_call (:382); 2 per backward
 }
@@ -34,21 +34,22 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-_VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_int64)
-# the q8 pair's segment table (the address of rows of five int64: x, res,
-# res_out, n, code_off) and its row count
+# a segmented kernel's table (the address of its rows of int64: five for
+# the q8 pair, x, res, res_out, n, code_off; three for K2, dst, n,
+# code_off, and for K3, src, n, dst_off) and its row count
 _SEGS = [_VP, _INT]
 # the flash entry points' shared tail: dtype, B, S, H, D, strides,
 # causal, window, block_k, fast, stream
 _FLASH_TAIL = [_INT, _INT, _INT, _INT, _INT, _STRIDES, _INT, _INT, _INT,
                _INT, _VP]
 _SIGNATURES = {
-    "tft_q8_seg_capacity": [],
+    "tft_seg_capacity": [],
     "tft_q8_absmax_seg": _SEGS + [_VP, _VP],
     "tft_q8_quantize_seg": _SEGS + [_VP, _VP, _VP, _VP],
-    "tft_q8_dequantize": [_VP, _VP, _I64, _VP, _VP],
-    "tft_cast_bf16": [_VP, _I64, _VP, _VP],
+    "tft_q8_dequantize_seg": _SEGS + [_VP, _VP, _VP],
+    "tft_cast_bf16_seg": _SEGS + [_VP, _VP],
     "tft_flash_fwd": [_VP] * 5 + _FLASH_TAIL,
     "tft_flash_bwd_dkdv": [_VP] * 8 + _FLASH_TAIL,
     "tft_flash_bwd_dq": [_VP] * 7 + _FLASH_TAIL,

@@ -25,11 +25,16 @@ as ``0x7FC00000``, so a poisoned leaf (NaN scale) decodes to the same
 bits on the card as on the host. ``cast_bf16`` rounds to nearest even
 and maps every NaN to ``sign | 0x7FC0``.
 
-The q8 pair also runs over a whole plan group
-(:func:`quantize_q8_ef_group`): one K1a and one K1b launch over a segment
-table of the group's leaves, the codes written into the group's
-concatenated int8 buffer and the flat EF carry advanced in place; this
-is the q8ef device pack's path (``collectives._DeviceWirePacker``).
+Every kernel is segmented: one launch takes a table of the leaves of a
+plan group (up to the kernels' capacity, 64 leaves), reading them in
+place. :func:`quantize_q8_ef_group` runs one K1a and one K1b launch, the
+codes written into the group's concatenated int8 buffer and the flat EF
+carry advanced in place (the q8ef device pack's path,
+``collectives._DeviceWirePacker``); :func:`cast_bf16_group` one K3
+launch, the bf16 words written into the group's wire buffer (the bf16
+device pack's path); :func:`dequantize_q8_group` one K2 launch, the
+inverse of the q8ef group layout. The per-leaf functions launch the same
+kernels with a one-segment table.
 
 Bound on the card (H100 SXM, 3.35 TB/s): bytes. K1a reads x and res (8
 B/element), K1b reads them again and writes the int8 code and the new
@@ -107,30 +112,31 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 
 def _seg_table(xs: Sequence[torch.Tensor], res_ptrs: Sequence[int],
                res_out_ptrs: Sequence[int], code_offs: Sequence[int]) -> array.array:
-    """The segment table as the entry points read it: five int64 per
-    segment (x, res, res_out, n, code_off)."""
+    """The q8 pair's segment table as the entry points read it: five int64
+    per segment (x, res, res_out, n, code_off)."""
     rows: List[int] = []
     for x, r, o, off in zip(xs, res_ptrs, res_out_ptrs, code_offs):
         rows += (x.data_ptr(), r, o, x.numel(), off)
     return array.array("q", rows)
 
 
-def _launch_seg(name: str, fn_name: str, table: array.array, tail) -> None:
-    """Launches ``fn_name`` over the segments of ``table`` in pieces of the
-    kernels' capacity, one launch each; ``tail(b)`` gives the entry
-    point's arguments after the table for the piece whose first segment
-    is ``b``."""
-    cap = _kernels.lib().tft_q8_seg_capacity()
-    addr, count = table.buffer_info()[0], len(table) // 5
+def _launch_seg(name: str, fn_name: str, table: array.array, width: int,
+                tail) -> None:
+    """Launches ``fn_name`` over the segments of ``table`` (rows of
+    ``width`` int64) in pieces of the kernels' capacity, one launch each;
+    ``tail(b)`` gives the entry point's arguments after the table for the
+    piece whose first segment is ``b``."""
+    cap = _kernels.lib().tft_seg_capacity()
+    addr, count = table.buffer_info()[0], len(table) // width
     for b in range(0, count, cap):
-        _kernels.launch(name, fn_name, addr + 40 * b, min(cap, count - b),
-                        *tail(b))
+        _kernels.launch(name, fn_name, addr + 8 * width * b,
+                        min(cap, count - b), *tail(b))
 
 
 def _absmax_launch(table: array.array, out: torch.Tensor) -> None:
     """K1a: max |x + res| of segment i into ``out[i]`` (f32)."""
     st, ptr = _stream(out), out.data_ptr()
-    _launch_seg("q8_absmax", "tft_q8_absmax_seg", table,
+    _launch_seg("q8_absmax", "tft_q8_absmax_seg", table, 5,
                 lambda b: (ptr + 4 * b, st))
 
 
@@ -140,7 +146,7 @@ def _quantize_launch(table: array.array, absmax: torch.Tensor,
     scale into ``scales[i]``, its new carry at its res_out."""
     st, a, q, sc = (_stream(codes), absmax.data_ptr(), codes.data_ptr(),
                     scales.data_ptr())
-    _launch_seg("q8_quantize", "tft_q8_quantize_seg", table,
+    _launch_seg("q8_quantize", "tft_q8_quantize_seg", table, 5,
                 lambda b: (a + 4 * b, q, sc + 4 * b, st))
 
 
@@ -197,38 +203,51 @@ def quantize_q8_ef(
 # -- K1 over a plan group -----------------------------------------------------
 
 
-def _check_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
-                 codes_out: Optional[torch.Tensor] = None,
-                 scales_out: Optional[torch.Tensor] = None) -> None:
-    n = sum(l.numel() for l in leaves)
-    want = [(res_flat, "res_flat", torch.float32, n)]
-    if codes_out is not None:
-        want.append((codes_out, "codes_out", torch.int8, n))
-    if scales_out is not None:
-        want.append((scales_out, "scales_out", torch.float32, len(leaves)))
-    dev = res_flat.device
-    for t, name, dtype, count in want:
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            raise TypeError(f"{name} must be a contiguous 1-D {dtype} tensor, "
-                            f"got {t.dtype} {tuple(t.shape)}")
-        if t.numel() != count:
-            raise ValueError(f"{name} holds {t.numel()} elements, the group "
-                             f"needs {count}")
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, res_flat on {dev}")
+def _check_flat(t: torch.Tensor, name: str, dtype: torch.dtype, count: int,
+                dev: torch.device) -> None:
+    """``t`` is one of a group's flat buffers: contiguous 1-D ``dtype``,
+    ``count`` elements, on the group's device."""
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        raise TypeError(f"{name} must be a contiguous 1-D {dtype} tensor, "
+                        f"got {t.dtype} {tuple(t.shape)}")
+    if t.numel() != count:
+        raise ValueError(f"{name} holds {t.numel()} elements, the group "
+                         f"needs {count}")
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, the group on {dev}")
+
+
+def _check_leaves(leaves: Sequence[torch.Tensor], dev: torch.device) -> None:
     for l in leaves:
         if l.device != dev:
-            raise ValueError(f"a leaf on {l.device}, res_flat on {dev}")
+            raise ValueError(f"a leaf on {l.device}, the group on {dev}")
         if not l.is_floating_point():
             raise TypeError(f"leaves must be floating point, got {l.dtype}")
 
 
-def _code_offsets(leaves: Sequence[torch.Tensor]) -> List[int]:
+def _check_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
+                 codes_out: Optional[torch.Tensor] = None,
+                 scales_out: Optional[torch.Tensor] = None) -> None:
+    n, dev = sum(l.numel() for l in leaves), res_flat.device
+    _check_flat(res_flat, "res_flat", torch.float32, n, dev)
+    if codes_out is not None:
+        _check_flat(codes_out, "codes_out", torch.int8, n, dev)
+    if scales_out is not None:
+        _check_flat(scales_out, "scales_out", torch.float32, len(leaves), dev)
+    _check_leaves(leaves, dev)
+
+
+def _offsets(counts: Sequence[int]) -> List[int]:
+    """Each leaf's offset in the group's concatenation."""
     offs, off = [], 0
-    for l in leaves:
+    for n in counts:
         offs.append(off)
-        off += l.numel()
+        off += n
     return offs
+
+
+def _code_offsets(leaves: Sequence[torch.Tensor]) -> List[int]:
+    return _offsets([l.numel() for l in leaves])
 
 
 def _group_table(xs: Sequence[torch.Tensor], res_flat: torch.Tensor) -> array.array:
@@ -274,7 +293,7 @@ def q8_absmax_group(leaves: Sequence[torch.Tensor],
                     res_flat: torch.Tensor) -> torch.Tensor:
     """K1a over a plan group: ``(len(leaves),)`` f32, max |x + res| per
     leaf (0 for an empty leaf), where leaf k's carry is its slice of the
-    flat f32 ``res_flat``. One launch on the card (per 512 leaves)."""
+    flat f32 ``res_flat``. One launch on the card (per 64 leaves)."""
     _check_group(leaves, res_flat)
     if device_kind(res_flat) == "cpu":
         return _q8_absmax_group_plain(leaves, res_flat)
@@ -292,7 +311,7 @@ def q8_quantize_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
     leaf k's codes into ``codes_out`` at its offset in the group's
     concatenation, its scale into ``scales_out[k]``, and its new carry
     over its slice of ``res_flat`` (in place). One launch on the card
-    (per 512 leaves)."""
+    (per 64 leaves)."""
     _check_group(leaves, res_flat, codes_out, scales_out)
     if absmax.dtype != torch.float32 or absmax.shape != (len(leaves),) \
             or absmax.device != res_flat.device or not absmax.is_contiguous():
@@ -312,7 +331,7 @@ def quantize_q8_ef_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
     count) gets the codes concatenated in leaf order, ``scales_out`` (f32,
     one per leaf) the scales, and ``res_flat`` (f32, the concatenated EF
     carry) advances in place. Bit-identical to the per-leaf function leaf
-    by leaf. On the card: one K1a and one K1b launch (per 512 leaves) over
+    by leaf. On the card: one K1a and one K1b launch (per 64 leaves) over
     one segment table; non-f32 or non-contiguous leaves are copied to f32
     first."""
     _check_group(leaves, res_flat, codes_out, scales_out)
@@ -338,6 +357,10 @@ def quantize_q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # -- K2: q8 decode ------------------------------------------------------------
+#
+# One launch decodes a table of segments (per leaf: destination, element
+# count, offset in the group's code buffer; the scale is the segment's
+# index in the scales). The layout is the inverse of quantize_q8_ef_group's.
 
 
 def _dequantize_q8_plain(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -347,10 +370,47 @@ def _dequantize_q8_plain(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(out), nan, out)
 
 
+def _dequantize_q8_group_plain(codes: torch.Tensor, scales: torch.Tensor,
+                               counts: Sequence[int], out: torch.Tensor) -> None:
+    for k, (n, off) in enumerate(zip(counts, _offsets(counts))):
+        out[off:off + n] = _dequantize_q8_plain(codes[off:off + n], scales[k])
+
+
+def dequantize_q8_group(codes: torch.Tensor, scales: torch.Tensor,
+                        counts: Sequence[int], out: torch.Tensor) -> None:
+    """:func:`dequantize_q8` over every leaf of a plan group at once: the
+    int8 ``codes`` and f32 ``scales`` that :func:`quantize_q8_ef_group`
+    wrote for leaves of ``counts`` elements decode into the flat f32
+    ``out`` (leaf k's values at its offset in the concatenation). Bit-
+    identical to the per-leaf function leaf by leaf. One launch on the
+    card (per 64 leaves)."""
+    counts = [int(n) for n in counts]
+    if any(n < 0 for n in counts):
+        raise ValueError(f"negative element count in {counts}")
+    n = sum(counts)
+    dev = out.device
+    _check_flat(codes, "codes", torch.int8, n, dev)
+    _check_flat(scales, "scales", torch.float32, len(counts), dev)
+    _check_flat(out, "out", torch.float32, n, dev)
+    if device_kind(out) == "cpu":
+        _dequantize_q8_group_plain(codes, scales, counts, out)
+        return
+    if not counts:
+        return
+    base = out.data_ptr()
+    rows: List[int] = []
+    for c, off in zip(counts, _offsets(counts)):
+        rows += (base + 4 * off, c, off)
+    st, q, sc = _stream(out), codes.data_ptr(), scales.data_ptr()
+    _launch_seg("q8_dequantize", "tft_q8_dequantize_seg", array.array("q", rows),
+                3, lambda b: (q, sc + 4 * b, st))
+
+
 def dequantize_q8(q: torch.Tensor, scale) -> torch.Tensor:
     """K2: the exact decode ``q * scale`` in f32 of an int8 leaf and its
     0-d f32 scale (a float is taken as one); a NaN scale poisons the
-    whole leaf with ``0x7FC00000``. One launch on the card."""
+    whole leaf with ``0x7FC00000``. One launch on the card (a one-segment
+    :func:`dequantize_q8_group`)."""
     if q.dtype != torch.int8:
         raise TypeError(f"codes must be int8, got {q.dtype}")
     scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
@@ -360,14 +420,16 @@ def dequantize_q8(q: torch.Tensor, scale) -> torch.Tensor:
         return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     if device_kind(q) == "cpu":
         return _dequantize_q8_plain(q, scale)
-    qc, sc = q.contiguous(), scale.contiguous()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _kernels.launch("q8_dequantize", "tft_q8_dequantize", qc.data_ptr(),
-                    sc.data_ptr(), qc.numel(), out.data_ptr(), _stream(qc))
+    dequantize_q8_group(q.contiguous().reshape(-1), scale.reshape(1).contiguous(),
+                        [q.numel()], out.view(-1))
     return out
 
 
 # -- K3: f32 -> bf16 cast -----------------------------------------------------
+#
+# One launch casts a table of segments (per leaf: source, element count,
+# offset in the group's bf16 buffer), reading each f32 leaf in place.
 
 
 def _cast_bf16_plain(x: torch.Tensor) -> torch.Tensor:
@@ -382,23 +444,55 @@ def _cast_bf16_plain(x: torch.Tensor) -> torch.Tensor:
     return r.to(torch.int16).view(torch.bfloat16)
 
 
+def _cast_bf16_group_plain(leaves: Sequence[torch.Tensor],
+                           out: torch.Tensor) -> None:
+    """The JAX pack's sequence: the leaves concatenated in f32, one cast."""
+    if leaves:
+        out.copy_(_cast_bf16_plain(torch.cat([l.float().reshape(-1)
+                                              for l in leaves])))
+
+
+def cast_bf16_group(leaves: Sequence[torch.Tensor], out: torch.Tensor) -> None:
+    """:func:`cast_bf16` over every leaf of a plan group at once, into the
+    group's bf16 wire buffer: ``out`` (contiguous 1-D bf16, the leaves'
+    element count) gets the words concatenated in leaf order. Bit-identical
+    to casting the leaves' f32 concatenation. On the card: one K3 launch
+    (per 64 leaves) that reads each f32 leaf in place; a leaf that is
+    not contiguous f32 (a native bf16 leaf of a mixed group) is copied to
+    f32 first, which keeps its bits (bf16 -> f32 is exact)."""
+    n = sum(l.numel() for l in leaves)
+    _check_flat(out, "out", torch.bfloat16, n, out.device)
+    _check_leaves(leaves, out.device)
+    if device_kind(out) == "cpu":
+        _cast_bf16_group_plain(leaves, out)
+        return
+    if not leaves:
+        return
+    xs = [_f32(l) for l in leaves]
+    rows: List[int] = []
+    for x, off in zip(xs, _offsets([x.numel() for x in xs])):
+        rows += (x.data_ptr(), x.numel(), off)
+    st, o = _stream(out), out.data_ptr()
+    _launch_seg("cast_bf16", "tft_cast_bf16_seg", array.array("q", rows), 3,
+                lambda b: (o, st))
+
+
 def cast_bf16(x: torch.Tensor) -> torch.Tensor:
     """f32 -> bf16, round to nearest even, canonical NaN; the bf16 wire's
-    pack cast. One launch on the card."""
+    pack cast. One launch on the card (a one-segment
+    :func:`cast_bf16_group`)."""
     if x.numel() == 0:
         return torch.zeros(x.shape, dtype=torch.bfloat16, device=x.device)
     if device_kind(x) == "cpu":
         return _cast_bf16_plain(x)
-    xc = x.float().contiguous()
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    _kernels.launch("cast_bf16", "tft_cast_bf16", xc.data_ptr(), xc.numel(),
-                    out.data_ptr(), _stream(xc))
+    cast_bf16_group([x], out.view(-1))
     return out
 
 
 # Plain versions by kernel name (the names of launch_counts), for holding
-# a kernel against its plain version on the same (CUDA) inputs; and of the
-# q8 pair over a plan group.
+# a kernel against its plain version on the same (CUDA) inputs; and over a
+# plan group.
 plain = {
     "q8_absmax": _q8_absmax_plain,
     "q8_quantize": _q8_quantize_plain,
@@ -408,4 +502,6 @@ plain = {
 plain_group = {
     "q8_absmax": _q8_absmax_group_plain,
     "quantize_q8_ef": _quantize_q8_ef_group_plain,
+    "q8_dequantize": _dequantize_q8_group_plain,
+    "cast_bf16": _cast_bf16_group_plain,
 }
