@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (torchft_tpu_torch) on one GPU.
 
-Drives the port's two main paths — the per-step fault-tolerant training
-transaction on the dense LM, and on the flash-attention LM — through the
-entry points a user calls, at full width (random weights from a seed):
+Drives the port's main paths — the per-step fault-tolerant training
+transaction on the dense LM and on the flash-attention LM, flat and on
+the two-tier schedule — through the entry points a user calls, at full
+width (random weights from a seed):
 the transformer LM the repository benchmarks by default (vocab 8192,
 d_model 512, 8 heads, 6 layers, d_ff 2048, sequence 512, batch 16: 39 f32
 leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
@@ -56,7 +57,25 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            a torch.profiler trace of the card (group 0), which must show
            the tensor-core flash kernels; group 0 first holds the flash
            loss against the dense loss on the same weights (forward only,
-           batch 2).
+           batch 2);
+7. hier flash train  the same two groups, both labeled with one host, on
+           PipelinedDDP(compress="q8", transport="plan", hier=True): their
+           sync rides the shared-memory host tier (one region: no inter
+           hop, so no q8; the f32 average, a different schedule from the
+           flat q8 ring, not a faster copy of it); 2 warm-up, 4 timed and
+           2 traced steps;
+8. hier dense  four groups on the dense LM in regions [r0, r0, r1, r1]
+           on hosts [h0, h0, h1, h1]: the shm host tier and the
+           inter-region ring (its q8ef wire) both run; 2 warm-up and 3
+           steps.
+
+The train, flash train and hier phases drain Manager.observe_op_stats()
+around their timed steps and print, per cell, the native per-bucket
+pack_s / ring_s / unpack_s split (summed over a step's buckets and
+their largest), each stripe's ring seconds, the byte bill (wire_bytes,
+d2h_bytes), the port's pack / d2h / ring split, on the two-tier
+schedule the tiers (shm_rs_s, shm_ag_s, shm_bytes, the inter tier's
+bytes), and signals()["wire_eff_MBps"] / ["tier_eff_MBps"].
 
 Checks: every step commits; every loss is finite; each worker's kernel
 launch counts equal plan groups x q8 steps (K1a, K1b: one group, one
@@ -65,12 +84,22 @@ launch each per step), groups x bf16 steps
 a pass per step, and one more for a step whose gradients a heal made
 stale), and 0 for every other kernel — the counts are reset to 0 in each worker just before it
 drives a path and read just after; all groups end bit-identical, the
-healed one included. Prints one ``kernels`` JSON line, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
-failed phase exits non-zero.
+healed one included. The hier phases also check that every group is
+hier-capable with the expected host-tier transport ("shm"; "tcp" under
+TORCHFT_HC_SHM=0), that no wire kernel launched (the two-tier pack is
+native), that the hier plan allocated no staging after warm-up, and in
+the hier dense cell that each region leader's inter tier sent about one
+byte per parameter per step (the q8 wire, not the f32 size) and no
+other group sent any. Prints one ``kernels`` JSON line (each kernel's
+launches in total and by phase), the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``. Any failed phase
+exits non-zero.
 
 Usage: ``python3 chip_smoke.py`` (needs one CUDA device; the workers are
-this script re-run with ``--worker``).
+this script re-run with ``--worker``). ``python3 chip_smoke.py
+--flash-turns`` measures only: the flat q8 and the hier flash phases in
+turns (flat, hier, hier, flat), one JSON line per turn; ``--shm-probe``
+checks only that the machine's /dev/shm takes the shm host tier.
 """
 
 from __future__ import annotations
@@ -102,6 +131,10 @@ BIG_LM = dict(vocab_size=8192, d_model=1024, n_heads=16, n_layers=8,
               d_ff=4096, max_seq_len=2048, use_flash=True)
 BIG_BATCH, BIG_SEQ = 16, 2048
 FLASH_STEPS = 4        # timed flash steps, after WARM_STEPS untimed ones
+HIER_HOST = "smoke_host"  # the host label both hier flash groups carry
+# hier dense: (region, host) of each of its four groups
+HIER_DENSE_LABELS = [("r0", "h0"), ("r0", "h0"), ("r1", "h1"), ("r1", "h1")]
+HIER_DENSE_STEPS = 3   # steps after WARM_STEPS untimed ones
 # the big LM's attention call: (B, S, H, head_dim), S = 2048 less the
 # token loss_fn drops
 FLASH_SHAPE = (BIG_BATCH, BIG_SEQ - 1, 16, 64)
@@ -174,6 +207,8 @@ def _timer_means_ms(before: dict, after: dict) -> dict:
     samples taken between two snapshots, with the largest seen so far."""
     means = {}
     for name, a in after.items():
+        if name.endswith("MBps"):  # throughputs observe_op_stats records
+            continue
         b = before.get(name, {"n": 0, "total_s": 0.0})
         n = a["n"] - b["n"]
         if n > 0:
@@ -199,8 +234,9 @@ def _union_ms(intervals) -> float:
 def _trace_summary(path: str) -> dict:
     """Where the ring ran against the card's work, from a torch.profiler
     chrome trace of PipelinedDDP steps. On the card's clock each step's
-    ring window opens when the packer stream's last device-to-host copy
-    of that step ends (the native ring starts on the staged bytes) and
+    ring window opens when the packer stream's (on the two-tier schedule:
+    the plan's staging stream's) last device-to-host copy of that step
+    ends (the native ring starts on the staged bytes) and
     closes when the first host-to-device upload of its result starts.
     Reports, per step, the window and how much of the loop stream's
     kernel time (the next step's forward/backward) ran inside it; the
@@ -216,6 +252,9 @@ def _trace_summary(path: str) -> dict:
     pack_streams = {stream(e) for e in dev
                     if e["cat"] == "kernel"
                     and any(k in e["name"] for k in PACK_KERNELS)}
+    if not pack_streams:  # the two-tier plan: its staging stream's copies
+        pack_streams = {stream(e) for e in dev if e["cat"] == "gpu_memcpy"
+                        and "DtoH" in e["name"] and "Pinned" in e["name"]}
     d2h = _intervals_ms(e for e in dev if e["cat"] == "gpu_memcpy"
                         and stream(e) in pack_streams and "DtoH" in e["name"])
     # the result's uploads come from pinned staging, the tokens' do not
@@ -266,6 +305,68 @@ def _top_kernels(dev, top: int = 6) -> list:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return [{"name": name[:90], "n": n, "ms": round(ms, 3)}
             for name, (n, ms) in ranked]
+
+
+def _op_stats_rows(entries) -> list:
+    """One row per plan_allreduce (one per step) of the drained op stats:
+    the native per-bucket pack_s / ring_s / unpack_s summed over the
+    step's buckets and their largest, the ring seconds of each stripe
+    (over the stripe's buckets), the byte bill, the port's own
+    pack / d2h / ring split, and on the two-tier schedule the tiers."""
+    rows = []
+    for st in entries:
+        if st.get("op") != "plan_allreduce":
+            continue
+        b = st.get("buckets") or []
+        row = {k: st.get(k) for k in ("bytes", "wire_bytes", "d2h_bytes",
+                                      "pack", "d2h", "ring")}
+        row["buckets"] = len(b)
+        for key in ("pack_s", "ring_s", "unpack_s"):
+            vals = [x[key] for x in b]
+            row[f"{key}_sum"] = sum(vals)
+            row[f"{key}_max"] = max(vals, default=0.0)
+        stripes: dict = {}
+        for x in b:
+            stripes[x["stripe"]] = stripes.get(x["stripe"], 0.0) + x["ring_s"]
+        row["stripe_s"] = [stripes[k] for k in sorted(stripes)]
+        if st.get("hier"):
+            tiers = st.get("tiers", {})
+            row.update({k: st.get(k) for k in (
+                "shm_rs_s", "shm_ag_s", "shm_bcast_s", "inter_ring_s",
+                "py_staging_allocs")})
+            row["shm_bytes"] = tiers.get("host", {}).get("shm_bytes")
+            row["host_transport"] = tiers.get("host", {}).get("transport")
+            row["inter_tx_bytes"] = tiers.get("inter", {}).get("tx_bytes")
+            row["inter_leader"] = tiers.get("inter", {}).get("leader")
+            row["inter_world"] = tiers.get("inter", {}).get("world")
+        rows.append(row)
+    return rows
+
+
+def _median(xs):
+    xs = sorted(x for x in xs if x is not None)
+    return xs[len(xs) // 2] if xs else None
+
+
+def _ring_split(rows) -> dict:
+    """The median over a phase's steps of each op-stats field: seconds as
+    ms (``ring_s_sum`` -> ``ring_sum_ms``), bytes as recorded."""
+    out: dict = {"steps": len(rows)}
+    for key in ("pack_s_sum", "pack_s_max", "ring_s_sum", "ring_s_max",
+                "unpack_s_sum", "unpack_s_max", "pack", "d2h", "ring",
+                "shm_rs_s", "shm_ag_s", "shm_bcast_s", "inter_ring_s"):
+        v = _median([r.get(key) for r in rows])
+        if v is not None:
+            name = key[:-2] if key.endswith("_s") else key.replace("_s_", "_")
+            out[f"{name}_ms"] = round(1e3 * v, 3)
+    for key in ("bytes", "wire_bytes", "d2h_bytes", "buckets", "shm_bytes",
+                "inter_tx_bytes", "py_staging_allocs"):
+        v = _median([r.get(key) for r in rows])
+        if v is not None:
+            out[key] = v
+    stripes = list(zip(*[r["stripe_s"] for r in rows if r["stripe_s"]]))
+    out["stripe_ms"] = [round(1e3 * _median(x), 3) for x in stripes]
+    return out
 
 
 def _wait_for(path: str, timeout_s: float) -> None:
@@ -328,20 +429,25 @@ def worker(cfg: dict) -> None:
     collectives = tft.HostCollectives()
     manager = tft.Manager(
         collectives=collectives, load_state_dict=state.load_state_dict,
-        state_dict=state.state_dict, min_replica_size=2, rank=0,
-        world_size=1, lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}",
+        state_dict=state.state_dict, min_replica_size=cfg.get("groups", 2),
+        rank=0, world_size=1, lighthouse_addr=cfg["lighthouse"],
+        replica_id=f"g{g}", region=cfg.get("region"),
+        host_label=cfg.get("host"),
     )
     out["compute_s"] = sorted(compute_s[1:])[1]
     n_layers = len(state.params["blocks"])
     n_leaves = n_layers * 6 + 3
 
-    def run(phase: str, compress: str, more, trace: bool = False) -> None:
+    def run(phase: str, compress: str, more, trace: bool = False,
+            hier: bool = False) -> None:
         """PipelinedDDP steps while ``more(i, committed_step)``, then a
         flush that settles the last one. A step's time ends when the
         loop's own stream has drained (not the whole card: the packer's
-        stream and the ring may still run, as in training)."""
+        stream and the ring may still run, as in training). The data
+        plane's op stats are drained just before and just after."""
         ddp = tft.PipelinedDDP(manager, state, grad_fn, compress=compress,
-                               transport="plan", device_pack=True)
+                               transport="plan", device_pack=True, hier=hier)
+        manager.observe_op_stats()
         prof = None
         if trace and on_card:  # the card's activity only: little host cost
             prof = torch.profiler.profile(
@@ -371,6 +477,7 @@ def worker(cfg: dict) -> None:
             torch.cuda.synchronize()
         window_s = time.perf_counter() - t_start
         launches = dict(qk.launch_counts)
+        op_stats = _op_stats_rows(manager.observe_op_stats())
         grad_passes = grad_calls[0] - calls_before
         if prof:
             prof.__exit__(None, None, None)
@@ -393,6 +500,8 @@ def worker(cfg: dict) -> None:
                       if "heals" in k},
             "step": manager.current_step(),
             "digest": _digest(state.params),
+            "op_stats": op_stats,
+            "signals": manager.signals(),
         }
 
     joined: dict = {}
@@ -412,11 +521,15 @@ def worker(cfg: dict) -> None:
             run("heal", "q8", until_healed_and_on)
             out["heals"] = manager.metrics().snapshot()["counters"].get("heals", 0)
             out["fetch"] = manager.checkpoint_transport().last_fetch_stats
-        elif cfg["role"] == "flash":
-            run("warm", "q8", lambda i, step: i < WARM_STEPS)
-            run("flash", "q8", lambda i, step: i < FLASH_STEPS)
+        elif cfg["role"] in ("flash", "hier_flash"):
+            hier = cfg["role"] == "hier_flash"
+            run("warm", "q8", lambda i, step: i < WARM_STEPS, hier=hier)
+            run("flash", "q8", lambda i, step: i < FLASH_STEPS, hier=hier)
             run("traced", "q8", lambda i, step: i < TRACED_FLASH_STEPS,
-                trace=g == 0)
+                trace=g == 0, hier=hier)
+        elif cfg["role"] == "hier_dense":
+            run("warm", "q8", lambda i, step: i < WARM_STEPS, hier=True)
+            run("hier", "q8", lambda i, step: i < HIER_DENSE_STEPS, hier=True)
         else:
             run("warm", "q8", lambda i, step: i < WARM_STEPS)
             run("q8", "q8", lambda i, step: i < Q8_STEPS)
@@ -427,6 +540,11 @@ def worker(cfg: dict) -> None:
             _wait_for(os.path.join(workdir, "late_up"), 300)
             run("heal", "q8", until_healed_and_on)
         out["n_leaves"], out["n_layers"] = n_leaves, n_layers
+        out["topology"] = {
+            "hier_capable": manager.hier_capable(),
+            "host_tier_transport": collectives.host_tier_transport(),
+            "regions": manager.replica_regions(),
+            "hosts": manager.replica_hosts()}
         if on_card:
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
     finally:
@@ -1285,22 +1403,27 @@ def check_training(res: dict, expect_leaves: int = 39,
             "q8_timers_ms": f0["phases"]["q8"]["timers_ms"],
             "compute_ms": [round(1e3 * s, 3) for s in compute_s],
             "heal_fetch_s": late["fetch"]["fetch_s"],
-            "trace": f0.get("trace")}
+            "trace": f0.get("trace"),
+            "ring_split": _ring_split(f0["phases"]["q8"]["op_stats"]),
+            "signals": f0["phases"]["q8"]["signals"]}
 
 
-def phase_flash_train(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
-                      batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+def _run_groups(workdir: str, base: dict, labels: list) -> dict:
+    """One worker per entry of ``labels`` (its region and host), all
+    started at once against an in-process lighthouse that waits for all
+    of them."""
     import torchft_tpu_torch as tft
 
-    lighthouse = tft.Lighthouse(min_replicas=2, join_timeout_ms=10000,
+    n = len(labels)
+    lighthouse = tft.Lighthouse(min_replicas=n, join_timeout_ms=10000,
                                 quorum_tick_ms=50, heartbeat_timeout_ms=10000)
-    base = {"lighthouse": lighthouse.address(), "workdir": workdir,
-            "data_offset": 0, "device": device, "role": "flash",
-            "lm": lm, "batch": batch, "seq": seq}
     t0 = time.perf_counter()
     procs = []
     try:
-        procs = [_spawn({**base, "group": g}, workdir) for g in (0, 1)]
+        procs = [_spawn({**base, "lighthouse": lighthouse.address(),
+                         "workdir": workdir, "data_offset": 0, "group": g,
+                         "groups": n, **labels[g]}, workdir)
+                 for g in range(n)]
         _join(procs, time.monotonic() + 600, workdir)
     finally:
         for p in procs:
@@ -1308,44 +1431,85 @@ def phase_flash_train(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
                 p.kill()
         lighthouse.shutdown()
     results = []
-    for g in (0, 1):
+    for g in range(n):
         with open(os.path.join(workdir, f"result_{g}.json")) as f:
             results.append(json.load(f))
     return {"results": results, "total_s": time.perf_counter() - t0}
 
 
+def phase_flash_train(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+                      batch: int = BIG_BATCH, seq: int = BIG_SEQ,
+                      hier: bool = False) -> dict:
+    """Two groups on the big LM; ``hier``: both labeled with one host, on
+    PipelinedDDP(hier=True) (the shm host tier)."""
+    base = {"device": device, "role": "hier_flash" if hier else "flash",
+            "lm": lm, "batch": batch, "seq": seq}
+    labels = [{"host": HIER_HOST} if hier else {} for _ in range(2)]
+    return _run_groups(workdir, base, labels)
+
+
+def phase_hier_dense(workdir: str, device: str = "cuda", lm: dict = LM,
+                     batch: int = BATCH, seq: int = SEQ) -> dict:
+    """Four groups on the dense LM in two regions of two co-hosted groups:
+    the shm host tier and the inter-region ring (its q8ef wire) both run."""
+    base = {"device": device, "role": "hier_dense", "lm": lm,
+            "batch": batch, "seq": seq}
+    return _run_groups(workdir, base, [{"region": r, "host": h}
+                                       for r, h in HIER_DENSE_LABELS])
+
+
+def _expected_host_transport() -> str:
+    off = os.environ.get("TORCHFT_HC_SHM", "").lower() in ("0", "off", "false")
+    return "tcp" if off else "shm"
+
+
+def _check_topology(results, label: str) -> None:
+    want = _expected_host_transport()
+    for r in results:
+        topo = r["topology"]
+        if not topo["hier_capable"]:
+            fail(f"{label} group {r['group']} is not hier-capable: {topo}")
+        if topo["host_tier_transport"] != want:
+            fail(f"{label} group {r['group']}: host tier "
+                 f"{topo['host_tier_transport']}, expected {want}: {topo}")
+
+
 def check_flash_training(res: dict, expect_leaves: int = 51,
-                         on_card: bool = True) -> dict:
+                         on_card: bool = True, hier: bool = False) -> dict:
+    label = "hier flash" if hier else "flash"
     results = res["results"]
+    if hier:
+        _check_topology(results, label)
     launches = {}
     step_s = []
     for r in results:
         g, n_leaves, n_layers = r["group"], r["n_leaves"], r["n_layers"]
         if n_leaves != expect_leaves:
-            fail(f"flash group {g}: {n_leaves} leaves")
+            fail(f"{label} group {g}: {n_leaves} leaves")
         for phase, ph in r["phases"].items():
             if not all(ph["commits"]) or not ph["commits"]:
-                fail(f"flash group {g} {phase}: uncommitted step {ph['commits']}")
+                fail(f"{label} group {g} {phase}: uncommitted step {ph['commits']}")
             if not all(map(_finite, ph["losses"])):
-                fail(f"flash group {g} {phase}: non-finite loss {ph['losses']}")
+                fail(f"{label} group {g} {phase}: non-finite loss {ph['losses']}")
             # a forward/backward pass per step, and one more for a step
             # whose gradients a heal made stale (the manager's first
             # quorum heals group 1 from group 0: its init sync)
             steps, passes = ph["dispatches"], ph["grad_passes"]
             if passes != steps + sum(ph["heals"].values()):
-                fail(f"flash group {g} {phase}: {passes} passes for {steps} "
+                fail(f"{label} group {g} {phase}: {passes} passes for {steps} "
                      f"steps and heals {ph['heals']}")
             want = dict.fromkeys(ph["launches"], 0)
             if on_card:
-                want.update(q8_absmax=steps,  # one plan group per step
-                            q8_quantize=steps,
-                            flash_fwd=n_layers * passes,
+                want.update(flash_fwd=n_layers * passes,
                             flash_bwd=2 * n_layers * passes)
+                if not hier:  # one plan group per step; the hier pack is native
+                    want.update(q8_absmax=steps, q8_quantize=steps)
             if ph["launches"] != want:
-                fail(f"flash group {g} {phase}: launches {ph['launches']} != {want}")
+                fail(f"{label} group {g} {phase}: launches {ph['launches']} "
+                     f"!= {want}")
             for k, n in ph["launches"].items():
                 launches[k] = launches.get(k, 0) + n
-            log(f"  flash group {g} {phase}: {steps} steps committed, step "
+            log(f"  {label} group {g} {phase}: {steps} steps committed, step "
                 f"{ph['step']}, {passes} forward/backward passes (heals "
                 f"{ph['heals']}), losses {[round(l, 4) for l in ph['losses']]}"
                 f", launches {ph['launches']}")
@@ -1353,16 +1517,29 @@ def check_flash_training(res: dict, expect_leaves: int = 51,
     f0, f1 = results
     for phase in ("warm", "flash", "traced"):
         if f0["phases"][phase]["digest"] != f1["phases"][phase]["digest"]:
-            fail(f"flash founders' parameters differ after the {phase} phase")
+            fail(f"{label} founders' parameters differ after the {phase} phase")
     traced = [k["name"] for k in (f0.get("trace") or {}).get("flash_kernels", [])]
     missing = [k for k in MMA_KERNELS if not any(k in n for n in traced)]
     if on_card and missing:
-        fail(f"the traced flash steps show no {missing} (flash kernels: {traced})")
-    fvd = f0["flash_vs_dense"]
-    rel = abs(fvd["flash"] - fvd["dense"]) / abs(fvd["dense"])
-    if not (_finite(fvd["flash"]) and rel <= FLASH_DENSE_LOSS_RTOL):
-        fail(f"flash loss {fvd['flash']} vs dense {fvd['dense']}: rel {rel:.3g}"
-             f" > {FLASH_DENSE_LOSS_RTOL:.3g}")
+        fail(f"the traced {label} steps show no {missing} (flash kernels: "
+             f"{traced})")
+    if on_card and not (f0.get("trace") or {}).get("ring_windows_ms"):
+        fail(f"the {label} trace shows no ring window: {f0.get('trace')}")
+    fvd = f0.get("flash_vs_dense")
+    if fvd is not None:
+        rel = abs(fvd["flash"] - fvd["dense"]) / abs(fvd["dense"])
+        if not (_finite(fvd["flash"]) and rel <= FLASH_DENSE_LOSS_RTOL):
+            fail(f"flash loss {fvd['flash']} vs dense {fvd['dense']}: rel "
+                 f"{rel:.3g} > {FLASH_DENSE_LOSS_RTOL:.3g}")
+        fvd = {**fvd, "rel": rel}
+    elif not hier:
+        fail("group 0 of the flash phase held no flash loss against dense")
+    rows = f0["phases"]["flash"]["op_stats"]
+    if len(rows) != f0["phases"]["flash"]["dispatches"]:
+        fail(f"{label}: {len(rows)} op-stats entries for "
+             f"{f0['phases']['flash']['dispatches']} steps")
+    if hier and any(r.get("py_staging_allocs") for r in rows):
+        fail(f"{label}: the hier plan allocated staging after warm-up: {rows}")
     step_s.sort()
     timers = f0["phases"]["flash"]["timers_ms"]
     return {
@@ -1380,18 +1557,182 @@ def check_flash_training(res: dict, expect_leaves: int = 51,
         "step_start_allocated_gb": [
             [round(b / 2**30, 3) for b in r["phases"]["flash"]["mem_start"]]
             for r in results],
-        "flash_vs_dense": {**fvd, "rel": rel},
+        "flash_vs_dense": fvd,
         "trace": f0.get("trace"),
+        "ring_split": _ring_split(rows),
+        "signals": f0["phases"]["flash"]["signals"],
+        "topology": f0["topology"],
     }
+
+
+def check_hier_dense(res: dict, expect_leaves: int = 39,
+                     on_card: bool = True) -> dict:
+    results = res["results"]
+    _check_topology(results, "hier dense")
+    for r in results:
+        g = r["group"]
+        if r["n_leaves"] != expect_leaves:
+            fail(f"hier dense group {g}: {r['n_leaves']} leaves")
+        for phase, ph in r["phases"].items():
+            if not all(ph["commits"]) or not ph["commits"]:
+                fail(f"hier dense group {g} {phase}: uncommitted step "
+                     f"{ph['commits']}")
+            if not all(map(_finite, ph["losses"])):
+                fail(f"hier dense group {g} {phase}: non-finite loss "
+                     f"{ph['losses']}")
+            if any(ph["launches"].values()):  # dense attention, native pack
+                fail(f"hier dense group {g} {phase}: launches {ph['launches']}")
+            log(f"  hier dense group {g} {phase}: {ph['dispatches']} steps "
+                f"committed, step {ph['step']}, losses "
+                f"{[round(l, 4) for l in ph['losses']]}")
+    for phase in ("warm", "hier"):
+        digests = {r["phases"][phase]["digest"] for r in results}
+        if len(digests) != 1:
+            fail(f"hier dense groups differ after the {phase} phase")
+    # the inter tier's bill: a leader of each region ships its region's
+    # sum over a 2-member q8ef ring, (L-1)/L of the int8 codes per phase,
+    # twice: about one byte per parameter, a quarter of the f32 bill
+    split = {}
+    for r in results:
+        rows = r["phases"]["hier"]["op_stats"]
+        if not rows:
+            fail(f"hier dense group {r['group']}: no op stats")
+        n_params = rows[0]["bytes"] // 4
+        tx = _median([x["inter_tx_bytes"] for x in rows])
+        leader = rows[0]["inter_leader"]
+        if leader and not 0.9 * n_params <= tx <= 1.25 * n_params:
+            fail(f"hier dense group {r['group']}: the inter tier sent {tx} B "
+                 f"per step for {n_params} params (q8 wire ~{n_params} B, "
+                 f"f32 {4 * n_params} B)")
+        if not leader and tx != 0:
+            fail(f"hier dense group {r['group']} leads no region but sent "
+                 f"{tx} B on the inter tier")
+        split[r["group"]] = {**_ring_split(rows), "inter_leader": leader,
+                             "q8_wire_bytes_per_step": n_params,
+                             "f32_bytes": 4 * n_params}
+    return {"split": split, "topology": [r["topology"] for r in results],
+            "signals": results[0]["phases"]["hier"]["signals"],
+            "window_ms_per_step": [
+                round(1e3 * r["phases"]["hier"]["window_s"]
+                      / r["phases"]["hier"]["dispatches"], 3)
+                for r in results]}
 
 
 def _finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
 
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def _log_ring_split(cell: str, summary: dict) -> None:
+    log(f"  ring split of the {cell} cell (group 0, median over the timed "
+        f"steps; native per-bucket pack/ring/unpack summed over a step's "
+        f"buckets and their largest, per-stripe ring, the port's "
+        f"pack/d2h/ring split): {json.dumps(summary['ring_split'])}; "
+        f"wire_eff_MBps {summary['signals']['wire_eff_MBps']}")
+
+
+def flash_turns() -> int:
+    """The flat q8 flash phase and the hier flash phase in turns (flat,
+    hier, hier, flat) in one run, one JSON line per turn: step p50, the
+    plan_allreduce dispatch -> result mean, the ring split (on the hier
+    turns the d2h of the f32 leaves into the plan's pinned inputs) and
+    the card's busy share over the traced steps."""
+    log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+    for turn, kind in enumerate(("flat", "hier", "hier", "flat")):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_turn_") as workdir:
+            res = phase_flash_train(workdir, hier=kind == "hier")
+            fsum = check_flash_training(res, hier=kind == "hier")
+        trace = fsum["trace"] or {}
+        print(json.dumps({
+            "turn": turn, "kind": kind, "step_ms_p50": fsum["step_ms_p50"],
+            "step_ms_all": fsum["step_ms_all"],
+            "window_ms_per_step": fsum["window_ms_per_step"],
+            "plan_allreduce_ms": fsum["plan_allreduce_ms"],
+            "ring_split": fsum["ring_split"],
+            "ring_windows_ms": trace.get("ring_windows_ms"),
+            "card_busy_share": trace.get("card_busy_share"),
+            "loop_kernel_ms_total": trace.get("loop_kernel_ms_total"),
+            "signals": fsum["signals"]}), flush=True)
+    print(_smi(), flush=True)
+    return 0
+
+
+def shm_probe() -> int:
+    """Whether this machine's /dev/shm takes the host tier: two port
+    members in one process, one host label, 4 stripes; three
+    plan_allreduce(hier=True, wire="q8ef") steps on card leaves of 1 Ki
+    and 16 Mi f32 elements, each checked against the exact average, with
+    their d2h / native-call / shm split; then every segment unlinked."""
+    from concurrent.futures import ThreadPoolExecutor
+    from datetime import timedelta
+
+    from torchft_tpu_torch import _native, collectives as tcol
+
+    store = _native.Store()
+    cols = [tcol.HostCollectives(timeout=timedelta(seconds=30), stripes=4)
+            for _ in range(2)]
+    try:
+        addr = f"{store.address()}/probe"
+        with ThreadPoolExecutor(2) as ex:
+            for f in [ex.submit(c.configure, addr, r, 2, None, ["h", "h"])
+                      for r, c in enumerate(cols)]:
+                f.result()
+        log(f"  hier {[c.hier_capable() for c in cols]}, host tier "
+            f"{[c.host_tier_transport() for c in cols]}, live segments "
+            f"{_native._lib.tft_shm_live_count()}")
+        dev = torch.device("cuda")
+        for n in (1 << 10, 1 << 24):
+            for it in range(3):
+                res = [None, None]
+
+                def run(r):
+                    x = {"a": torch.full((n,), float(r + 1), device=dev),
+                         "b": torch.ones(7, device=dev)}
+                    res[r] = cols[r].plan_allreduce(
+                        x, tcol.ReduceOp.AVG, wire="q8ef", hier=True).wait()
+                    torch.cuda.synchronize()
+
+                threads = [threading.Thread(target=run, args=(r,))
+                           for r in range(2)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+                if any(t.is_alive() for t in threads):
+                    fail("shm probe: a member did not finish its step")
+                if not all(torch.equal(x["a"], torch.full((n,), 1.5, device=dev))
+                           for x in res):
+                    fail(f"shm probe: wrong average at {n} elements")
+                st = cols[0].pop_op_stats()[-1]
+                log(f"  {n} elements, step {it}: " + json.dumps(
+                    {k: st[k] for k in ("d2h", "ring", "shm_rs_s", "shm_ag_s",
+                                        "shm_bcast_s", "py_staging_allocs")}))
+    finally:
+        for c in cols:
+            c.shutdown()
+        store.shutdown()
+    live = _native._lib.tft_shm_live_count()
+    log(f"  live segments after release: {live}")
+    if live:
+        fail(f"shm probe: {live} segments outlived release")
+    print(_smi(), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--worker", help=argparse.SUPPRESS)
+    parser.add_argument("--flash-turns", action="store_true",
+                        help="measure only: the flat q8 and the hier flash "
+                        "phases in turns (flat, hier, hier, flat)")
+    parser.add_argument("--shm-probe", action="store_true",
+                        help="check only that /dev/shm takes the host tier")
     args = parser.parse_args()
     if args.worker:
         worker(json.loads(args.worker))
@@ -1405,6 +1746,10 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    if args.flash_turns:
+        return flash_turns()
+    if args.shm_probe:
+        return shm_probe()
     log("phase build")
     log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
     log("phase kernels")
@@ -1412,10 +1757,12 @@ def main() -> int:
     log("phase flash kernels")
     rows.update(phase_flash_kernels())
     torch.cuda.empty_cache()  # the card's memory goes to the workers next
+    by_phase: dict = {}  # each main-path phase's launch counts
     log("phase train + heal")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         res = phase_train_and_heal(workdir)
         summary = check_training(res)
+    by_phase["train + heal"] = summary["launches"]
     log(f"  train phase {res['train_s']:.1f} s, train+heal {res['total_s']:.1f} s; "
         f"q8 step p50 {summary['step_ms_p50']:.3f} ms over the steady steps "
         f"(all: {summary['step_ms_all']}); whole timed window "
@@ -1428,10 +1775,12 @@ def main() -> int:
         f"{summary['q8_timers_ms']}")
     log(f"  trace of group 0's {TRACED_STEPS} traced steps (card clock): "
         f"{json.dumps(summary['trace'])}")
+    _log_ring_split("dense", summary)
     log("phase flash train")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as workdir:
         fres = phase_flash_train(workdir)
         fsum = check_flash_training(fres)
+    by_phase["flash train"] = fsum["launches"]
     log(f"  flash train {fres['total_s']:.1f} s; step p50 "
         f"{fsum['step_ms_p50']:.3f} ms over the steady steps (all: "
         f"{fsum['step_ms_all']}); whole timed window "
@@ -1445,22 +1794,51 @@ def main() -> int:
         f"{fsum['timers_ms']}")
     log(f"  trace of group 0's {TRACED_FLASH_STEPS} traced flash steps (card "
         f"clock): {json.dumps(fsum['trace'])}")
+    _log_ring_split("flash", fsum)
+    log("phase hier flash train")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hier_") as workdir:
+        hres = phase_flash_train(workdir, hier=True)
+        hsum = check_flash_training(hres, hier=True)
+    by_phase["hier flash train"] = hsum["launches"]
+    log(f"  hier flash train {hres['total_s']:.1f} s (two co-hosted groups, "
+        f"PipelinedDDP(compress='q8', hier=True): one region, so no inter "
+        f"hop and no q8: the f32 average over the shm host tier, another "
+        f"schedule than the flat q8 ring, not a faster copy of it); "
+        f"topology {json.dumps(hsum['topology'])}; step p50 "
+        f"{hsum['step_ms_p50']:.3f} ms (all: {hsum['step_ms_all']}); whole "
+        f"timed window {hsum['window_ms_per_step']} ms/step per group; "
+        f"plan_allreduce mean {hsum['plan_allreduce_ms']} ms (group 0); "
+        f"max_memory_allocated {hsum['max_memory_allocated_gb']} GiB")
+    log(f"  tier split of the hier flash cell (group 0, median over the timed "
+        f"steps): {json.dumps(hsum['ring_split'])}; tier_eff_MBps "
+        f"{json.dumps(hsum['signals']['tier_eff_MBps'])}")
+    log(f"  trace of group 0's {TRACED_FLASH_STEPS} traced hier flash steps "
+        f"(card clock): {json.dumps(hsum['trace'])}")
+    log("phase hier dense")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hdense_") as workdir:
+        dres = phase_hier_dense(workdir)
+        dsum = check_hier_dense(dres)
+    by_phase["hier dense"] = {}
+    log(f"  hier dense {dres['total_s']:.1f} s, four groups bit-identical; "
+        f"whole timed window {dsum['window_ms_per_step']} ms/step per group; "
+        f"tier_eff_MBps {json.dumps(dsum['signals']['tier_eff_MBps'])}; per "
+        f"group (median over the timed steps): {json.dumps(dsum['split'])}")
     # each kernel's launches over the main paths' runs (the counts each
     # worker reset just before a path and read just after)
     for name in rows:
-        rows[name]["launches"] = (summary["launches"].get(name, 0)
-                                  + fsum["launches"].get(name, 0))
+        rows[name]["launches_by_phase"] = {
+            phase: counts.get(name, 0) for phase, counts in by_phase.items()}
+        rows[name]["launches"] = sum(rows[name]["launches_by_phase"].values())
     for name in ("q8_absmax", "q8_quantize", "cast_bf16", "flash_fwd",
                  "flash_bwd"):
         if rows[name]["launches"] == 0:
             fail(f"{name} is on a main path and never launched there")
+    for name in ("flash_fwd", "flash_bwd"):
+        if rows[name]["launches_by_phase"]["hier flash train"] == 0:
+            fail(f"{name} never launched on the hier flash path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi, flush=True)
+    print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

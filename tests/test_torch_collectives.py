@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_one_thread  # noqa: F401
+
 from torchft_tpu import collectives as jcol
 from torchft_tpu._native import Store
 from torchft_tpu_torch import collectives as tcol

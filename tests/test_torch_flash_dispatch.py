@@ -9,6 +9,8 @@ import importlib
 import pytest
 import torch
 
+import torch_one_thread  # noqa: F401
+
 # the module (the package's name `flash_attention` is its entry point)
 tfa = importlib.import_module("torchft_tpu_torch.ops.flash_attention")
 

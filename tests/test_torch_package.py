@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_one_thread  # noqa: F401
+
 from torchft_tpu_torch import checkpointing as ck
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,7 +28,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_pulls_in_neither_jax_nor_torchft_tpu():
     code = (
         "import sys, torchft_tpu_torch, torchft_tpu_torch.models, "
-        "torchft_tpu_torch.ops, torchft_tpu_torch.lighthouse\n"
+        "torchft_tpu_torch.ops, torchft_tpu_torch.lighthouse, "
+        "torchft_tpu_torch.collectives, torchft_tpu_torch.manager, "
+        "torchft_tpu_torch.ddp, torchft_tpu_torch.profiling, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'torchft_tpu' "
         "or m.startswith('torchft_tpu.'))\n"

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_one_thread  # noqa: F401
+
 from test_comm_plan import _np_quantize_ef
 from torchft_tpu import collectives as jcol
 from torchft_tpu.ops import quantize_kernels as jq

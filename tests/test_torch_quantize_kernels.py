@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_one_thread  # noqa: F401
+
 import jax.numpy as jnp
 
 from test_comm_plan import _np_quantize_ef

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_one_thread  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 

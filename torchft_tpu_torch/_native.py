@@ -6,7 +6,8 @@ this package into its own ``_build/`` directory at first use
 (:mod:`torchft_tpu_torch._build`), so the two packages speak one wire
 protocol and can share a quorum and a ring. Exposes the lighthouse, the
 per-replica-group manager server and its client, the rendezvous store,
-and the ring and CommPlan entry points :mod:`.collectives` drives.
+and the ring, two-tier and CommPlan entry points :mod:`.collectives`
+drives, with their per-op and per-bucket stats.
 
 Timeouts surface as ``TimeoutError``, other native failures as
 ``RuntimeError``. ctypes releases the GIL for every native call, so
@@ -53,6 +54,8 @@ _SIGNATURES = {
         _i64,                     # region re-probe bound
     ]),
     "tft_manager_address": (_vp, [_vp]),
+    # member-health digest (JSON) riding every later lease renewal
+    "tft_manager_set_status": (_int, [_vp, _cp]),
     "tft_manager_shutdown": (None, [_vp]),
     "tft_manager_destroy": (None, [_vp]),
     "tft_client_create": (_vp, [_cp, _i64]),
@@ -86,14 +89,34 @@ _SIGNATURES = {
         _cp,   # regions JSON ("" = flat)
         _cp,   # hosts JSON ("" = none)
     ]),
+    "tft_hc_hier_capable": (_i64, [_vp]),
+    # host-tier transport of the last configure: 0 none, 1 loopback TCP
+    # (TORCHFT_HC_SHM=0), 2 shared-memory rings
+    "tft_hc_host_tier_transport": (_i64, [_vp]),
     "tft_hc_release": (_int, [_vp]),
     "tft_hc_abort": (None, [_vp]),
     "tft_hc_allreduce": (_int, [_vp, _vp, ctypes.c_size_t, _int, _int, _i64]),
+    "tft_hc_allreduce_hier": (_int, [
+        _vp, _vp, ctypes.c_size_t, _int, _int,
+        _int,  # inter-hop wire: 0 native, 1 bf16, 2 q8
+        _i64,
+    ]),
+    # per-tier phase/byte breakdown of the last two-tier op (JSON)
+    "tft_hc_last_hier_json": (_int, [_vp, ctypes.POINTER(_vp)]),
+    # per-stripe wall times (ns) of the last bulk ring op
+    "tft_hc_last_stripe_ns": (_i64, [_vp, ctypes.POINTER(_i64), _i64]),
+    # live shared-memory segment handles in this library (the leak oracle)
+    "tft_shm_live_count": (_i64, []),
     # Persistent comm plans.
     "tft_plan_build": (_i64, [
         _vp, ctypes.POINTER(_i64), ctypes.POINTER(ctypes.c_int32), _i64, _int,
     ]),
     "tft_plan_build_pre": (_i64, [
+        _vp, ctypes.POINTER(_i64), ctypes.POINTER(ctypes.c_int32), _i64, _int,
+    ]),
+    # the two-tier schedule behind the one-call execute (the wire
+    # applies at the leader's inter-region hop only)
+    "tft_plan_build_hier": (_i64, [
         _vp, ctypes.POINTER(_i64), ctypes.POINTER(ctypes.c_int32), _i64, _int,
     ]),
     "tft_plan_execute": (_int, [
@@ -108,6 +131,8 @@ _SIGNATURES = {
         ctypes.c_double, _int, _i64,
     ]),
     "tft_plan_reset_feedback": (_int, [_vp, _i64]),
+    # per-bucket pack/ring/unpack seconds of the plan's last execute (JSON)
+    "tft_plan_stats_json": (_int, [_vp, _i64, ctypes.POINTER(_vp)]),
 }
 
 
@@ -192,6 +217,11 @@ class QuorumResult:
     max_rank: Optional[int] = None
     max_world_size: int = 0
     heal: bool = False
+    # Region and host label of every participant, indexed by replica
+    # rank (empty strings for unlabeled members): what Manager hands the
+    # data plane for the two-tier schedule and the shared-memory host tier.
+    replica_regions: List[str] = field(default_factory=list)
+    replica_hosts: List[str] = field(default_factory=list)
 
     @classmethod
     def _from_json(cls, raw: str) -> "QuorumResult":
@@ -208,6 +238,8 @@ class QuorumResult:
             max_rank=d.get("max_rank"),
             max_world_size=d["max_world_size"],
             heal=d["heal"],
+            replica_regions=list(d.get("replica_regions", [])),
+            replica_hosts=list(d.get("replica_hosts", [])),
         )
 
 
@@ -256,12 +288,18 @@ class Manager:
         world_size: int,
         heartbeat_interval: timedelta = timedelta(milliseconds=100),
         connect_timeout: timedelta = timedelta(seconds=60),
+        region: str = "",
+        host: str = "",
     ) -> None:
+        """``region`` and ``host`` ("" = unlabeled) ride the quorum
+        request into every member's quorum result, whose region and host
+        maps the data plane compiles into the two-tier schedule and the
+        shared-memory intra-host tier."""
         self._handle = _lib.tft_manager_create(
             replica_id.encode(), lighthouse_addr.encode(), hostname.encode(),
             bind.encode(), store_addr.encode(), world_size,
             _ms(heartbeat_interval), _ms(connect_timeout),
-            b"", 0, b"", b"", 0,
+            b"", 0, region.encode(), host.encode(), 0,
         )
         if not self._handle:
             _check(2)
@@ -269,6 +307,14 @@ class Manager:
 
     def address(self) -> str:
         return _take_string(_lib.tft_manager_address(self._handle))
+
+    def set_status(self, status: dict) -> None:
+        """Publishes a member-health digest that rides every later lease
+        renewal to the lighthouse, where it shows under this member in
+        ``/status.json`` (``members[i].status``). Display-only: the
+        quorum never reads it."""
+        _check(_lib.tft_manager_set_status(
+            self._handle, json.dumps(status).encode()))
 
     def shutdown(self) -> None:
         if self._handle:

@@ -6,9 +6,10 @@ averaged across replica groups as one unit: the collectives layer packs
 the whole tree into one ring pass per plan group.
 
 Intra-replica-group parallelism stays in user code; these wrappers only
-average across groups. ``ShardedDDP``, ``AdaptiveDDP`` and the legacy,
-isolated and hierarchical transports of the JAX package wait for later
-slices.
+average across groups. ``PipelinedDDP(hier=True)`` runs the sync over
+the two-tier schedule (the quorum's region and host maps). The JAX
+package's ``ShardedDDP``, ``AdaptiveDDP`` and legacy and isolated
+transports are not ported.
 """
 
 from __future__ import annotations
@@ -64,6 +65,16 @@ class PipelinedDDP:
     picks the kernels' plain versions (``True``) or the native host pack
     (``False``); both are bit-identical, so members need not agree.
 
+    ``hier=True`` (plan transport only) runs the sync over the two-tier
+    schedule: co-hosted groups reduce over shared-memory rings, one
+    leader per region over the inter-region ring, and the wire applies
+    on that inter hop only (``compress="q8"`` is the leader-side q8 + EF
+    wire; with one region there is no inter hop and the result is the
+    f32 average). The quorum must carry a usable region or host map
+    (``TORCHFT_REGION`` / ``TORCHFT_HOST``); otherwise every sync latches
+    an error and its step is discarded. ``device_pack`` does not apply
+    there (the schedule has no pre-packed form).
+
     Usage::
 
         ddp = PipelinedDDP(manager, state, grad_fn, compress="q8")
@@ -80,6 +91,7 @@ class PipelinedDDP:
         compress: Optional[str] = None,
         transport: str = "plan",
         device_pack: bool = True,
+        hier: bool = False,
     ) -> None:
         if compress not in _WIRES:
             raise ValueError(f"unsupported compress: {compress!r}")
@@ -93,13 +105,15 @@ class PipelinedDDP:
         self._grad_fn = grad_fn
         self._compress = compress
         self._device_pack = device_pack
+        self._hier = hier
         self._inflight: Optional[Work] = None
         # Outcome of the most recent settle (None before the first).
         self.last_commit: Optional[bool] = None
 
     def _dispatch(self, grads: Any) -> Work:
         return self._manager.plan_allreduce(
-            grads, wire=_WIRES[self._compress], device_pack=self._device_pack
+            grads, wire=_WIRES[self._compress], device_pack=self._device_pack,
+            hier=self._hier,
         )
 
     def _settle(self) -> bool:
@@ -114,8 +128,9 @@ class PipelinedDDP:
             # error would have failed the vote).
             self._state.apply_gradients(result)
         elif self._compress == "q8":
-            # The discarded step advanced the EF carry; drop it (only the
-            # abandoned step's quantization error is lost).
+            # The discarded step advanced the EF carry (the device
+            # packer's, or the region leader's on the two-tier schedule);
+            # drop it (only the abandoned step's quantization error is lost).
             self._manager.reset_plan_feedback()
         return committed
 

@@ -15,14 +15,22 @@ Every training step is a transaction:
 - A recovering replica fetches live weights from a healthy peer over HTTP
   (:mod:`.checkpointing`) instead of restarting the world.
 
+Topology: each group carries a region and a host label (``TORCHFT_REGION``
+/ ``TORCHFT_HOST``, the host label defaulting to the hostname); the
+quorum's maps ride into ``configure``, so co-hosted groups reduce over
+the shared-memory host tier under ``plan_allreduce(hier=True)`` /
+``allreduce_hier``. Observability: ``observe_op_stats`` drains the data
+plane's per-op stats into the rolling wire and per-tier throughput that
+``signals()`` reports and ``push_status`` publishes to the lighthouse.
+
 A "replica group" is one GPU (or one host's GPUs); intra-group
-parallelism is invisible to this class. The region/host topology, the
-isolated data plane, durable-restore arbitration and policy signals of
-the JAX Manager wait for later slices.
+parallelism is invisible to this class. The isolated data plane and
+durable-restore arbitration of the JAX Manager are not ported.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import socket
@@ -78,6 +86,8 @@ class Manager:
         lighthouse_addr: Optional[str] = None,
         replica_id: Optional[str] = None,
         hostname: str = socket.gethostname(),
+        region: Optional[str] = None,
+        host_label: Optional[str] = None,
     ) -> None:
         """
         Args:
@@ -94,6 +104,12 @@ class Manager:
             lighthouse_addr: the lighthouse (env ``TORCHFT_LIGHTHOUSE``).
             replica_id: replica group name; group rank 0 appends a uuid.
             hostname: the name peers reach this group's manager by.
+            region: this group's region label (env ``TORCHFT_REGION``,
+                else unlabeled).
+            host_label: this group's host label (env ``TORCHFT_HOST``,
+                else the hostname). Groups sharing a (region, host) pair
+                reduce over the shared-memory host tier on the two-tier
+                schedule.
 
         A windowed ``torch.profiler`` capture follows the
         ``TORCHFT_PROFILE_*`` variables (:class:`.profiling.Profiler`).
@@ -153,6 +169,19 @@ class Manager:
         self._participating_world_size: int = 0
         self._metrics = Metrics()
         self._profiler = Profiler.from_env()
+        # signals(): the last measured wire and per-tier throughput
+        self._last_wire_eff_mbps: Optional[float] = None
+        self._last_tier_mbps: Dict[str, float] = {}
+        self._opt_state_bytes: Optional[int] = None
+
+        if region is None:
+            region = os.environ.get("TORCHFT_REGION", "")
+        if host_label is None:
+            host_label = os.environ.get("TORCHFT_HOST", socket.gethostname())
+        # The quorum's region and host maps (replica-rank order),
+        # refreshed at every reconfigure.
+        self._replica_regions: List[str] = []
+        self._replica_hosts: List[str] = []
 
         lighthouse_addr = lighthouse_addr or os.environ.get("TORCHFT_LIGHTHOUSE")
         replica_id = replica_id if replica_id is not None else ""
@@ -176,6 +205,8 @@ class Manager:
                 store_addr=store_addr,
                 world_size=self._world_size,
                 connect_timeout=connect_timeout,
+                region=region,
+                host=host_label,
             )
             self._store.set(MANAGER_ADDR_KEY, self._manager.address().encode())
             self._store.set(REPLICA_ID_KEY, replica_id.encode())
@@ -257,6 +288,11 @@ class Manager:
         self._participating_world_size = result.max_world_size
 
         if result.quorum_id != self._quorum_id:
+            if self._quorum_id != -1:
+                # Membership moved (or an error forced a rebuild) mid-run:
+                # the rolling churn signal. The first configure is a cold
+                # start, not churn.
+                self._metrics.mark("churn")
             # Reconfigure the data plane on a store prefix unique to this
             # quorum AND this local rank, so stale members can't collide.
             prefix = (
@@ -266,11 +302,21 @@ class Manager:
                 f"[{self._replica_id}/{self._rank}] reconfiguring collectives "
                 f"quorum_id={result.quorum_id}"
             )
+            # The quorum's region and host maps ride into the data plane,
+            # which compiles them into the two-tier schedule when usable.
+            # The hosts kwarg goes only to a backend that declares it.
+            self._replica_regions = list(result.replica_regions)
+            self._replica_hosts = list(result.replica_hosts)
+            cfg_kwargs: Dict[str, Any] = {
+                "regions": self._replica_regions or None}
+            if any(self._replica_hosts) and self._configure_takes_hosts():
+                cfg_kwargs["hosts"] = self._replica_hosts
             with self._metrics.timed("reconfigure"), span(
                 "torchft::reconfigure"
             ):
                 self._collectives.configure(
-                    prefix, result.replica_rank, result.replica_world_size
+                    prefix, result.replica_rank, result.replica_world_size,
+                    **cfg_kwargs,
                 )
             self._metrics.incr("reconfigures")
             self._quorum_id = result.quorum_id
@@ -355,24 +401,80 @@ class Manager:
         op: ReduceOp = ReduceOp.AVG,
         wire: Optional[str] = None,
         device_pack: bool = True,
+        hier: bool = False,
     ) -> Work:
         """Fault-tolerantly averages a gradient tree through a persistent
         comm plan (see ``Collectives.plan_allreduce``). A failed execute
         resolves to ``None`` (the plan's output buffers may hold a partial
         unpack); the error latches and ``should_commit`` discards the
         step. ``wire``: None | "bf16" | "q8" | "q8ef" (reset the carry on
-        heal via :meth:`reset_plan_feedback`)."""
+        heal via :meth:`reset_plan_feedback`). ``hier`` runs the two-tier
+        schedule; on a cohort that is not hier-capable the dispatch error
+        latches and the step is discarded."""
         if op not in (ReduceOp.AVG, ReduceOp.SUM):
             raise ValueError(f"unsupported managed plan_allreduce op: {op}")
 
         def dispatch(zeroed_tree: Any) -> Work:
             return self._collectives.plan_allreduce(
                 zeroed_tree, ReduceOp.SUM, divisor=self._divisor(op),
-                wire=wire, device_pack=device_pack,
+                wire=wire, device_pack=device_pack, hier=hier,
             )
 
         return self._managed_dispatch(
             "plan_allreduce", tree, dispatch, lambda t: None
+        )
+
+    def allreduce_hier(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.AVG,
+        wire: Optional[str] = None,
+    ) -> Work:
+        """Fault-tolerantly averages a tree over the two-tier schedule
+        (``Collectives.allreduce_hier``); ``wire`` (None | "bf16" | "q8")
+        encodes the inter-region hop only. Same discipline as
+        :meth:`allreduce`: a cohort without a usable topology latches the
+        dispatch error and the step is discarded."""
+        if op not in (ReduceOp.AVG, ReduceOp.SUM):
+            raise ValueError(f"unsupported managed allreduce_hier op: {op}")
+
+        def dispatch(zeroed_tree: Any) -> Work:
+            return self._collectives.allreduce_hier(
+                zeroed_tree, ReduceOp.SUM, divisor=self._divisor(op),
+                wire=wire,
+            )
+
+        return self._managed_dispatch(
+            "allreduce_hier", tree, dispatch, lambda t: t
+        )
+
+    def hier_capable(self) -> bool:
+        """Whether the current quorum's data plane built a two-tier
+        schedule. Settles the quorum thread first (it writes the maps)."""
+        if self._quorum_future is not None:
+            self.wait_quorum()
+        return self._collectives.hier_capable()
+
+    def replica_regions(self) -> List[str]:
+        """The current quorum's region map, by replica rank (empty before
+        the first quorum; "" for unlabeled members)."""
+        if self._quorum_future is not None:
+            self.wait_quorum()
+        return list(self._replica_regions)
+
+    def replica_hosts(self) -> List[str]:
+        """The current quorum's host map, by replica rank."""
+        if self._quorum_future is not None:
+            self.wait_quorum()
+        return list(self._replica_hosts)
+
+    def _configure_takes_hosts(self) -> bool:
+        try:
+            params = inspect.signature(self._collectives.configure).parameters
+        except (TypeError, ValueError):
+            return False
+        return "hosts" in params or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()
         )
 
     def _divisor(self, op: ReduceOp) -> Optional[float]:
@@ -519,6 +621,100 @@ class Manager:
 
     def state_dict(self) -> Dict[str, int]:
         return {"step": self._step, "batches_committed": self._batches_committed}
+
+    # -- observability / policy signals --
+
+    def observe_op_stats(self) -> List[dict]:
+        """Drains the data plane's per-op stats (``pop_op_stats``) through
+        the manager, folding them into the rolling throughput
+        :meth:`signals` reports: per op ``wire_bytes / ring`` is the
+        achieved wire throughput (``wire_eff_MBps``; over its stripes,
+        ``wire_conn_MBps``), and per tier of a two-tier op its moved bytes
+        over its phase seconds (``tier_<name>_MBps``). Returns the drained
+        entries; a backend without op stats yields ``[]``."""
+        pop = getattr(self._collectives, "pop_op_stats", None)
+        entries: List[dict] = pop() if pop is not None else []
+        for st in entries:
+            for name, t in (st.get("tiers") or {}).items():
+                if name == "inter":
+                    phase_s = t.get("ring_s") or 0.0
+                else:
+                    phase_s = ((t.get("rs_s") or 0.0) + (t.get("ag_s") or 0.0)
+                               + (t.get("bcast_s") or 0.0))
+                # shm host tiers bill ring movement (their tx_bytes is 0)
+                moved = t.get("tx_bytes") or t.get("shm_bytes") or 0
+                if phase_s > 0 and moved > 0:
+                    tier_eff = moved / phase_s / (1 << 20)
+                    self._last_tier_mbps[name] = tier_eff
+                    self._metrics.record(f"tier_{name}_MBps", tier_eff)
+            ring_s = st.get("ring")
+            wire_bytes = st.get("wire_bytes") or st.get("bytes")
+            if not ring_s or not wire_bytes or ring_s <= 0:
+                continue
+            eff = wire_bytes / ring_s / (1 << 20)
+            stripes = len(st.get("stripe_s") or ()) or 1
+            self._metrics.record("wire_eff_MBps", eff)
+            self._metrics.record("wire_conn_MBps", eff / stripes)
+            self._last_wire_eff_mbps = eff
+        return entries
+
+    def signals(self, churn_window_s: float = 600.0) -> Dict[str, Any]:
+        """The policy inputs as one JSON-able dict: ``churn_per_min``
+        (reconfigures after the first, over the trailing window),
+        ``wire_eff_MBps`` and ``tier_eff_MBps`` (the last observed ring
+        and per-tier throughput; ``None`` until :meth:`observe_op_stats`
+        saw one), ``heal`` (the transport's ``last_fetch_stats`` and the
+        heal timers; ``None`` when this replica never healed) and
+        ``opt_state_bytes`` (:meth:`report_opt_state_bytes`). Also the
+        payload :meth:`push_status` publishes."""
+        heal: Optional[Dict[str, Any]] = None
+        fetch_stats = getattr(
+            self._checkpoint_transport, "last_fetch_stats", None
+        )
+        timers = self._metrics.snapshot()["timers_s"]
+        if fetch_stats is not None or "heal_fetch" in timers:
+            heal = {
+                "last_fetch": fetch_stats,
+                "fetch_s": timers.get("heal_fetch"),
+                "apply_s": timers.get("heal_apply"),
+            }
+        return {
+            "churn_per_min": round(
+                self._metrics.rate_per_min("churn", churn_window_s), 6
+            ),
+            "wire_eff_MBps": self._last_wire_eff_mbps,
+            "tier_eff_MBps": dict(self._last_tier_mbps) or None,
+            "heal": heal,
+            "opt_state_bytes": self._opt_state_bytes,
+        }
+
+    def report_opt_state_bytes(self, nbytes: Optional[int]) -> None:
+        """Records the strategy's resident optimizer-state bytes for
+        :meth:`signals`; ``None`` clears the signal."""
+        self._opt_state_bytes = None if nbytes is None else int(nbytes)
+
+    def push_status(self, extra: Optional[Dict[str, Any]] = None) -> None:
+        """Publishes the :meth:`signals` digest with step/commit progress
+        (and ``extra``) to the lighthouse: it rides the native manager's
+        lease renewals into this member's entry of ``/status.json``. A
+        no-op on group ranks other than 0 (the group's digest is rank
+        0's); a failed push is logged, never raised."""
+        if self._manager is None:
+            return
+        counters = self._metrics.snapshot()["counters"]
+        status: Dict[str, Any] = {
+            "step": self._step,
+            "commits": counters.get("commits", 0),
+            "aborts": counters.get("aborts", 0),
+            "heals": counters.get("heals", 0),
+            **self.signals(),
+        }
+        if extra:
+            status.update(extra)
+        try:
+            self._manager.set_status(status)
+        except Exception as e:  # noqa: BLE001 - observability must not kill
+            logger.warning(f"status push failed (ignored): {e}")
 
     # -- introspection --
 

@@ -3,7 +3,8 @@
 The runtime's phase boundaries (quorum, reconfigure, collective dispatch,
 checkpoint send/recv, commit vote) are annotated with
 ``torch.profiler.record_function`` spans, so they show up on the host
-track of a ``torch.profiler`` capture next to the CUDA kernels. A span
+tracks of a ``torch.profiler`` capture next to the CUDA kernels (the
+capture profiles every thread: the quorum runs on its own). A span
 with no active capture costs a few microseconds, so the Manager annotates
 unconditionally.
 
@@ -36,6 +37,19 @@ _ENV_STEPS = "TORCHFT_PROFILE_STEPS"
 def span(name: str) -> Any:
     """Named host-track span: ``with span("torchft::quorum"): ...``."""
     return torch.profiler.record_function(name)
+
+
+def _all_threads() -> Any:
+    """Kineto's all-threads mode: without it a capture records only the
+    spans of the thread that started it, and the quorum, reconfigure and
+    checkpoint spans the Manager opens on its quorum thread are lost.
+    None (with a warning) on a torch build that lacks the mode."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        logger.warning("this torch build cannot profile all threads: spans "
+                       "opened off the capturing thread are not traced")
+        return None
 
 
 class Profiler:
@@ -97,7 +111,8 @@ class Profiler:
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         try:
-            self._prof = torch.profiler.profile(activities=activities)
+            self._prof = torch.profiler.profile(
+                activities=activities, experimental_config=_all_threads())
             self._prof.__enter__()
         except Exception as e:  # noqa: BLE001 - observability must not kill
             logger.warning("profiler start failed: %s", e)
