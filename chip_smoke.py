@@ -50,7 +50,8 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            staging), 6 timed steps, 3 steps under a torch.profiler trace
            of the card (group 0), then one step with compress="bf16";
 5. heal    a third worker joins late, heals from a live peer through the
-           CheckpointServer onto the card, and all three train on;
+           CheckpointServer's streamed zero-copy path onto the card (the
+           smoke fails on any other path), and all three train on;
 6. flash train  two replica-group workers train the big LM with
            use_flash=True through the same PipelinedDDP(compress="q8")
            transaction: 2 warm-up steps, 4 timed steps, then 2 steps under
@@ -67,7 +68,21 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
 8. hier dense  four groups on the dense LM in regions [r0, r0, r1, r1]
            on hosts [h0, h0, h1, h1]: the shm host tier and the
            inter-region ring (its q8ef wire) both run; 2 warm-up and 3
-           steps.
+           steps;
+9. heal transport  a donor process publishes one flash-LM group's state
+           (111,166,464 f32 params + AdamW mu + nu on the card,
+           1,333,997,568 B) and this process fetches it: the stream path
+           on the raw and the bf16 wire (K3 narrows the moments in the
+           donor), 1 and 4 streams each, the striped pickle (4) and the
+           single stream; prints each fetch's fetch_s, h2d_s and bytes
+           and holds every result against the donor's state: params bit
+           for bit on every path, moments bit for bit on the raw wire and
+           equal to K3's plain cast of the donor's on the bf16 wire;
+10. remat  one forward+backward of the flash LM (B16, S2047, bf16) with
+           remat off, full and save_attn on the same weights: time, peak
+           memory, K4/K5 launches (8 / 16 / 8 and 16 each) and the
+           gradients against remat off (bit for bit, or the difference
+           printed within REMAT_GRAD_RTOL).
 
 The train, flash train and hier phases drain Manager.observe_op_stats()
 around their timed steps and print, per cell, the native per-bucket
@@ -84,19 +99,21 @@ launch each per step), groups x bf16 steps
 a pass per step, and one more for a step whose gradients a heal made
 stale), and 0 for every other kernel — the counts are reset to 0 in each worker just before it
 drives a path and read just after; all groups end bit-identical, the
-healed one included. The hier phases also check that every group is
+healed one included, and the heal took the stream path. The hier phases also check that every group is
 hier-capable with the expected host-tier transport ("shm"; "tcp" under
 TORCHFT_HC_SHM=0), that no wire kernel launched (the two-tier pack is
 native), that the hier plan allocated no staging after warm-up, and in
 the hier dense cell that each region leader's inter tier sent about one
 byte per parameter per step (the q8 wire, not the f32 size) and no
 other group sent any. Prints one ``kernels`` JSON line (each kernel's
-launches in total and by phase), the card's name and power limit, and
+launches in total and by phase; K3 must launch in the heal transport
+phase), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero.
 
 Usage: ``python3 chip_smoke.py`` (needs one CUDA device; the workers are
-this script re-run with ``--worker``). ``python3 chip_smoke.py
+this script re-run with ``--worker``, the heal donor with
+``--heal-donor``). ``python3 chip_smoke.py
 --flash-turns`` measures only: the flat q8 and the hier flash phases in
 turns (flat, hier, hier, flat), one JSON line per turn; ``--shm-probe``
 checks only that the machine's /dev/shm takes the shm host tier.
@@ -115,6 +132,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -432,7 +450,7 @@ def worker(cfg: dict) -> None:
         state_dict=state.state_dict, min_replica_size=cfg.get("groups", 2),
         rank=0, world_size=1, lighthouse_addr=cfg["lighthouse"],
         replica_id=f"g{g}", region=cfg.get("region"),
-        host_label=cfg.get("host"),
+        host_label=cfg.get("host"), device=device,
     )
     out["compute_s"] = sorted(compute_s[1:])[1]
     n_layers = len(state.params["blocks"])
@@ -1386,6 +1404,8 @@ def check_training(res: dict, expect_leaves: int = 39,
         fail("the healed group's parameters differ from the donor's")
     if late.get("heals", 0) < 1 or not late.get("fetch"):
         fail(f"the late group never healed: {late.get('heals')} {late.get('fetch')}")
+    if late["fetch"]["path"] != "stream":
+        fail(f"the late group healed off the stream path: {late['fetch']}")
     log(f"  late group healed ({late['fetch']}) and ended bit-identical at "
         f"step {late['phases']['heal']['step']}")
     step_s.sort()
@@ -1618,6 +1638,303 @@ def check_hier_dense(res: dict, expect_leaves: int = 39,
                 for r in results]}
 
 
+# -- heal transport at the flash LM's state size -------------------------------
+
+HEAL_STEP = 5          # the step the heal donor publishes
+HEAL_SEED = 17         # the donor's moments (params: init_params seed 0)
+# (label, path, wire, streams) of each fetch of the heal transport phase
+# (each wire's first fetch builds the donor's staging and the receiver's
+# pinned buffer of that size: "cold"; the same fetch again: "warm")
+HEAL_FETCHES = [("stream none x1 cold", "stream", None, 1),
+                ("stream none x1 warm", "stream", None, 1),
+                ("stream none x4", "stream", None, 4),
+                ("stream bf16 x1 cold", "stream", "bf16", 1),
+                ("stream bf16 x1 warm", "stream", "bf16", 1),
+                ("stream bf16 x4", "stream", "bf16", 4),
+                ("striped x4", "striped", None, 4),
+                ("single", "single", None, 1)]
+
+
+def _heal_state(lm: dict, device: torch.device) -> dict:
+    """The heal payload of one group of ``lm``: its f32 params (seed 0),
+    AdamW moments drawn from HEAL_SEED (on the CPU, then moved: the same
+    bits in every process), and the manager's counters."""
+    from torchft_tpu_torch._tree import tree_map
+    from torchft_tpu_torch.models import transformer as tt
+
+    params = tt.init_params(tt.TransformerConfig(**lm), seed=0, device=device)
+    gen = torch.Generator().manual_seed(HEAL_SEED)
+
+    def moment(p: torch.Tensor, scale: float) -> torch.Tensor:
+        return (torch.randn(p.shape, generator=gen) * scale).to(device)
+
+    mu = tree_map(lambda p: moment(p, 1e-3), params)
+    nu = tree_map(lambda p: moment(p, 1e-3).square(), params)
+    return {"user": {"params": params,
+                     "opt_state": {"count": HEAL_STEP, "mu": mu, "nu": nu}},
+            "torchft": {"step": HEAL_STEP, "batches_committed": 2 * HEAL_STEP}}
+
+
+def heal_donor(cfg: dict) -> None:
+    """The donor of the heal transport phase, in a process of its own (so
+    its server threads and the receiver's readers hold two GILs):
+    publishes the state, prints its address, serves until its standard
+    input says the receiver is done, then prints its launch counts."""
+    from datetime import timedelta
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    device = torch.device(cfg["device"])
+    state = _heal_state(cfg["lm"], device)
+    server = tft.CheckpointServer(timeout=timedelta(seconds=300), device=device)
+    try:
+        server.send_checkpoint([1], HEAL_STEP, state, timedelta(seconds=300))
+        qk.reset_launch_counts()
+        print(json.dumps({"address": server.address()}), flush=True)
+        sys.stdin.readline()
+        launches = dict(qk.launch_counts)
+        # the CRC32C a range header costs before its first byte: the
+        # native CRC over the whole raw staging, on this host's CPU
+        raw = server._stagings[None]
+        t0 = time.perf_counter()
+        raw.range_crc32c(0, raw.total)
+        print(json.dumps({
+            "launches": launches,
+            "staging_build_s": {str(w): st.build_s
+                                for w, st in server._stagings.items()},
+            "crc_s": time.perf_counter() - t0}), flush=True)
+    finally:
+        server.shutdown()
+
+
+def _json_line(stream) -> dict:
+    for line in stream:
+        if line.startswith("{"):
+            return json.loads(line)
+    fail("the heal donor exited without answering")
+
+
+def _heal_fetch(ck, address: str, path: str, wire, streams: int,
+                device: torch.device):
+    """One fetch by ``path``: the tree and its stats. The pickled paths
+    return host numpy leaves; their ``h2d_s`` is the upload of those
+    leaves onto ``device`` afterwards (what the caller's load_state_dict
+    pays), the stream's the upload left once the last byte arrived."""
+    import urllib.request
+    from datetime import timedelta
+
+    from torchft_tpu_torch._tree import tree_map
+
+    timeout = timedelta(seconds=300)
+    if path == "stream":
+        return ck.CheckpointServer._load_stream(address, timeout, wire,
+                                                streams, device)
+    t0 = time.perf_counter()
+    if path == "striped":
+        out = ck.CheckpointServer._load_striped(address, timeout, streams)
+    else:
+        with urllib.request.urlopen(address, timeout=300) as f:
+            out = ck.load_state_dict_stream(f)
+    fetch_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out = tree_map(lambda l: torch.from_numpy(l).to(device, non_blocking=True)
+                   if isinstance(l, np.ndarray) else l, out)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, {"path": path, "wire": None, "streams": streams,
+                 "fetch_s": fetch_s, "h2d_s": time.perf_counter() - t1}
+
+
+def _check_healed(label: str, out: dict, ref: dict, wire) -> int:
+    """Params bit-identical to the donor's; moments bit-identical on the
+    raw wire, K3's plain cast of the donor's on the bf16 wire. Returns the
+    array bytes checked."""
+    from torchft_tpu_torch._tree import flatten
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    n = 0
+    got_p, want_p = flatten(out["user"]["params"])[0], flatten(ref["user"]["params"])[0]
+    if len(got_p) != len(want_p):
+        fail(f"heal {label}: {len(got_p)} param leaves, donor {len(want_p)}")
+    for g, w in zip(got_p, want_p):
+        if g.device != w.device or not _bits_equal(g, w):
+            fail(f"heal {label}: a param leaf {tuple(w.shape)} differs")
+        n += w.numel() * 4
+    for m in ("mu", "nu"):
+        for g, w in zip(flatten(out["user"]["opt_state"][m])[0],
+                        flatten(ref["user"]["opt_state"][m])[0]):
+            want = w if wire is None else qk.plain["cast_bf16"](w).float()
+            if not _bits_equal(g, want):
+                fail(f"heal {label}: a {m} leaf {tuple(w.shape)} differs from "
+                     f"the donor's{' through the bf16 cast' if wire else ''}")
+            n += w.numel() * 4
+    if out["user"]["opt_state"]["count"] != HEAL_STEP or \
+            out["torchft"] != ref["torchft"]:
+        fail(f"heal {label}: counters {out['torchft']}")
+    return n
+
+
+def phase_heal_transport(workdir: str, device: str = "cuda",
+                         lm: dict = BIG_LM) -> dict:
+    """A donor process publishes one group's state of ``lm`` (params and
+    AdamW moments, f32 on ``device``); this process fetches it by every
+    path and wire and holds each result against the donor's state."""
+    from torchft_tpu_torch import checkpointing as ck
+
+    dev = torch.device(device)
+    logf = open(os.path.join(workdir, "heal_donor.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--heal-donor",
+         json.dumps({"device": device, "lm": lm})],
+        cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=logf, text=True,
+    )
+    try:
+        ref = _heal_state(lm, dev)
+        address = _json_line(proc.stdout)["address"] + str(HEAL_STEP)
+        fetches = []
+        for label, path, wire, streams in HEAL_FETCHES:
+            out, stats = _heal_fetch(ck, address, path, wire, streams, dev)
+            if stats["path"] != path:
+                fail(f"heal {label}: took the {stats['path']} path")
+            checked = _check_healed(label, out, ref, wire)
+            del out
+            fetches.append({"fetch": label, **stats,
+                            "bytes": stats.get("bytes", checked),
+                            "state_bytes": checked})
+            log(f"  heal {label}: fetch_s {stats['fetch_s']:.4f}, h2d_s "
+                f"{stats['h2d_s']:.4f}, {fetches[-1]['bytes']} B on the wire, "
+                f"{checked} B of state checked")
+        proc.stdin.write("done\n")
+        proc.stdin.flush()
+        donor = _json_line(proc.stdout)
+        proc.wait(timeout=60)
+    except BaseException:
+        logf.flush()
+        with open(logf.name) as f:
+            log(f"  heal donor log: {f.read()[-3000:]}")
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+    if proc.returncode != 0:
+        fail(f"the heal donor exited {proc.returncode}")
+    return {"fetches": fetches, "launches": donor["launches"],
+            "staging_build_s": donor["staging_build_s"],
+            "crc_s": donor["crc_s"]}
+
+
+def check_heal_transport(res: dict, on_card: bool = True,
+                         lm: dict = BIG_LM) -> None:
+    """K3 narrowed the moments on the bf16 wire: one launch per 64 of the
+    donor's opt_state f32 leaves (both bf16 fetches read one staging)."""
+    from torchft_tpu_torch.ops._lib import _kernels
+
+    n_moments = 2 * len(_lm_shapes(lm))
+    want = {k: 0 for k in res["launches"]}
+    if on_card:
+        cap = _kernels.lib().tft_seg_capacity()
+        want["cast_bf16"] = -(-n_moments // cap)
+    if res["launches"] != want:
+        fail(f"heal transport launches {res['launches']} != {want}")
+
+
+# -- remat on the flash LM ----------------------------------------------------
+
+# (label, remat, remat_policy) of each forward+backward of the remat phase
+REMAT_MODES = [("off", False, None), ("full", True, None),
+               ("save_attn", True, "save_attn")]
+# remat vs no remat when not bit-identical: two bf16 steps of each
+# gradient leaf's absmax (the recompute would have to round differently)
+REMAT_GRAD_RTOL = 2.0 ** -7
+
+
+def phase_remat(device: str = "cuda", lm: dict = BIG_LM,
+                batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+    """One forward+backward of ``lm`` per remat mode on the same weights
+    and tokens (after one untimed pass): its time, its peak memory over
+    what the weights hold, its K4/K5 launches (reset to 0 just before it,
+    read just after) and its gradients against remat off."""
+    import dataclasses
+
+    from torchft_tpu_torch._tree import flatten
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    base = tt.TransformerConfig(**lm)
+    params = tt.init_params(base, seed=0, device=dev)
+    for p in flatten(params)[0]:
+        p.requires_grad_(True)
+    tokens = _tokens({"group": 0, "lm": lm, "batch": batch, "seq": seq},
+                     10**6 + 2, dev)
+    tt.make_grad_fn(base)(params, tokens)  # untimed: library init
+    rows, ref = [], None
+    for label, remat, policy in REMAT_MODES:
+        cfg = dataclasses.replace(base, remat=remat, remat_policy=policy)
+        grad_fn = tt.make_grad_fn(cfg)
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.memory_allocated(dev)
+        qk.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = grad_fn(params, tokens)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(qk.launch_counts)
+        leaves = flatten(grads)[0]
+        row = {"mode": label, "ms": ms, "loss": float(loss),
+               "launches": launches,
+               "peak_gb": (torch.cuda.max_memory_allocated(dev) - start) / 2**30
+               if on_card else None}
+        if ref is None:
+            ref = leaves
+        else:
+            same = all(_bits_equal(a, b) for a, b in zip(leaves, ref))
+            row["bit_identical"] = same
+            if not same:
+                rel = max(_max_abs_err(a, b) / max(float(b.abs().max()), 1e-30)
+                          for a, b in zip(leaves, ref))
+                row["max_rel_err"] = rel
+        rows.append(row)
+        del grads, leaves
+    return {"rows": rows, "n_layers": base.n_layers}
+
+
+def check_remat(res: dict, on_card: bool = True) -> dict:
+    """K4 n_layers / 2 n_layers / n_layers and K5 2 n_layers launches per
+    pass (remat off / full / save_attn), finite losses, and gradients
+    bit-identical to remat off (else within REMAT_GRAD_RTOL, printed)."""
+    n = res["n_layers"]
+    per_fwd = {"off": 1, "full": 2, "save_attn": 1}
+    launches: dict = {}
+    for row in res["rows"]:
+        want = dict.fromkeys(row["launches"], 0)
+        if on_card:
+            want["flash_fwd"] = per_fwd[row["mode"]] * n
+            want["flash_bwd"] = 2 * n
+        if row["launches"] != want:
+            fail(f"remat {row['mode']}: launches {row['launches']} != {want}")
+        if not _finite(row["loss"]):
+            fail(f"remat {row['mode']}: non-finite loss {row['loss']}")
+        if row.get("bit_identical") is False:
+            log(f"  remat {row['mode']}: gradients not bit-identical to remat "
+                f"off; max |diff| / leaf absmax {row['max_rel_err']:.3e} "
+                f"(tolerance {REMAT_GRAD_RTOL:.3e})")
+            if not row["max_rel_err"] <= REMAT_GRAD_RTOL:
+                fail(f"remat {row['mode']}: gradients off by "
+                     f"{row['max_rel_err']:.3e} of a leaf's absmax")
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches}
+
+
 def _finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -1728,6 +2045,7 @@ def shm_probe() -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--worker", help=argparse.SUPPRESS)
+    parser.add_argument("--heal-donor", help=argparse.SUPPRESS)
     parser.add_argument("--flash-turns", action="store_true",
                         help="measure only: the flat q8 and the hier flash "
                         "phases in turns (flat, hier, hier, flat)")
@@ -1736,6 +2054,9 @@ def main() -> int:
     args = parser.parse_args()
     if args.worker:
         worker(json.loads(args.worker))
+        return 0
+    if args.heal_donor:
+        heal_donor(json.loads(args.heal_donor))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -1823,8 +2144,25 @@ def main() -> int:
         f"whole timed window {dsum['window_ms_per_step']} ms/step per group; "
         f"tier_eff_MBps {json.dumps(dsum['signals']['tier_eff_MBps'])}; per "
         f"group (median over the timed steps): {json.dumps(dsum['split'])}")
+    log("phase heal transport")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_heal_") as workdir:
+        hres = phase_heal_transport(workdir)
+        check_heal_transport(hres)
+    by_phase["heal transport"] = hres["launches"]
+    log(f"  heal transport at the flash LM's state (111,166,464 params + mu + "
+        f"nu, f32 on the card; donor process -> this process): "
+        f"{json.dumps(hres['fetches'])}; donor launches {hres['launches']}, "
+        f"staging build (pinned buffer, d2h, K3) s by wire "
+        f"{json.dumps(hres['staging_build_s'])}; CRC32C of the raw staging "
+        f"{hres['crc_s']:.4f} s")
+    log("phase remat")
+    rres = phase_remat()
+    rsum = check_remat(rres)
+    by_phase["remat"] = rsum["launches"]
+    log(f"  remat on the flash LM (B{BIG_BATCH}, S{BIG_SEQ - 1}, bf16), one "
+        f"forward+backward each: {json.dumps(rres['rows'])}")
     # each kernel's launches over the main paths' runs (the counts each
-    # worker reset just before a path and read just after)
+    # worker, or phase, reset just before a path and read just after)
     for name in rows:
         rows[name]["launches_by_phase"] = {
             phase: counts.get(name, 0) for phase, counts in by_phase.items()}
@@ -1836,6 +2174,8 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd"):
         if rows[name]["launches_by_phase"]["hier flash train"] == 0:
             fail(f"{name} never launched on the hier flash path")
+    if rows["cast_bf16"]["launches_by_phase"]["heal transport"] == 0:
+        fail("cast_bf16 never launched on the bf16 heal wire")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(_smi(), flush=True)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: the wire kernels bit for bit (per leaf through one-segment tables,
 and over whole plan groups), the flash-attention kernels within the
-tolerances stated at ``_flash_tol``.
+tolerances stated at ``_flash_tol``, and K3 on the heal path: the bf16
+heal staging's narrowed ``opt_state`` leaves, and a streamed heal from
+card to card.
 
 Needs a CUDA device (the hand-written kernels have no CPU interpreter);
 without one every test skips with that reason, and the plain versions are
@@ -723,3 +725,86 @@ def test_pack_waits_for_the_gradients_not_for_later_work(cuda_device):
         card.shutdown()
         host.shutdown()
         store.shutdown()
+
+
+def _heal_state(device, n_moments: int = 70):
+    """A heal payload whose opt_state holds more f32 leaves than one K3
+    table (and the NaN words), beside f32 params and an int count."""
+    rng = np.random.default_rng(8)
+    mu = [torch.from_numpy(rng.standard_normal(1000 + 37 * i)
+                           .astype(np.float32)) for i in range(n_moments)]
+    mu[0][:len(CAST_BF16_WORDS)] = torch.from_numpy(
+        np.array(list(CAST_BF16_WORDS), np.uint32).view(np.float32))
+    state = {"user": {
+        "params": {"w": torch.from_numpy(rng.standard_normal((513, 7))
+                                         .astype(np.float32))},
+        "opt_state": {"count": 5, "mu": mu,
+                      "nu": [m.abs() * 1e-3 for m in mu]},
+    }, "torchft": {"step": 3}}
+    return _tree_to(state, device)
+
+
+def _tree_to(tree, device):
+    from torchft_tpu_torch._tree import tree_map
+
+    return tree_map(lambda l: l.to(device) if isinstance(l, torch.Tensor)
+                    else l, tree)
+
+
+@pytest.mark.cuda
+def test_heal_staging_narrows_opt_state_with_k3(cuda_device):
+    """The donor's bf16 heal staging on the card: K3 over the opt_state
+    leaves (one launch per 64), written into the stream's layout, bit for
+    bit the staging its plain version builds on the CPU."""
+    from torchft_tpu_torch import checkpointing as ck
+
+    card = _heal_state(cuda_device)
+    before = dict(tq.launch_counts)
+    staged = ck._StreamStaging(card, "bf16")
+    assert tq.launch_counts["cast_bf16"] == before["cast_bf16"] + _tables(140)
+    assert staged.buffer.is_pinned()
+    host = ck._StreamStaging(_tree_to(card, "cpu"), "bf16")
+    assert staged.meta == host.meta
+    assert staged.buffer.numpy().tobytes() == host.buffer.numpy().tobytes()
+    raw = ck._StreamStaging(card, None)
+    assert raw.total == host.total + 4 * sum(
+        m.numel() for m in card["user"]["opt_state"]["mu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, "bf16"])
+def test_stream_heal_uploads_onto_the_card(cuda_device, wire):
+    """Donor and receiver on the card: the staging waits for the stream
+    that wrote the state (here behind a ~1 s spin), the leaves land on
+    the card, params bit-identical, moments through K3's plain cast."""
+    from datetime import timedelta
+
+    from torchft_tpu_torch import checkpointing as ck
+    from torchft_tpu_torch._tree import flatten
+
+    server = ck.CheckpointServer(timeout=timedelta(seconds=30),
+                                 device=cuda_device)
+    try:
+        state = _heal_state(cuda_device)
+        writer = torch.cuda.Stream(cuda_device)
+        w = state["user"]["params"]["w"]
+        with torch.cuda.stream(writer):
+            torch.cuda._sleep(1_000_000_000)
+            w.add_(1.0)  # the write the publish must wait for
+        server.send_checkpoint([1], 3, state, timedelta(seconds=30),
+                               stream=writer)
+        out, stats = ck.CheckpointServer._fetch(
+            f"{server.address()}3", timedelta(seconds=30), wire=wire,
+            streams=4, device=cuda_device)
+        torch.cuda.synchronize()
+        assert stats["path"] == "stream" and stats["h2d_s"] >= 0
+        got = out["user"]["params"]["w"]
+        assert got.device.type == "cuda" and _bytes(got) == _bytes(w)
+        for m in ("mu", "nu"):
+            for d, h in zip(flatten(state["user"]["opt_state"][m])[0],
+                            flatten(out["user"]["opt_state"][m])[0]):
+                assert h.device.type == "cuda" and h.dtype == torch.float32
+                want = d if wire is None else tq.plain["cast_bf16"](d).float()
+                assert _bytes(h) == _bytes(want)
+    finally:
+        server.shutdown()

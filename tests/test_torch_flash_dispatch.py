@@ -2,6 +2,9 @@
 kernels a dtype runs on the card (a dispatch by dtype, not a fallback),
 and the 16-byte alignment the tensor-core kernels' ``cp.async`` row copies
 need. Both are pure functions of the tensors' metadata; nothing launches.
+Also ``interpret``: ``True`` takes the plain versions on any device,
+``None`` keeps the route by device (checked with the launches recorded,
+not run).
 """
 
 import importlib
@@ -63,3 +66,34 @@ def test_the_scalar_route_takes_any_offset():
     qb = base.to(torch.bfloat16)[1:].view(2, 10, 2, 64)
     with pytest.raises(ValueError, match="16-byte"):
         tfa._check_kernel_inputs(qb, qb, qb)
+
+
+def _as_if_on_the_card(monkeypatch):
+    """CPU tensors take the card's route: the wrapper sees a CUDA tensor
+    and launches (each launch recorded by its entry point, none run)."""
+    launches = []
+    monkeypatch.setattr(tfa, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    monkeypatch.setattr(tfa._kernels, "launch",
+                        lambda name, fn_name, *args: launches.append(fn_name))
+    return launches
+
+
+@pytest.mark.parametrize("interpret,want", [
+    (None, ["tft_flash_fwd", "tft_flash_bwd_dkdv", "tft_flash_bwd_dq"]),
+    (False, ["tft_flash_fwd", "tft_flash_bwd_dkdv", "tft_flash_bwd_dq"]),
+    (True, []),
+])
+def test_interpret_asks_for_the_plain_version(monkeypatch, interpret, want):
+    """``interpret=True`` runs the plain versions whatever the device;
+    ``None`` (and ``False``) keep the dispatch, which on a card tensor
+    launches K4 and K5 and never falls back."""
+    launches = _as_if_on_the_card(monkeypatch)
+    q, k, v = (torch.randn(1, 8, 2, 64, requires_grad=True) for _ in range(3))
+    out = tfa.flash_attention(q, k, v, interpret=interpret)
+    out.float().sum().backward()
+    assert launches == want
+    if interpret:
+        monkeypatch.undo()  # the CPU route: the plain versions
+        ref = tfa.flash_attention(q.detach(), k.detach(), v.detach())
+        assert torch.equal(out.detach(), ref)

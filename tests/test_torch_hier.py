@@ -324,7 +324,7 @@ def _port_manager(lighthouse, idx, store, hc, region=None, host_label=None,
         rank=0, world_size=1, store_addr=store.address(),
         lighthouse_addr=lighthouse.address(), replica_id=f"hier{idx}",
         region=region, host_label=host_label, timeout=_T, quorum_timeout=_T,
-        connect_timeout=_T,
+        connect_timeout=_T, device="cpu",
     )
 
 
@@ -407,8 +407,15 @@ class TestManagerPlumbing:
             assert torch.equal(r["avg"], torch.full((64,), 1.5))
 
     def test_unlabeled_cohort_latches_hier(self):
+        healed = threading.Barrier(2)
+
         def step(manager, hc, idx):
             manager.start_quorum()
+            # group 1's initial weight sync is fetched before either group
+            # fails its step and votes (the donor's vote closes its
+            # checkpoint gate; a step that fails at once would race it)
+            manager.wait_quorum()
+            healed.wait(timeout=30)
             capable = manager.hier_capable()
             out = manager.plan_allreduce({"g": torch.ones(8)}, hier=True).wait()
             discarded = not manager.should_commit()
@@ -497,6 +504,7 @@ def _port_group(g, lighthouse, init):
         state_dict=state.state_dict, min_replica_size=2, timeout=_T,
         quorum_timeout=_T, connect_timeout=_T, rank=0, world_size=1,
         lighthouse_addr=lighthouse, replica_id=f"g{g}", host_label="h0",
+        device="cpu",
     )
     try:
         ddp = tft.PipelinedDDP(manager, state, tt.make_grad_fn(cfg),

@@ -217,6 +217,7 @@ def test_signals_and_status_through_manager(monkeypatch):
                 world_size=1, store_addr=store.address(),
                 lighthouse_addr=lighthouse.address(), replica_id=f"sig{idx}",
                 timeout=_T, quorum_timeout=_T, connect_timeout=_T,
+                device="cpu",
             )
             barrier.wait(timeout=20)
             assert manager.signals()["wire_eff_MBps"] is None

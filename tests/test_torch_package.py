@@ -12,6 +12,7 @@ import pickle
 import subprocess
 import sys
 import urllib.error
+import urllib.request
 from datetime import timedelta
 
 import numpy as np
@@ -31,9 +32,11 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
         "torchft_tpu_torch.ops, torchft_tpu_torch.lighthouse, "
         "torchft_tpu_torch.collectives, torchft_tpu_torch.manager, "
         "torchft_tpu_torch.ddp, torchft_tpu_torch.profiling, chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m == 'torchft_tpu' "
-        "or m.startswith('torchft_tpu.'))\n"
+        "import torchft_tpu_torch.checkpointing, "
+        "torchft_tpu_torch.models.transformer, "
+        "torchft_tpu_torch.ops.flash_attention\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'optax', 'ml_dtypes', 'torchft_tpu'))\n"
         "assert not bad, bad\n"
         "from torchft_tpu_torch import _native\n"
         "assert _native._lib._cdll is None, 'import loaded the native library'\n"
@@ -60,6 +63,8 @@ def test_no_source_file_names_jax():
                 for n, line in enumerate(f, 1):
                     s = line.strip()
                     if s.startswith(("import jax", "from jax", "import optax",
+                                     "from optax", "import ml_dtypes",
+                                     "from ml_dtypes",
                                      "from torchft_tpu ", "from torchft_tpu.",
                                      "import torchft_tpu ", "import torchft_tpu.")):
                         offenders.append(f"{path}:{n}: {s}")
@@ -67,17 +72,25 @@ def test_no_source_file_names_jax():
 
 
 def test_checkpoint_wire_is_numpy_through_a_safelist():
-    """Tensors cross the heal wire as numpy arrays through the port's
-    safelisted unpickler; a pickle that names a function is refused."""
-    server = ck.CheckpointServer(timeout=timedelta(seconds=10))
+    """The pickled heal paths carry tensors as numpy arrays through the
+    port's safelisted unpickler (the streamed heal, the default, hands
+    back tensors on the receiver's device, its skeleton through the same
+    safelist); a pickle that names a function is refused."""
+    server = ck.CheckpointServer(timeout=timedelta(seconds=10), device="cpu")
     try:
         state = {"user": {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3),
                           "count": 3},
                  "torchft": {"step": 7, "batches_committed": 14}}
         server.send_checkpoint([1], 7, state, timedelta(seconds=10))
+        with urllib.request.urlopen(f"{server.metadata()}7", timeout=10) as f:
+            pickled = ck.load_state_dict_stream(f)
+        assert isinstance(pickled["user"]["w"], np.ndarray)
+        assert pickled["user"]["w"].tobytes() == state["user"]["w"].numpy().tobytes()
         got = server.recv_checkpoint(0, server.metadata(), 7, timedelta(seconds=10))
-        assert isinstance(got["user"]["w"], np.ndarray)
-        assert got["user"]["w"].tobytes() == state["user"]["w"].numpy().tobytes()
+        assert server.last_fetch_stats["path"] == "stream"
+        assert isinstance(got["user"]["w"], torch.Tensor)
+        assert got["user"]["w"].device.type == "cpu"
+        assert got["user"]["w"].numpy().tobytes() == state["user"]["w"].numpy().tobytes()
         assert got["user"]["count"] == 3 and got["torchft"]["step"] == 7
         with pytest.raises(urllib.error.HTTPError) as e:
             server.recv_checkpoint(0, server.metadata(), 6, timedelta(seconds=10))

@@ -90,6 +90,7 @@ def test_span_names_and_summary_match_reference(tmp_path, monkeypatch):
         collectives=hc, load_state_dict=None, state_dict=None,
         min_replica_size=1, rank=0, world_size=1,
         lighthouse_addr=lighthouse.address(), replica_id="tprof", timeout=_T,
+        device="cpu",
     )
     try:
         _steps(manager, {"g": torch.ones(64)})

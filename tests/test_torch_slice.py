@@ -111,6 +111,7 @@ def _port_group(g, lighthouse, init, min_replicas=2, device_pack=True,
         state_dict=state.state_dict, min_replica_size=min_replicas,
         timeout=_TIMEOUT, quorum_timeout=_TIMEOUT, connect_timeout=_TIMEOUT,
         rank=0, world_size=1, lighthouse_addr=lighthouse, replica_id=f"g{g}",
+        device="cpu",
     )
     grad_fn = tt.make_grad_fn(cfg)
     if grad_hook is not None:

@@ -7,9 +7,11 @@ this package into its own ``_build/`` directory at first use
 protocol and can share a quorum and a ring. Exposes the lighthouse, the
 per-replica-group manager server and its client, the rendezvous store,
 and the ring, two-tier and CommPlan entry points :mod:`.collectives`
-drives, with their per-op and per-bucket stats.
+drives, with their per-op and per-bucket stats, and the CRC32C the
+heal stream's ranges carry.
 
-Timeouts surface as ``TimeoutError``, other native failures as
+Timeouts surface as ``TimeoutError``, a failed frame checksum as
+:class:`WireCorruption`, other native failures as
 ``RuntimeError``. ctypes releases the GIL for every native call, so
 blocking RPCs never stall other Python threads.
 """
@@ -133,6 +135,11 @@ _SIGNATURES = {
     "tft_plan_reset_feedback": (_int, [_vp, _i64]),
     # per-bucket pack/ring/unpack seconds of the plan's last execute (JSON)
     "tft_plan_stats_json": (_int, [_vp, _i64, ctypes.POINTER(_vp)]),
+    # CRC32C (Castagnoli): the ring frame and heal range checksum
+    "tft_crc32c": (ctypes.c_uint32, [_cp, ctypes.c_uint64]),
+    "tft_crc32c_update": (ctypes.c_uint32, [
+        ctypes.c_uint32, _cp, ctypes.c_uint64,
+    ]),
 }
 
 
@@ -165,12 +172,27 @@ _OK = 0
 _TIMEOUT = 1
 
 
+class WireCorruption(RuntimeError):
+    """A CRC-guarded wire frame failed its integrity check (a ring frame
+    or a heal stream range): a flipped bit that decoded cleanly would
+    otherwise install wrong bytes with no vote to catch it. A
+    RuntimeError like every native failure, with a type of its own so
+    callers can tell it apart."""
+
+
+# The native WireCorruptionError's message prefix: the cross-language
+# contract the typed re-raise keys on.
+_WIRE_CORRUPTION_PREFIX = "wire corruption:"
+
+
 def _check(rc: int) -> None:
     if rc == _OK:
         return
     msg = _lib.tft_last_error().decode("utf-8", "replace")
     if rc == _TIMEOUT:
         raise TimeoutError(msg)
+    if msg.startswith(_WIRE_CORRUPTION_PREFIX):
+        raise WireCorruption(msg)
     raise RuntimeError(msg)
 
 
@@ -446,3 +468,41 @@ class StoreClient:
         handle, self._handle = getattr(self, "_handle", None), None
         if handle and getattr(_lib, "_cdll", None) is not None:
             _lib.tft_store_client_destroy(handle)
+
+
+def _crc_arg(data: Union[bytes, bytearray, memoryview]) -> "tuple[Any, int]":
+    """Bytes pass through; writable buffers (the heal receiver's buffer)
+    hash in place through a c_char view; read-only views pay one copy."""
+    if isinstance(data, bytes):
+        return data, len(data)
+    mv = memoryview(data).cast("B")
+    n = mv.nbytes
+    if n == 0:
+        return b"", 0
+    if mv.readonly:
+        return mv.tobytes(), n
+    return (ctypes.c_char * n).from_buffer(mv), n
+
+
+def crc32c(data: Union[bytes, bytearray, memoryview]) -> int:
+    """CRC32C (Castagnoli), as the native ring frames and the heal
+    stream ranges carry it."""
+    buf, n = _crc_arg(data)
+    return int(_lib.tft_crc32c(buf, n))
+
+
+def crc32c_update(state: int, data: Union[bytes, bytearray, memoryview]) -> int:
+    """Incremental CRC32C: seed with ``0xFFFFFFFF``, chain updates,
+    finish with ``state ^ 0xFFFFFFFF``."""
+    buf, n = _crc_arg(data)
+    if n == 0:
+        return state
+    return int(_lib.tft_crc32c_update(state, buf, n))
+
+
+def crc32c_combine(parts: List[Union[bytes, bytearray, memoryview]]) -> int:
+    """CRC32C over the concatenation of ``parts``, never built."""
+    state = 0xFFFFFFFF
+    for part in parts:
+        state = crc32c_update(state, part)
+    return state ^ 0xFFFFFFFF

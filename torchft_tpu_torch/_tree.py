@@ -15,6 +15,8 @@ from __future__ import annotations
 from typing import Any, Callable, List, Sequence, Tuple
 
 TreeDef = Any
+# A leaf's path: the dict keys and sequence indices from the root to it.
+Path = Tuple[Any, ...]
 
 
 def flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
@@ -33,6 +35,37 @@ def flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
 
     treedef = rec(tree)
     return leaves, treedef
+
+
+def flatten_with_path(tree: Any) -> Tuple[List[Tuple[Path, Any]], TreeDef]:
+    """:func:`flatten` with each leaf's path, in the same order and with
+    the same treedef (a separate walk: :func:`flatten` runs on every
+    step's gradients and builds no paths)."""
+    leaves: List[Tuple[Path, Any]] = []
+
+    def rec(t: Any, path: Path) -> TreeDef:
+        if isinstance(t, dict):
+            keys = sorted(t)
+            return ("dict", tuple(keys),
+                    tuple(rec(t[k], path + (k,)) for k in keys))
+        if isinstance(t, (list, tuple)):
+            return (type(t).__name__,
+                    tuple(rec(x, path + (i,)) for i, x in enumerate(t)))
+        if t is None:
+            return ("none",)
+        leaves.append((path, t))
+        return ("leaf",)
+
+    treedef = rec(tree, ())
+    return leaves, treedef
+
+
+def is_opt_state_path(path: Path) -> bool:
+    """True when a leaf's path passes through a key named ``opt_state``:
+    the only leaves the heal's bf16 wire may narrow. Protect by default:
+    a leaf under any other name (weights, whatever the caller calls them)
+    ships raw."""
+    return any(isinstance(k, str) and k == "opt_state" for k in path)
 
 
 def unflatten(treedef: TreeDef, leaves: Sequence[Any]) -> Any:

@@ -13,7 +13,8 @@ Every training step is a transaction:
 - ``should_commit()`` is a distributed AND-vote: if any rank of any group
   saw an error, every group discards the step.
 - A recovering replica fetches live weights from a healthy peer over HTTP
-  (:mod:`.checkpointing`) instead of restarting the world.
+  (:mod:`.checkpointing`'s streamed heal, onto the group's device)
+  instead of restarting the world.
 
 Topology: each group carries a region and a host label (``TORCHFT_REGION``
 / ``TORCHFT_HOST``, the host label defaulting to the hostname); the
@@ -39,11 +40,12 @@ import time
 import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional, TypeVar, cast
+from typing import Any, Callable, Dict, List, Optional, TypeVar, Union, cast
 
 import torch
 
 from . import _native
+from ._device import resolve_device
 from ._native import ManagerClient, StoreClient
 from ._tree import tree_map
 from .checkpointing import CheckpointServer, CheckpointTransport
@@ -88,12 +90,14 @@ class Manager:
         hostname: str = socket.gethostname(),
         region: Optional[str] = None,
         host_label: Optional[str] = None,
+        device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         """
         Args:
             collectives: the reconfigurable cross-replica-group collectives.
             load_state_dict: restores USER state from a recovery checkpoint
-                (numpy leaves; copy them onto the device).
+                (tensors on ``device`` from the streamed heal, numpy leaves
+                from its pickled fallbacks; copy them into the live state).
             state_dict: captures USER state for recovery transfer.
             min_replica_size: minimum replica groups for a committable step.
             rank / world_size: this rank within the replica group (env
@@ -110,6 +114,10 @@ class Manager:
                 else the hostname). Groups sharing a (region, host) pair
                 reduce over the shared-memory host tier on the two-tier
                 schedule.
+            device: where this group's state lives: a streamed heal
+                uploads there, and a publish to a healing peer is ordered
+                after the work the training thread had queued on it
+                (``None``: the card).
 
         A windowed ``torch.profiler`` capture follows the
         ``TORCHFT_PROFILE_*`` variables (:class:`.profiling.Profiler`).
@@ -145,8 +153,12 @@ class Manager:
         self._store = StoreClient(store_addr, connect_timeout=connect_timeout)
 
         self._collectives = collectives
+        self._device = resolve_device(device)
+        # the training thread's stream at start_quorum: what a publish to
+        # a healing peer waits for (card state)
+        self._writer_stream: Optional[torch.cuda.Stream] = None
         self._checkpoint_transport: CheckpointTransport[Dict[str, T]] = (
-            CheckpointServer(timeout=timeout)
+            CheckpointServer(timeout=timeout, device=self._device)
         )
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="async_quorum"
@@ -250,6 +262,8 @@ class Manager:
             self._errored = None
         self._healing = False
         self._pending_work = []
+        if self._device.type == "cuda":
+            self._writer_stream = torch.cuda.current_stream(self._device)
         self._quorum_future = self._executor.submit(
             self._async_quorum, quorum_timeout=timeout or self._quorum_timeout
         )
@@ -329,6 +343,7 @@ class Manager:
                     step=result.max_step,
                     state_dict=self._manager_state_dict(),
                     timeout=self._timeout,
+                    stream=self._writer_stream,
                 )
         if result.heal:
             self._healing = True
@@ -663,8 +678,9 @@ class Manager:
         (reconfigures after the first, over the trailing window),
         ``wire_eff_MBps`` and ``tier_eff_MBps`` (the last observed ring
         and per-tier throughput; ``None`` until :meth:`observe_op_stats`
-        saw one), ``heal`` (the transport's ``last_fetch_stats`` and the
-        heal timers; ``None`` when this replica never healed) and
+        saw one), ``heal`` (the transport's ``last_fetch_stats``: path,
+        wire, streams, bytes, fetch_s, h2d_s; and the heal timers;
+        ``None`` when this replica never healed) and
         ``opt_state_bytes`` (:meth:`report_opt_state_bytes`). Also the
         payload :meth:`push_status` publishes."""
         heal: Optional[Dict[str, Any]] = None

@@ -17,22 +17,32 @@ and an f32 softmax, as ``transformer.py:313-318`` of the JAX package.
 With ``use_flash=True`` it runs through the fused flash-attention kernels
 (:func:`torchft_tpu_torch.ops.flash_attention`: no (S, S) score matrix in
 device memory), optionally as sliding-window attention
-(``attn_window``). Remat and context parallelism come with later slices.
+(``attn_window``). ``remat=True`` recomputes each block's activations in
+the backward (``torch.utils.checkpoint``, non-reentrant, which
+``torch.autograd.grad`` needs); ``remat_policy="save_attn"`` keeps the
+attention output (``attn_out``) and the flash operator's ``out``/``lse``
+(``flash_out``/``flash_lse``) so the replay skips K4, as the JAX
+package's policy does. Context parallelism comes with a later slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .._tree import flatten, tree_map, unflatten
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import (
+    checkpoint_name,
+    flash_attention,
+    save_only_these_names,
+)
 
 
 @dataclass(frozen=True)
@@ -51,8 +61,21 @@ class TransformerConfig:
     flash_block_q: Optional[int] = None
     flash_block_k: Optional[int] = None
     attn_window: Optional[int] = None
+    # Recompute each block's activations in the backward: less memory for
+    # about a third more forward work.
+    remat: bool = False
+    # With remat: "save_attn" keeps each block's attention output and the
+    # flash operator's (out, lse) (O(B*S*D) a layer), so the replay skips
+    # the forward kernel; on the dense path only the post-projection
+    # output is kept. None = full recompute.
+    remat_policy: Optional[str] = None
 
     def __post_init__(self) -> None:
+        if self.remat_policy not in (None, "save_attn"):
+            raise ValueError(
+                f"remat_policy must be None or 'save_attn', got "
+                f"{self.remat_policy!r}"
+            )
         if self.attn_window is not None and not self.use_flash:
             raise ValueError(
                 "attn_window requires use_flash=True (the dense path does "
@@ -148,7 +171,7 @@ def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tens
             q, k, v, window=cfg.attn_window, block_q=cfg.flash_block_q,
             block_k=cfg.flash_block_k,
         ).reshape(B, S, D)
-        return out @ p["wo"].to(cfg.dtype)
+        return _name_attn_out(cfg, out @ p["wo"].to(cfg.dtype))
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (cfg.head_dim ** -0.5)
     causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=x.device))
     scores = torch.where(
@@ -158,7 +181,15 @@ def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tens
     )
     probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, D)
-    return out @ p["wo"].to(cfg.dtype)
+    return _name_attn_out(cfg, out @ p["wo"].to(cfg.dtype))
+
+
+def _name_attn_out(cfg: TransformerConfig, out: torch.Tensor) -> torch.Tensor:
+    """The attention sublayer output, named ``attn_out`` where a policy
+    reads the name (the naming is a copy, so only there)."""
+    if cfg.remat and cfg.remat_policy == "save_attn":
+        return checkpoint_name(out, "attn_out")
+    return out
 
 
 def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -166,14 +197,36 @@ def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wo"].to(cfg.dtype)
 
 
+def _block(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    x = x + _attention(cfg, p["attn"], _rmsnorm(x, p["ln1"]["scale"]))
+    return x + _mlp(cfg, p["mlp"], _rmsnorm(x, p["ln2"]["scale"]))
+
+
+def remat_wrap(cfg: TransformerConfig, fn: Callable) -> Callable:
+    """``fn(cfg, p, x)`` under cfg's remat settings: unchanged without
+    remat; else recomputed in the backward, keeping only ``attn_out``,
+    ``flash_out`` and ``flash_lse`` under ``remat_policy="save_attn"``."""
+    if not cfg.remat:
+        return fn
+    kwargs: Dict[str, Any] = {}
+    if cfg.remat_policy == "save_attn":
+        kwargs["context_fn"] = save_only_these_names(
+            "attn_out", "flash_out", "flash_lse")
+
+    def wrapped(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+        return checkpoint(fn, cfg, p, x, use_reentrant=False, **kwargs)
+
+    return wrapped
+
+
 def forward(cfg: TransformerConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) f32."""
     S = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens]
     x = x + params["pos_embed"].to(cfg.dtype)[:S]
+    block = remat_wrap(cfg, _block)
     for p in params["blocks"]:
-        x = x + _attention(cfg, p["attn"], _rmsnorm(x, p["ln1"]["scale"]))
-        x = x + _mlp(cfg, p["mlp"], _rmsnorm(x, p["ln2"]["scale"]))
+        x = block(cfg, p, x)
     x = _rmsnorm(x, params["ln_f"]["scale"])
     # weight-tied readout; f32 logits for a stable softmax
     return (x @ params["embed"].to(cfg.dtype).T).float()
@@ -280,5 +333,6 @@ __all__: List[str] = [
     "make_grad_fn",
     "param_count",
     "params_from_jax",
+    "remat_wrap",
     "tiny_config",
 ]

@@ -1,5 +1,5 @@
 """Flash attention: the fused forward (K4) and backward (K5) behind a
-``torch.autograd.Function`` (K6).
+custom operator whose autograd is K5 (K6).
 
 The port of ``torchft_tpu/ops/flash_attention.py``. Each kernel has two
 bodies, picked by the tensors' device alone:
@@ -38,16 +38,33 @@ the JAX package resolves them in interpret mode (auto 128, or 512 from a
 padded length of 2048; clamped to the length rounded up to 8), which
 only decides fast path or general path: the plain versions are dense.
 
-Not ported: the JAX signature's ``mesh``/``batch_axis``/``head_axis``
-(shard_map) and ``interpret`` (ROADMAP.md).
+Remat. K4/K5 launch through ctypes, which the dispatcher cannot see, so
+the forward is the operator ``torchft_tpu_torch::flash_fwd`` (outputs
+``out`` and ``lse``, the JAX package's ``flash_out`` and ``flash_lse``),
+registered with K5 as its autograd. :func:`checkpoint_name` names any
+other tensor (an identity operator; it returns a copy, as an operator's
+output may not alias its input). :func:`save_only_these_names` builds
+the ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` that saves
+exactly the named outputs and recomputes the rest, the counterpart of
+``jax.checkpoint_policies.save_only_these_names``: with ``flash_out``
+and ``flash_lse`` saved, the backward's replay skips K4.
+
+``interpret=True`` runs the plain versions on any device because the
+caller asks for it (the JAX argument's meaning: no compiled kernel);
+``None`` keeps the dispatch by device. Not ported: the JAX signature's
+``mesh``/``batch_axis``/``head_axis`` (shard_map; ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    create_selective_checkpoint_contexts,
+)
 
 from ._lib import _kernels, device_kind
 from ._lib import stream as _stream
@@ -66,6 +83,7 @@ class FlashConfig(NamedTuple):
     window: Optional[int]
     block_q: int
     block_k: int
+    interpret: bool = False  # the plain versions on any device
 
     @property
     def fast(self) -> bool:
@@ -233,7 +251,7 @@ def flash_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: ``(out, lse)`` of pre-scaled q and k, v, all (B, S, H, D); one
     launch on the card."""
-    if device_kind(q) == "cpu":
+    if cfg.interpret or device_kind(q) == "cpu":
         return flash_fwd_plain(q, k, v, cfg)
     q, k, v = (_last_dim_dense(t) for t in (q, k, v))
     _check_kernel_inputs(q, k, v)
@@ -255,7 +273,7 @@ def flash_bwd(
     # delta_i = sum_d do_id * o_id: one elementwise product and reduce,
     # as the JAX package computes it outside its kernel
     delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    if device_kind(q) == "cpu":
+    if cfg.interpret or device_kind(q) == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, cfg)
     q, k, v, do = (_last_dim_dense(t) for t in (q, k, v, do))
     _check_kernel_inputs(q, k, v, do)
@@ -273,23 +291,65 @@ def flash_bwd(
     return dq, dk, dv
 
 
-class _FlashFn(torch.autograd.Function):
-    """K4 forward, K5 backward. Takes q already scaled by ``sm_scale``;
-    returns ``(out, lse)`` with lse non-differentiable."""
+@torch.library.custom_op("torchft_tpu_torch::flash_fwd", mutates_args=())
+def _flash_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    window: Optional[int], block_q: int, block_k: int, interpret: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 as an operator: ``(out, lse)`` of pre-scaled q and k, v."""
+    return flash_fwd(q, k, v, FlashConfig(causal, window, block_q, block_k,
+                                          interpret))
 
-    @staticmethod
-    def forward(ctx, q, k, v, cfg: FlashConfig):
-        out, lse = flash_fwd(q, k, v, cfg)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.cfg = cfg
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, ctx.cfg)
-        return dq, dk, dv, None
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, *cfg = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.cfg = FlashConfig(*cfg)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, ctx.cfg)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+@torch.library.custom_op("torchft_tpu_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+_checkpoint_name_op.register_autograd(
+    lambda ctx, grad: (grad, None),
+    setup_context=lambda ctx, inputs, output: None,
+)
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` named ``name`` for :func:`save_only_these_names` (a copy)."""
+    return _checkpoint_name_op(x, name)
+
+
+def save_only_these_names(*names: str) -> Callable:
+    """The ``context_fn`` for ``torch.utils.checkpoint.checkpoint(...,
+    use_reentrant=False)`` that saves the outputs named ``names`` and
+    recomputes everything else: the flash operator's outputs are
+    ``flash_out`` and ``flash_lse`` (saved together, which skips K4 in
+    the replay), a :func:`checkpoint_name` output its name."""
+    wanted = frozenset(names)
+    flash = torch.ops.torchft_tpu_torch.flash_fwd.default
+    named = torch.ops.torchft_tpu_torch.checkpoint_name.default
+
+    def policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+        if op is flash and wanted & {"flash_out", "flash_lse"}:
+            return CheckpointPolicy.MUST_SAVE
+        if op is named and args[1] in wanted:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(policy)
 
 
 def flash_attention(
@@ -302,6 +362,7 @@ def flash_attention(
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
     window: Optional[int] = None,
+    interpret: Optional[bool] = None,
 ) -> torch.Tensor:
     """Fused multi-head attention on (B, S, H, head_dim) q, k, v; returns
     (B, S, H, head_dim) in q's dtype.
@@ -312,7 +373,8 @@ def flash_attention(
     default ``head_dim ** -0.5``, folded into q as one f32 multiply
     rounded to q's dtype (exact for power-of-two scales). ``block_q``,
     ``block_k``: tile sizes (module docstring). On the card: bf16 or f32
-    inputs, head_dim 64 or 128; anything else raises."""
+    inputs, head_dim 64 or 128; anything else raises. ``interpret=True``:
+    the plain versions on any device (module docstring)."""
     B, S, H, D = q.shape
     if sm_scale is None:
         sm_scale = D ** -0.5
@@ -323,17 +385,20 @@ def flash_attention(
             )
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-    bq, bk = resolve_blocks(S, q.device, block_q, block_k)
-    cfg = FlashConfig(bool(causal), None if window is None else int(window),
-                      bq, bk)
+    interpret = bool(interpret)
+    bq, bk = resolve_blocks(S, torch.device("cpu") if interpret else q.device,
+                            block_q, block_k)
     q_scaled = (q.float() * sm_scale).to(q.dtype)
-    out, _ = _FlashFn.apply(q_scaled, k, v, cfg)
+    out, _ = _flash_op(q_scaled, k, v, bool(causal),
+                       None if window is None else int(window), bq, bk,
+                       interpret)
     return out
 
 
 __all__ = [
     "FlashConfig",
     "check_kernel_layout",
+    "checkpoint_name",
     "flash_attention",
     "flash_bwd",
     "flash_bwd_plain",
@@ -341,4 +406,5 @@ __all__ = [
     "flash_fwd_plain",
     "kernel_route",
     "resolve_blocks",
+    "save_only_these_names",
 ]
