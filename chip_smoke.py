@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (torchft_tpu_torch) on one GPU.
 
 Drives the port's main paths — the per-step fault-tolerant training
-transaction on the dense LM and on the flash-attention LM, flat and on
-the two-tier schedule — through the entry points a user calls, at full
+transaction on the dense LM and on the flash-attention LM, flat, on the
+two-tier schedule, on the legacy transport and as per-step ZeRO —
+through the entry points a user calls, at full
 width (random weights from a seed):
 the transformer LM the repository benchmarks by default (vocab 8192,
 d_model 512, 8 heads, 6 layers, d_ff 2048, sequence 512, batch 16: 39 f32
@@ -69,7 +70,21 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            on hosts [h0, h0, h1, h1]: the shm host tier and the
            inter-region ring (its q8ef wire) both run; 2 warm-up and 3
            steps;
-9. heal transport  a donor process publishes one flash-LM group's state
+9. legacy  two groups on the dense LM through PipelinedDDP(transport=
+           "legacy") in every compress mode (None, bf16, q8, int8: 1
+           warm-up, 3 pipelined and 1 blocking step each) beside the plan
+           transport's q8 (1 + 3 steps), then broadcast and barrier across
+           the two and the DummyCollectives fake on the card;
+10. sharded flash  two groups on the big LM through
+           ShardedOptimizerWrapper (ShardedDDP, shard_wire="q8",
+           param_wire="bf16") on states built with opt_state=(): 2 warm-up
+           and 4 steps, the optimizer state half of AdamW's per group;
+11. sharded reshard  two dense groups on ShardedOptimizerWrapper, then a
+           third joins: it heals the wrapper's state (the shard, its
+           meta of Python ints) over the stream and every member
+           re-partitions the optimizer state through the mask
+           allgather;
+12. heal transport  a donor process publishes one flash-LM group's state
            (111,166,464 f32 params + AdamW mu + nu on the card,
            1,333,997,568 B) and this process fetches it: the stream path
            on the raw and the bf16 wire (K3 narrows the moments in the
@@ -78,7 +93,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            and holds every result against the donor's state: params bit
            for bit on every path, moments bit for bit on the raw wire and
            equal to K3's plain cast of the donor's on the bf16 wire;
-10. remat  one forward+backward of the flash LM (B16, S2047, bf16) with
+13. remat  one forward+backward of the flash LM (B16, S2047, bf16) with
            remat off, full and save_attn on the same weights: time, peak
            memory, K4/K5 launches (8 / 16 / 8 and 16 each) and the
            gradients against remat off (bit for bit, or the difference
@@ -92,14 +107,18 @@ d2h_bytes), the port's pack / d2h / ring split, on the two-tier
 schedule the tiers (shm_rs_s, shm_ag_s, shm_bytes, the inter tier's
 bytes), and signals()["wire_eff_MBps"] / ["tier_eff_MBps"].
 
-Checks: every step commits; every loss is finite; each worker's kernel
+Checks: every step commits (in the reshard phase all but the first
+three-member step, which the joiner's heal discards by design); every
+loss is finite; each worker's kernel
 launch counts equal plan groups x q8 steps (K1a, K1b: one group, one
-launch each per step), groups x bf16 steps
+launch each per step; on the legacy q8 and int8 modes also K2 once per
+step, and on int8 once more per member per settle), groups x bf16 steps
 (K3), layers x forward/backward passes (K4) and 2 x layers x passes (K5;
 a pass per step, and one more for a step whose gradients a heal made
 stale), and 0 for every other kernel — the counts are reset to 0 in each worker just before it
 drives a path and read just after; all groups end bit-identical, the
-healed one included, and the heal took the stream path. The hier phases also check that every group is
+healed one included (the sharded groups after every step), and the
+heals took the stream path; the sharded groups' shards tile the model. The hier phases also check that every group is
 hier-capable with the expected host-tier transport ("shm"; "tcp" under
 TORCHFT_HC_SHM=0), that no wire kernel launched (the two-tier pack is
 native), that the hier plan allocated no staging after warm-up, and in
@@ -107,6 +126,7 @@ the hier dense cell that each region leader's inter tier sent about one
 byte per parameter per step (the q8 wire, not the f32 size) and no
 other group sent any. Prints one ``kernels`` JSON line (each kernel's
 launches in total and by phase; K3 must launch in the heal transport
+phase, K1a/K1b/K2/K3 in the legacy phase, K4/K5 in the sharded flash
 phase), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero.
@@ -153,6 +173,17 @@ HIER_HOST = "smoke_host"  # the host label both hier flash groups carry
 # hier dense: (region, host) of each of its four groups
 HIER_DENSE_LABELS = [("r0", "h0"), ("r0", "h0"), ("r1", "h1"), ("r1", "h1")]
 HIER_DENSE_STEPS = 3   # steps after WARM_STEPS untimed ones
+# legacy phase: the compress modes of PipelinedDDP(transport="legacy"),
+# each 1 warm-up and LEGACY_STEPS timed pipelined steps then a blocking one
+LEGACY_MODES = (None, "bf16", "q8", "int8")
+LEGACY_STEPS = 3
+# sharded flash phase: ShardedDDP(shard_wire="q8") steps on the big LM
+SHARDED_WARM, SHARDED_STEPS = 2, 4
+# the big LM's full AdamW state (mu + nu, f32): what ZeRO halves at W = 2
+FLASH_ADAMW_BYTES = 2 * 4 * 111_166_464
+# sharded reshard phase: founder steps before the late joiner, and steps
+# all three take after the first three-member quorum
+RESHARD_STEPS = 3
 # the big LM's attention call: (B, S, H, head_dim), S = 2048 less the
 # token loss_fn drops
 FLASH_SHAPE = (BIG_BATCH, BIG_SEQ - 1, 16, 64)
@@ -411,6 +442,9 @@ def _flash_vs_dense(model_cfg, params, cfg: dict, device: torch.device) -> dict:
 
 
 def worker(cfg: dict) -> None:
+    if cfg["role"] in ("sharded_flash", "reshard", "reshard_late"):
+        sharded_worker(cfg)
+        return
     import torchft_tpu_torch as tft
     from torchft_tpu_torch.models import transformer as tt
     from torchft_tpu_torch.ops import quantize_kernels as qk
@@ -457,14 +491,18 @@ def worker(cfg: dict) -> None:
     n_leaves = n_layers * 6 + 3
 
     def run(phase: str, compress: str, more, trace: bool = False,
-            hier: bool = False) -> None:
-        """PipelinedDDP steps while ``more(i, committed_step)``, then a
-        flush that settles the last one. A step's time ends when the
-        loop's own stream has drained (not the whole card: the packer's
-        stream and the ring may still run, as in training). The data
-        plane's op stats are drained just before and just after."""
+            hier: bool = False, transport: str = "plan",
+            blocking: int = 0) -> None:
+        """PipelinedDDP steps while ``more(i, committed_step)``, then
+        ``blocking`` blocking steps (the first settles the pipelined one in
+        flight), then a flush that settles whatever is left. A step's time
+        ends when the loop's own stream has drained (not the whole card:
+        the packer's stream and the ring may still run, as in training).
+        The data plane's op stats are drained just before and just
+        after."""
         ddp = tft.PipelinedDDP(manager, state, grad_fn, compress=compress,
-                               transport="plan", device_pack=True, hier=hier)
+                               transport=transport, device_pack=True,
+                               hier=hier)
         manager.observe_op_stats()
         prof = None
         if trace and on_card:  # the card's activity only: little host cost
@@ -491,11 +529,25 @@ def worker(cfg: dict) -> None:
             step_s.append(now - t_prev)
             t_prev = now
         commits.append(ddp.flush())
+        t_prev = time.perf_counter()
+        blocking_s = []
+        for _ in range(blocking):
+            losses.append(ddp.blocking_step(
+                _tokens(cfg, cfg["data_offset"] + i, device)))
+            i += 1
+            dispatches += 1
+            commits.append(ddp.last_commit)
+            if on_card:
+                torch.cuda.current_stream().synchronize()
+            now = time.perf_counter()
+            blocking_s.append(now - t_prev)
+            t_prev = now
         if on_card:
             torch.cuda.synchronize()
         window_s = time.perf_counter() - t_start
         launches = dict(qk.launch_counts)
-        op_stats = _op_stats_rows(manager.observe_op_stats())
+        drained = manager.observe_op_stats()
+        op_stats = _op_stats_rows(drained)
         grad_passes = grad_calls[0] - calls_before
         if prof:
             prof.__exit__(None, None, None)
@@ -509,6 +561,7 @@ def worker(cfg: dict) -> None:
             "launches": launches,
             "grad_passes": grad_passes,
             "step_s": step_s,
+            "blocking_s": blocking_s,
             "mem_start": mem_start,
             "window_s": window_s,
             "timers_ms": _timer_means_ms(
@@ -519,6 +572,7 @@ def worker(cfg: dict) -> None:
             "step": manager.current_step(),
             "digest": _digest(state.params),
             "op_stats": op_stats,
+            "op_split": _op_split(drained),
             "signals": manager.signals(),
         }
 
@@ -545,6 +599,17 @@ def worker(cfg: dict) -> None:
             run("flash", "q8", lambda i, step: i < FLASH_STEPS, hier=hier)
             run("traced", "q8", lambda i, step: i < TRACED_FLASH_STEPS,
                 trace=g == 0, hier=hier)
+        elif cfg["role"] == "legacy":
+            # the plan transport's q8 beside the legacy modes, same run
+            run("plan_warm", "q8", lambda i, step: i < 1)
+            run("plan_q8", "q8", lambda i, step: i < LEGACY_STEPS)
+            for mode in LEGACY_MODES:
+                name = mode or "f32"
+                run(f"{name}_warm", mode, lambda i, step: i < 1,
+                    transport="legacy")
+                run(name, mode, lambda i, step: i < LEGACY_STEPS,
+                    transport="legacy", blocking=1)
+            out["plane_ops"] = _plane_ops(collectives, g, device)
         elif cfg["role"] == "hier_dense":
             run("warm", "q8", lambda i, step: i < WARM_STEPS, hier=True)
             run("hier", "q8", lambda i, step: i < HIER_DENSE_STEPS, hier=True)
@@ -570,6 +635,158 @@ def worker(cfg: dict) -> None:
         collectives.shutdown()
     with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
         json.dump(out, f)
+
+
+def sharded_worker(cfg: dict) -> None:
+    """Per-step ZeRO through ``ShardedOptimizerWrapper`` (the
+    ``zero_grad(); grads; step(grads)`` loop over ``ShardedDDP``) on a
+    state built with ``opt_state=()``; the manager's state callbacks are
+    the wrapper's, so a heal carries the optimizer shard and its meta.
+    Roles: ``sharded_flash`` (the big LM, SHARDED_WARM then SHARDED_STEPS
+    steps), ``reshard`` (a founder on the dense LM: steps, then on with
+    the late joiner) and ``reshard_late`` (the joiner)."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch._tree import flatten
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    model = tt.TransformerLM(model_cfg, seed=0, device=device)
+    state = tft.FTTrainState(model.params(),
+                             tft.AdamW(1e-3, weight_decay=1e-4), opt_state=())
+    grad_fn = tt.make_grad_fn(model_cfg)
+    holder: dict = {}
+    collectives = tft.HostCollectives()
+    manager = tft.Manager(
+        collectives=collectives,
+        load_state_dict=lambda sd: holder["opt"].load_state_dict(sd),
+        state_dict=lambda: holder["opt"].state_dict(),
+        min_replica_size=cfg.get("groups", 2), rank=0, world_size=1,
+        lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}", device=device,
+    )
+    opt = holder["opt"] = tft.ShardedOptimizerWrapper(
+        manager, state, shard_wire=cfg["shard_wire"])
+    out: dict = {"group": g, "phases": {},
+                 "n_layers": len(state.params["blocks"]),
+                 "total": sum(p.numel() for p in
+                              flatten(state.params)[0])}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def run(phase: str, more) -> None:
+        manager.observe_op_stats()
+        before = manager.metrics().snapshot()
+        qk.reset_launch_counts()
+        commits, losses, step_s, digests = [], [], [], []
+        i = 0
+        while more(i, manager.current_step()):
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss, grads = grad_fn(state.params,
+                                  _tokens(cfg, cfg["data_offset"] + i, device))
+            commits.append(opt.step(grads))
+            if on_card:
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            digests.append(_digest(state.params))  # not in the step's time
+            i += 1
+        cfg["data_offset"] += i
+        meta = opt._core._shard_meta
+        shard = opt._core._opt_shard
+        out["phases"][phase] = {
+            "dispatches": i, "commits": commits, "losses": losses,
+            "step_s": step_s, "digests": digests,
+            "launches": dict(qk.launch_counts),
+            "op_split": _op_split(manager.observe_op_stats()),
+            "opt_state_bytes": opt.opt_state_bytes(),
+            "opt_numel": None if shard is None else shard["mu"].numel(),
+            "ranges": None if meta is None else
+            [list(r) for r in meta["ranges"]["float32"]],
+            "quorum_id": None if meta is None else meta["quorum_id"],
+            "world": collectives.size(),
+            "heals": {k: v - before["counters"].get(k, 0) for k, v in
+                      manager.metrics().snapshot()["counters"].items()
+                      if "heals" in k},
+            "timers_ms": _timer_means_ms(
+                before["timers_s"], manager.metrics().snapshot()["timers_s"]),
+            "step": manager.current_step(),
+        }
+
+    joined: dict = {}
+
+    def until_joined_and_on(i: int, step: int) -> bool:
+        """Steps until RESHARD_STEPS after the first three-member quorum
+        (whose step is the same on every member)."""
+        if "at" not in joined and collectives.size() == 3:
+            joined["at"] = step
+        return "at" not in joined or step < joined["at"] + RESHARD_STEPS
+
+    try:
+        if cfg["role"] == "sharded_flash":
+            run("warm", lambda i, step: i < SHARDED_WARM)
+            run("sharded", lambda i, step: i < SHARDED_STEPS)
+        elif cfg["role"] == "reshard":
+            run("founders", lambda i, step: i < SHARDED_WARM)
+            open(os.path.join(workdir, f"ready_{g}"), "w").close()
+            _wait_for(os.path.join(workdir, "late_up"), 300)
+            run("join", until_joined_and_on)
+        else:
+            open(os.path.join(workdir, "late_up"), "w").close()
+            run("join", until_joined_and_on)
+            out["fetch"] = manager.checkpoint_transport().last_fetch_stats
+        if on_card:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    finally:
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _op_split(entries) -> dict:
+    """Per op name of the drained op stats (the legacy and sharded ops):
+    the count and the median of each phase second (as ms) and byte
+    field."""
+    out: dict = {}
+    for name in sorted({st.get("op") for st in entries} - {None}):
+        sts = [st for st in entries if st.get("op") == name]
+        row: dict = {"n": len(sts)}
+        for key in ("pack", "d2h", "host_copy", "ring", "h2d"):
+            v = _median([st.get(key) for st in sts])
+            if v is not None:
+                row[f"{key}_ms"] = round(1e3 * v, 3)
+        for key in ("bytes", "wire_bytes", "d2h_bytes", "shard_bytes",
+                    "chunks"):
+            v = _median([st.get(key) for st in sts])
+            if v is not None:
+                row[key] = v
+        out[name] = row
+    return out
+
+
+def _plane_ops(collectives, g: int, device: torch.device) -> dict:
+    """broadcast and barrier across the groups' ring, and the
+    DummyCollectives fake's ops on the card: what each group saw."""
+    import torchft_tpu_torch as tft
+
+    x = {"x": torch.full((4096,), float(g), device=device)}
+    got = collectives.broadcast(x, root=0).wait()
+    collectives.barrier().wait()
+    d = tft.DummyCollectives(rank=0, world_size=2)
+    half = d.allreduce(x, divisor=2.0).wait()["x"]
+    dummy_ok = (torch.equal(half, x["x"] / 2)
+                and d.allgather(x).wait() == [x, x]
+                and d.broadcast(x).wait() is x and d.barrier().wait() is None
+                and d.op_count == 4)
+    return {"rank": collectives.rank(), "sent": float(g),
+            "broadcast": float(got["x"][0]),
+            "broadcast_uniform": bool((got["x"] == got["x"][0]).all()),
+            "broadcast_on_device": got["x"].device.type == device.type,
+            "dummy_ok": bool(dummy_ok)}
 
 
 # -- parent phases ---------------------------------------------------------------
@@ -1640,6 +1857,228 @@ def check_hier_dense(res: dict, expect_leaves: int = 39,
 
 # -- heal transport at the flash LM's state size -------------------------------
 
+def phase_legacy(workdir: str, device: str = "cuda", lm: dict = LM,
+                 batch: int = BATCH, seq: int = SEQ) -> dict:
+    """Two groups on the dense LM: PipelinedDDP(transport="legacy") in
+    every compress mode beside the plan transport's q8, then broadcast,
+    barrier and DummyCollectives."""
+    base = {"device": device, "role": "legacy", "lm": lm, "batch": batch,
+            "seq": seq}
+    return _run_groups(workdir, base, [{}, {}])
+
+
+def check_legacy(res: dict, on_card: bool = True) -> dict:
+    results = res["results"]
+    groups = len(results)
+    launches: dict = {}
+    for r in results:
+        g = r["group"]
+        for phase, ph in r["phases"].items():
+            if not all(ph["commits"]) or not ph["commits"]:
+                fail(f"legacy group {g} {phase}: uncommitted step {ph['commits']}")
+            if not all(map(_finite, ph["losses"])):
+                fail(f"legacy group {g} {phase}: non-finite loss {ph['losses']}")
+            n = ph["dispatches"]
+            want = dict.fromkeys(ph["launches"], 0)
+            mode = phase.replace("_warm", "")
+            if on_card:
+                if mode.startswith("plan") or mode in ("q8", "int8"):
+                    want.update(q8_absmax=n, q8_quantize=n)
+                if mode == "q8":  # dq of the quantize pack
+                    want["q8_dequantize"] = n
+                if mode == "int8":  # dq, and each member's entry at settle
+                    want["q8_dequantize"] = n * (1 + groups)
+                if mode == "bf16":
+                    want["cast_bf16"] = n
+            if ph["launches"] != want:
+                fail(f"legacy group {g} {phase}: launches {ph['launches']} "
+                     f"!= {want}")
+            if not mode.startswith("plan"):
+                for k, v in ph["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    for phase in results[0]["phases"]:
+        digests = {r["phases"][phase]["digest"] for r in results}
+        if len(digests) != 1:
+            fail(f"legacy groups' parameters differ after the {phase} phase")
+    ops = [r["plane_ops"] for r in results]
+    root = next(o["sent"] for o in ops if o["rank"] == 0)
+    for o in ops:
+        if not (o["broadcast"] == root and o["broadcast_uniform"]
+                and o["broadcast_on_device"] and o["dummy_ok"]):
+            fail(f"broadcast/barrier/DummyCollectives: {ops}")
+    r0 = results[0]["phases"]
+    split = {}
+    for mode in ("plan_q8",) + tuple(m or "f32" for m in LEGACY_MODES):
+        steps = sorted(s for r in results for s in r["phases"][mode]["step_s"][1:])
+        blocking = sorted(s for r in results
+                          for s in r["phases"][mode]["blocking_s"])
+        split[mode] = {
+            "step_ms_p50": round(1e3 * steps[len(steps) // 2], 3),
+            "step_ms_all": [round(1e3 * x, 3) for x in steps],
+            "blocking_ms": [round(1e3 * x, 3) for x in blocking],
+            "ops": r0[mode]["op_split"],
+            "launches": r0[mode]["launches"],
+        }
+        if mode == "plan_q8":
+            split[mode]["ring_split"] = _ring_split(r0[mode]["op_stats"])
+    return {"launches": launches, "modes": split, "plane_ops": ops}
+
+
+def phase_sharded_flash(workdir: str, device: str = "cuda",
+                        lm: dict = BIG_LM, batch: int = BIG_BATCH,
+                        seq: int = BIG_SEQ) -> dict:
+    """Two groups on the big LM through ShardedOptimizerWrapper
+    (shard_wire="q8", so param_wire="bf16")."""
+    base = {"device": device, "role": "sharded_flash", "lm": lm,
+            "batch": batch, "seq": seq, "shard_wire": "q8"}
+    return _run_groups(workdir, base, [{}, {}])
+
+
+def _check_tiles(label: str, metas: list, total: int) -> None:
+    """The members' ranges cover [0, total) exactly once."""
+    spans = sorted((s, n) for ranges in metas for s, n in ranges)
+    at = 0
+    for s, n in spans:
+        if s != at:
+            fail(f"{label}: shards do not tile the model at {at}: {spans}")
+        at = s + n
+    if at != total:
+        fail(f"{label}: shards cover {at} of {total} elements")
+
+
+def check_sharded_flash(res: dict, on_card: bool = True,
+                        full_bytes: int = FLASH_ADAMW_BYTES) -> dict:
+    results = res["results"]
+    launches: dict = {}
+    for r in results:
+        g, layers = r["group"], r["n_layers"]
+        for phase, ph in r["phases"].items():
+            if not all(ph["commits"]) or not ph["commits"]:
+                fail(f"sharded group {g} {phase}: uncommitted step {ph['commits']}")
+            if not all(map(_finite, ph["losses"])):
+                fail(f"sharded group {g} {phase}: non-finite loss {ph['losses']}")
+            n = ph["dispatches"]
+            want = dict.fromkeys(ph["launches"], 0)
+            if on_card:  # the sharded plan packs natively: no wire kernel
+                want.update(flash_fwd=layers * n, flash_bwd=2 * layers * n)
+            if ph["launches"] != want:
+                fail(f"sharded group {g} {phase}: launches {ph['launches']} "
+                     f"!= {want}")
+            for k, v in ph["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for phase in results[0]["phases"]:
+        for step, ds in enumerate(zip(*[r["phases"][phase]["digests"]
+                                        for r in results])):
+            if len(set(ds)) != 1:
+                fail(f"sharded groups differ after {phase} step {step}")
+    last = [r["phases"]["sharded"] for r in results]
+    _check_tiles("sharded flash", [ph["ranges"] for ph in last],
+                 results[0]["total"])
+    opt_bytes = [ph["opt_state_bytes"] for ph in last]
+    if sum(opt_bytes) != full_bytes or any(
+            abs(b - full_bytes / 2) > 0.01 * full_bytes for b in opt_bytes):
+        fail(f"sharded optimizer state {opt_bytes} B is not half of "
+             f"{full_bytes} B per group")
+    steps = sorted(s for ph in last for s in ph["step_s"])
+    return {
+        "launches": launches,
+        "step_ms_p50": round(1e3 * steps[len(steps) // 2], 3),
+        "step_ms_all": [round(1e3 * x, 3) for x in steps],
+        "opt_state_bytes": opt_bytes,
+        "max_memory_allocated_gb": [
+            round(r.get("max_memory_allocated", 0) / 2**30, 3) for r in results],
+        "ops": last[0]["op_split"],
+        "timers_ms": last[0]["timers_ms"],
+    }
+
+
+def phase_reshard(workdir: str, device: str = "cuda", lm: dict = LM,
+                  batch: int = BATCH, seq: int = SEQ) -> dict:
+    """Two founders on the dense LM through ShardedOptimizerWrapper
+    (shard_wire="q8"), then a third group joins: it heals the wrapper's
+    state (shard and meta) and all three re-partition the optimizer
+    state through the mask allgather."""
+    import torchft_tpu_torch as tft
+
+    lighthouse = tft.Lighthouse(min_replicas=2, join_timeout_ms=10000,
+                                quorum_tick_ms=50, heartbeat_timeout_ms=10000)
+    base = {"lighthouse": lighthouse.address(), "workdir": workdir,
+            "data_offset": 0, "device": device, "lm": lm, "batch": batch,
+            "seq": seq, "shard_wire": "q8"}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs = [_spawn({**base, "group": g, "role": "reshard"}, workdir)
+                 for g in (0, 1)]
+        deadline = time.monotonic() + 600
+        for g in (0, 1):
+            path = os.path.join(workdir, f"ready_{g}")
+            while not os.path.exists(path):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    _join(procs, deadline, workdir)
+                if time.monotonic() > deadline:
+                    fail("reshard founders never finished their steps")
+                time.sleep(0.1)
+        procs.append(_spawn({**base, "group": 2, "role": "reshard_late"},
+                            workdir))
+        _join(procs, deadline, workdir)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        lighthouse.shutdown()
+    results = []
+    for g in (0, 1, 2):
+        with open(os.path.join(workdir, f"result_{g}.json")) as f:
+            results.append(json.load(f))
+    return {"results": results, "total_s": time.perf_counter() - t0}
+
+
+def check_reshard(res: dict) -> dict:
+    """The founders commit their steps; the joiner heals the wrapper's
+    state over the stream; the step of the first three-member quorum may
+    be discarded (the joiner, healing, holds no shard to scatter until
+    its heal applies at the vote), and every step after it commits; all
+    three end bit-identical, on one quorum's partition, their shards
+    tiling the model and each covering its ranges."""
+    results = res["results"]
+    f0, f1, late = results
+    for r in (f0, f1):
+        ph = r["phases"]["founders"]
+        if not all(ph["commits"]) or not ph["commits"]:
+            fail(f"reshard founder {r['group']}: uncommitted {ph['commits']}")
+    joins = [r["phases"]["join"] for r in results]
+    for r, ph in zip(results, joins):
+        tail = ph["commits"][-RESHARD_STEPS:]
+        if len(tail) < RESHARD_STEPS or not all(tail):
+            fail(f"reshard group {r['group']}: the last steps did not commit: "
+                 f"{ph['commits']}")
+        if ph["commits"].count(False) > 1:
+            fail(f"reshard group {r['group']}: more than the join step "
+                 f"discarded: {ph['commits']}")
+        if not all(map(_finite, ph["losses"])):
+            fail(f"reshard group {r['group']}: non-finite loss {ph['losses']}")
+        if ph["world"] != 3:
+            fail(f"reshard group {r['group']} ended in a ring of {ph['world']}")
+        if ph["opt_numel"] != sum(n for _, n in ph["ranges"]):
+            fail(f"reshard group {r['group']}: shard of {ph['opt_numel']} for "
+                 f"ranges {ph['ranges']}")
+    if (late.get("fetch") or {}).get("path") != "stream":
+        fail(f"the joiner did not heal over the stream: {late.get('fetch')}")
+    if sum(joins[2]["heals"].values()) < 1:
+        fail(f"the joiner never healed: {joins[2]['heals']}")
+    if len({ph["digests"][-1] for ph in joins}) != 1:
+        fail("reshard groups' parameters differ at the end")
+    if len({ph["quorum_id"] for ph in joins}) != 1:
+        fail(f"reshard groups on different partitions: "
+             f"{[ph['quorum_id'] for ph in joins]}")
+    _check_tiles("reshard", [ph["ranges"] for ph in joins], f0["total"])
+    return {"commits": [ph["commits"] for ph in joins],
+            "opt_state_bytes": [ph["opt_state_bytes"] for ph in joins],
+            "fetch": late["fetch"],
+            "ops": joins[0]["op_split"]}
+
+
 HEAL_STEP = 5          # the step the heal donor publishes
 HEAL_SEED = 17         # the donor's moments (params: init_params seed 0)
 # (label, path, wire, streams) of each fetch of the heal transport phase
@@ -2144,6 +2583,45 @@ def main() -> int:
         f"whole timed window {dsum['window_ms_per_step']} ms/step per group; "
         f"tier_eff_MBps {json.dumps(dsum['signals']['tier_eff_MBps'])}; per "
         f"group (median over the timed steps): {json.dumps(dsum['split'])}")
+    log("phase legacy")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_legacy_") as workdir:
+        lres = phase_legacy(workdir)
+        lsum = check_legacy(lres)
+    by_phase["legacy"] = lsum["launches"]
+    log(f"  legacy {lres['total_s']:.1f} s, two groups on the dense LM, every "
+        f"step committed, parameters bit-identical after every mode; "
+        f"broadcast/barrier/DummyCollectives {json.dumps(lsum['plane_ops'])}")
+    for mode, row in lsum["modes"].items():
+        log(f"  legacy {mode}: step p50 {row['step_ms_p50']:.3f} ms (steady "
+            f"pipelined steps of both groups: {row['step_ms_all']}), blocking "
+            f"{row['blocking_ms']} ms; launches {json.dumps(row['launches'])}; "
+            f"op split (group 0, medians) {json.dumps(row['ops'])}"
+            + (f"; ring split {json.dumps(row['ring_split'])}"
+               if "ring_split" in row else ""))
+    log("phase sharded flash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as workdir:
+        sres = phase_sharded_flash(workdir)
+        ssum = check_sharded_flash(sres)
+    by_phase["sharded flash"] = ssum["launches"]
+    log(f"  sharded flash {sres['total_s']:.1f} s (ShardedDDP, shard_wire q8, "
+        f"param_wire bf16, two groups, {SHARDED_WARM} warm-up + "
+        f"{SHARDED_STEPS} steps): step p50 {ssum['step_ms_p50']:.3f} ms (all: "
+        f"{ssum['step_ms_all']}); opt_state_bytes {ssum['opt_state_bytes']} "
+        f"of {FLASH_ADAMW_BYTES} B for the full AdamW state; "
+        f"max_memory_allocated {ssum['max_memory_allocated_gb']} GiB per group "
+        f"against the flat flash cell's {fsum['max_memory_allocated_gb']} GiB; "
+        f"launches {json.dumps(ssum['launches'])}")
+    log(f"  sharded flash op split (group 0, medians over the timed steps): "
+        f"{json.dumps(ssum['ops'])}; timers ms {json.dumps(ssum['timers_ms'])}")
+    log("phase sharded reshard")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reshard_") as workdir:
+        rsres = phase_reshard(workdir)
+        rssum = check_reshard(rsres)
+    log(f"  sharded reshard {rsres['total_s']:.1f} s: commits per group "
+        f"{rssum['commits']}, the joiner healed {json.dumps(rssum['fetch'])}; "
+        f"opt_state_bytes after the reshard {rssum['opt_state_bytes']}; "
+        f"three groups bit-identical, shards tile the model; op split "
+        f"{json.dumps(rssum['ops'])}")
     log("phase heal transport")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_heal_") as workdir:
         hres = phase_heal_transport(workdir)
@@ -2167,13 +2645,17 @@ def main() -> int:
         rows[name]["launches_by_phase"] = {
             phase: counts.get(name, 0) for phase, counts in by_phase.items()}
         rows[name]["launches"] = sum(rows[name]["launches_by_phase"].values())
-    for name in ("q8_absmax", "q8_quantize", "cast_bf16", "flash_fwd",
-                 "flash_bwd"):
+    for name in ("q8_absmax", "q8_quantize", "q8_dequantize", "cast_bf16",
+                 "flash_fwd", "flash_bwd"):
         if rows[name]["launches"] == 0:
             fail(f"{name} is on a main path and never launched there")
     for name in ("flash_fwd", "flash_bwd"):
-        if rows[name]["launches_by_phase"]["hier flash train"] == 0:
-            fail(f"{name} never launched on the hier flash path")
+        for phase in ("hier flash train", "sharded flash"):
+            if rows[name]["launches_by_phase"][phase] == 0:
+                fail(f"{name} never launched on the {phase} path")
+    for name in ("q8_absmax", "q8_quantize", "q8_dequantize", "cast_bf16"):
+        if rows[name]["launches_by_phase"]["legacy"] == 0:
+            fail(f"{name} never launched on the legacy transport")
     if rows["cast_bf16"]["launches_by_phase"]["heal transport"] == 0:
         fail("cast_bf16 never launched on the bf16 heal wire")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -808,3 +808,181 @@ def test_stream_heal_uploads_onto_the_card(cuda_device, wire):
                 assert _bytes(h) == _bytes(want)
     finally:
         server.shutdown()
+
+
+# -- the legacy transport's quantize module and ops on card leaves ------------
+
+
+def _q8_tree(shapes, gen, device, poison: bool = False):
+    """A gradient tree of the given leaf shapes (a list, flatten order),
+    leaf 3 poisoned with NaN and leaf 5 with Inf when ``poison``."""
+    leaves = [_randn(s, gen, device, 1e-2) for s in shapes]
+    if poison:
+        leaves[3].view(-1)[7] = float("nan")
+        leaves[5].view(-1)[0] = float("inf")
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [False, True])
+def test_quantize_with_feedback_matches_plain(cuda_device, poison):
+    """quantize_with_feedback on the card (one K1a + K1b launch and one K2
+    launch over the dense LM's 39 leaves) bit for bit against its plain
+    version on the same leaves on the CPU, over three steps that flip two
+    flat carries (each step reads one and writes the other, the read one
+    left untouched); poisoned leaves included."""
+    from torchft_tpu_torch import quantize as q
+
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    shapes = _lm_shapes(**DENSE_LM)
+    n = sum(int(np.prod(s)) for s in shapes)
+    carries = [torch.zeros(n, device=cuda_device), torch.empty(n, device=cuda_device)]
+    host = [torch.zeros(n), torch.empty(n)]
+    cur = 0
+    for step in range(3):
+        leaves = _q8_tree(shapes, gen, cuda_device, poison and step == 1)
+        before = dict(tq.launch_counts)
+        read = carries[cur].clone()
+        out = q.quantize_with_feedback(
+            leaves, q._views(carries[cur], [l.shape for l in leaves]),
+            res_out=carries[1 - cur])
+        for k in ("q8_absmax", "q8_quantize", "q8_dequantize"):
+            assert tq.launch_counts[k] == before[k] + 1, k
+        want = q.quantize_with_feedback(
+            [l.cpu() for l in leaves],
+            q._views(host[cur], [l.shape for l in leaves]),
+            res_out=host[1 - cur])
+        torch.cuda.synchronize()
+        for k in ("q", "scale", "dq", "res"):
+            for a, b in zip(out[k], want[k]):
+                assert _bytes(a) == _bytes(b), (step, k)
+        assert _bytes(carries[cur]) == _bytes(read)
+        if poison and step == 1:
+            assert torch.isnan(out["scale"][3]) and torch.isnan(out["scale"][5])
+            assert (out["dq"][3].view(torch.int32) == 0x7FC00000).all()
+            # a poisoned carry is not carried on: the next step starts over
+            carries[1 - cur].zero_()
+            host[1 - cur].zero_()
+        cur = 1 - cur
+
+
+@pytest.mark.cuda
+def test_dequant_average_matches_plain(cuda_device):
+    """The member-wise decode (one K2 launch per member) and the
+    member-order sum and divide, bit for bit against the CPU."""
+    from torchft_tpu_torch import quantize as q
+
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    shapes = _lm_shapes(**DENSE_LM)
+    entries, host = [], []
+    for m in range(3):
+        leaves = _q8_tree(shapes, gen, cuda_device, poison=m == 2)
+        z = [torch.zeros(l.shape, device=cuda_device) for l in leaves]
+        out = q.quantize_with_feedback(leaves, z)
+        entries.append({"q": out["q"], "scale": out["scale"]})
+        host.append({"q": [t.cpu() for t in out["q"]],
+                     "scale": [t.cpu() for t in out["scale"]]})
+    comb = q.make_dequant_average()
+    before = tq.launch_counts["q8_dequantize"]
+    got = comb(entries, 3.0)
+    assert tq.launch_counts["q8_dequantize"] == before + 3
+    want = comb(host, 3.0)
+    for a, b in zip(got, want):
+        assert _bytes(a) == _bytes(b)
+
+
+def _card_ring(store, prefix, world=2, **kw):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torchft_tpu_torch.collectives import HostCollectives
+
+    cols = [HostCollectives(stripes=2, **kw) for _ in range(world)]
+    addr = f"{store.address()}/{prefix}"
+    with ThreadPoolExecutor(world) as ex:
+        for f in [ex.submit(c.configure, addr, r, world)
+                  for r, c in enumerate(cols)]:
+            f.result()
+    return cols
+
+
+def _both(cols, fn):
+    import threading
+
+    out, errors = [None] * len(cols), []
+
+    def run(r):
+        try:
+            out[r] = fn(r, cols[r])
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(len(cols))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    return out
+
+
+@pytest.mark.cuda
+def test_legacy_ops_on_card_leaves_match_cpu_leaves(cuda_device):
+    """A two-member ring in one process, once on card leaves and once on
+    the same leaves on the CPU: the chunked allreduce (an f32 and an
+    int32 group, each in 4 chunks), the q8 ring over a quantize pack's dq
+    buffer, the allgather of an int8 payload, and both sharded-plan legs
+    give the same bits, and card results come back on the card."""
+    from torchft_tpu_torch import quantize as q
+    from torchft_tpu_torch._native import Store
+    from torchft_tpu_torch._tree import flatten
+
+    store = Store()
+    rng = np.random.default_rng(14)
+    base = {"w": rng.standard_normal(300007).astype(np.float32),
+            "b": rng.standard_normal((61, 7)).astype(np.float32),
+            "n": rng.integers(-50, 50, 1001).astype(np.int32)}
+
+    def trees(dev):
+        return [{k: torch.from_numpy(v * (r + 1)).to(dev) for k, v in base.items()}
+                for r in range(2)]
+
+    def ops(r, c, tree):
+        f32 = {"w": tree["w"], "b": tree["b"]}
+        res = [torch.zeros(l.shape, device=l.device) for l in flatten(f32)[0]]
+        qz = q.quantize_with_feedback(flatten(f32)[0], res)
+        sh = c.plan_reduce_scatter(f32, wire="q8", ag_wire="bf16").wait()
+        return {
+            "ar": c.allreduce(tree, divisor=2.0).wait(),
+            "q8": c.allreduce(qz["dq"], divisor=2.0, wire="q8").wait(),
+            "ag": c.allgather({"q": qz["q"], "scale": qz["scale"]}).wait(),
+            "rs": sh.values["float32"],
+            "ranges": sh.ranges["float32"],
+            "agi": c.plan_allgather_into(
+                sh.replace_values({"float32": sh.values["float32"] * 0.5}),
+                wire="bf16").wait(),
+        }
+
+    try:
+        got = {}
+        for dev in ("cpu", cuda_device):
+            cols = _card_ring(store, f"legacy_{dev}", pipeline_min_bytes=0)
+            try:
+                ts = trees(dev)
+                got[str(dev)] = _both(cols, lambda r, c: ops(r, c, ts[r]))
+                if dev != "cpu":
+                    st = [s for s in cols[0].pop_op_stats() if s["op"] == "allreduce"]
+                    assert st[-1]["chunks"] == 2 * 4  # f32 and int32 groups
+                    assert st[-1]["d2h_bytes"] == st[-1]["bytes"]
+            finally:
+                for c in cols:
+                    c.shutdown()
+        for a, b in zip(got["cpu"], got[str(cuda_device)]):
+            assert a["ranges"] == b["ranges"]
+            for k in ("ar", "q8", "ag", "rs", "agi"):
+                la, lb = flatten(a[k])[0], flatten(b[k])[0]
+                assert len(la) == len(lb) and all(l.is_cuda for l in lb), k
+                for x, y in zip(la, lb):
+                    assert x.dtype == y.dtype and _bytes(x) == _bytes(y), k
+    finally:
+        store.shutdown()

@@ -13,12 +13,19 @@ Entry points run on the card unless given ``device="cpu"``.
 """
 
 from .checkpointing import CheckpointServer, CheckpointTransport
-from .collectives import Collectives, HostCollectives, ReduceOp, Work
+from .collectives import (
+    Collectives,
+    DummyCollectives,
+    HostCollectives,
+    ReduceOp,
+    TreeShard,
+    Work,
+)
 from .data import DistributedSampler, StatefulDataLoader
-from .ddp import DistributedDataParallel, PipelinedDDP
+from .ddp import DistributedDataParallel, PipelinedDDP, ShardedDDP
 from .manager import Manager
 from .metrics import Metrics
-from .optim import OptimizerWrapper
+from .optim import OptimizerWrapper, ShardedOptimizerWrapper
 from .profiling import Profiler, span
 from .train_state import AdamW, FTTrainState
 from ._native import Lighthouse, ManagerClient, Store, StoreClient
@@ -30,6 +37,7 @@ __all__ = [
     "Collectives",
     "DistributedDataParallel",
     "DistributedSampler",
+    "DummyCollectives",
     "FTTrainState",
     "HostCollectives",
     "Lighthouse",
@@ -40,9 +48,12 @@ __all__ = [
     "PipelinedDDP",
     "Profiler",
     "ReduceOp",
+    "ShardedDDP",
+    "ShardedOptimizerWrapper",
     "StatefulDataLoader",
     "Store",
     "StoreClient",
+    "TreeShard",
     "Work",
     "span",
 ]

@@ -98,6 +98,18 @@ _SIGNATURES = {
     "tft_hc_release": (_int, [_vp]),
     "tft_hc_abort": (None, [_vp]),
     "tft_hc_allreduce": (_int, [_vp, _vp, ctypes.c_size_t, _int, _int, _i64]),
+    # the quantized ring: int8 chunks + per-chunk f32 scales (f32 in/out)
+    "tft_hc_allreduce_q8": (_int, [_vp, _vp, ctypes.c_size_t, _i64]),
+    "tft_hc_allgather": (_int, [_vp, _vp, _vp, ctypes.c_size_t, _i64]),
+    # (start, len) element ranges a rank owns at a pinned stripe partition
+    "tft_hc_shard_ranges": (_i64, [
+        _vp, ctypes.c_size_t, ctypes.c_size_t,
+        _i64,  # rank
+        _i64,  # layout stripes
+        ctypes.POINTER(_i64), _i64,
+    ]),
+    "tft_hc_broadcast": (_int, [_vp, _vp, ctypes.c_size_t, _i64, _i64]),
+    "tft_hc_barrier": (_int, [_vp, _i64]),
     "tft_hc_allreduce_hier": (_int, [
         _vp, _vp, ctypes.c_size_t, _int, _int,
         _int,  # inter-hop wire: 0 native, 1 bf16, 2 q8
@@ -132,6 +144,26 @@ _SIGNATURES = {
         ctypes.POINTER(_vp),  # leaf outputs
         ctypes.c_double, _int, _i64,
     ]),
+    # Sharded plans (per-step ZeRO): the fused schedule split at the
+    # reduce-scatter boundary, a grad leg and a param leg.
+    "tft_plan_build_sharded": (_i64, [
+        _vp, ctypes.POINTER(_i64), ctypes.POINTER(ctypes.c_int32), _i64,
+        _int,  # grad-leg wire: 0 native, 1 bf16, 2 q8
+        _int,  # param-leg wire: 0 native, 1 bf16
+    ]),
+    "tft_plan_execute_rs": (_int, [
+        _vp, _i64, ctypes.POINTER(_vp),
+        ctypes.POINTER(ctypes.c_float),  # this rank's f32 shard (out)
+        ctypes.c_double, _int, _i64,
+    ]),
+    "tft_plan_execute_ag": (_int, [
+        _vp, _i64,
+        ctypes.POINTER(ctypes.c_float),  # the updated f32 shard (in)
+        ctypes.POINTER(_vp),             # leaf outputs
+        _i64,
+    ]),
+    # out[3]: shard element count, effective stripes, total elements
+    "tft_plan_sharded_meta": (_int, [_vp, _i64, ctypes.POINTER(_i64)]),
     "tft_plan_reset_feedback": (_int, [_vp, _i64]),
     # per-bucket pack/ring/unpack seconds of the plan's last execute (JSON)
     "tft_plan_stats_json": (_int, [_vp, _i64, ctypes.POINTER(_vp)]),

@@ -32,6 +32,14 @@ one leader per region over the inter-region ring, whose hop alone
 carries the wire encoding (:meth:`HostCollectives.allreduce_hier`,
 ``plan_allreduce(hier=True)``).
 
+The legacy (non-plan) data plane packs a tree into one flat buffer per
+dtype group on the leaves' device and pipelines it through the ring in
+chunks: ``allreduce`` (``wire="q8"``: the quantized ring), ``allgather``
+(grouped by exact dtype, byte-preserving), ``broadcast`` and
+``barrier``. The sharded plan (:meth:`HostCollectives.plan_reduce_scatter`
+/ :meth:`HostCollectives.plan_allgather_into`) splits the fused plan at
+the reduce-scatter boundary for per-step ZeRO.
+
 Every op records its phase timings, drained by
 :meth:`OpStatsMixin.pop_op_stats` with the JAX package's keys (plan ops
 add the native per-bucket ``pack_s``/``ring_s``/``unpack_s`` split,
@@ -51,6 +59,7 @@ import os
 import time
 from abc import ABC, abstractmethod
 from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass, replace
 from datetime import timedelta
 from enum import IntEnum
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -62,6 +71,7 @@ from ._native import _check, _lib, _ms
 from ._tree import flatten as _flatten
 from ._tree import unflatten as _unflatten
 from .ops import quantize_kernels as qk
+from .quantize import flat_buffer
 
 
 class ReduceOp(IntEnum):
@@ -96,14 +106,81 @@ class Work:
             timeout=timeout.total_seconds() if timeout is not None else None
         )
 
+    def result(self, timeout: Optional[timedelta] = None) -> Any:
+        return self.wait(timeout)
+
+    def done(self) -> bool:
+        return self._future.done()
+
+    def exception(self) -> Optional[BaseException]:
+        return self._future.exception()
+
     def add_done_callback(self, fn: Callable[["Future[Any]"], None]) -> None:
         self._future.add_done_callback(fn)
+
+    def then(self, fn: Callable[[Any], Any]) -> "Work":
+        """A Work whose result is ``fn(result)``; errors propagate."""
+        out: "Future[Any]" = Future()
+
+        def chain(f: "Future[Any]") -> None:
+            exc = f.exception()
+            if exc is not None:
+                out.set_exception(exc)
+                return
+            try:
+                out.set_result(fn(f.result()))
+            except Exception as e:  # noqa: BLE001 - into the future
+                out.set_exception(e)
+
+        self._future.add_done_callback(chain)
+        return Work(out)
 
 
 def _completed(value: Any) -> Work:
     f: "Future[Any]" = Future()
     f.set_result(value)
     return Work(f)
+
+
+@dataclass
+class TreeShard:
+    """This rank's shard of a flat-packed tree, what the sharded plan's
+    two legs trade in: :meth:`Collectives.plan_reduce_scatter` returns
+    one, :meth:`Collectives.plan_allgather_into` takes it back.
+
+    The tree packs into one flat f32 group (the sharded plan's only
+    group); the shard is the union of the per-stripe ring chunks this
+    rank owns, compacted in stripe order. ``values`` is what a caller
+    updates in place of the full tree; the rest is layout bookkeeping
+    that rides along unchanged so every member scatters back onto the
+    identical schedule. Keys are the group's numpy dtype name
+    (``"float32"``), as in the JAX package."""
+
+    # group name -> this rank's flat shard
+    values: Dict[str, torch.Tensor]
+    # group name -> total flat elements of the group's full buffer
+    counts: Dict[str, int]
+    # group name -> [(start, len)] element ranges this rank owns, in
+    # compaction order (positions within the group's flat buffer)
+    ranges: Dict[str, List[Tuple[int, int]]]
+    # group name -> the stripe partition pinned for the two legs
+    layout: Dict[str, int]
+    dtypes: Dict[str, torch.dtype]
+    # group name -> leaf indices packed into the group (signature order)
+    groups: Dict[str, List[int]]
+    treedef: Any
+    sig: Any
+    rank: int
+    world_size: int
+    # the sharded comm plan that produced the shard
+    plan: Any = None
+    # where the reduced tree's leaves lived (the gathered tree returns
+    # there); None for CPU leaves
+    device: Optional[torch.device] = None
+
+    def replace_values(self, values: Dict[str, torch.Tensor]) -> "TreeShard":
+        """Same layout, new per-group values (the updated shard)."""
+        return replace(self, values=values)
 
 
 class Collectives(ABC):
@@ -151,10 +228,15 @@ class Collectives(ABC):
         tree: Any,
         op: ReduceOp = ReduceOp.SUM,
         divisor: Optional[float] = None,
+        wire: Optional[str] = None,
     ) -> Work:
         """Reduces a tree of tensors across the group; the result has the
         same structure, dtypes and devices, bit-identical on every rank.
-        ``divisor`` (SUM only) divides the reduced result."""
+        ``divisor`` (SUM only) divides the reduced result. ``wire="q8"``
+        (SUM/AVG only) ships int8 chunks with per-chunk f32 scales through
+        the ring, dequant-accumulating per hop: about 4x fewer bytes than
+        f32, constant in world size, lossy at the int8 class.
+        Implementations without a quantized wire may raise for it."""
 
     def plan_allreduce(
         self,
@@ -180,6 +262,50 @@ class Collectives(ABC):
         """Zeroes the error-feedback carry of every cached ``q8ef`` plan;
         call on heal/abort."""
 
+    def plan_reduce_scatter(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,
+        ag_wire: Optional[str] = None,
+    ) -> Work:
+        """Reduces a tree (SUM/AVG) through a persistent SHARDED comm plan
+        but stops at the reduce-scatter boundary: the result is a
+        :class:`TreeShard` of this rank's ~1/world of the flat-packed
+        reduction, full f32 on every wire. ``wire`` encodes the grad leg
+        (None | "bf16" | "q8"), ``ag_wire`` pre-declares the param leg's
+        (None | "bf16"). Pass the shard (values replaced) back to
+        :meth:`plan_allgather_into`: both legs share the plan's
+        partition. f32 leaves only."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no sharded comm plans"
+        )
+
+    def plan_allgather_into(
+        self, shard: TreeShard, wire: Optional[str] = None
+    ) -> Work:
+        """Param leg of the sharded plan: gathers every rank's (updated)
+        shard back into the full tree through the plan that produced it.
+        ``wire`` must match the plan's ``ag_wire`` (``"bf16"``: every
+        member adopts the identical decoded words)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no sharded comm plans"
+        )
+
+    @abstractmethod
+    def allgather(self, tree: Any) -> Work:
+        """Gathers each rank's tree; the result is a list of trees in rank
+        order (every rank passes the same structure and shapes)."""
+
+    @abstractmethod
+    def broadcast(self, tree: Any, root: int = 0) -> Work:
+        """Broadcasts root's tree to every rank."""
+
+    @abstractmethod
+    def barrier(self) -> Work:
+        ...
+
     @abstractmethod
     def size(self) -> int:
         ...
@@ -187,6 +313,9 @@ class Collectives(ABC):
     @abstractmethod
     def rank(self) -> int:
         ...
+
+    def abort(self) -> None:
+        """Unblocks in-flight ops with an error (safe from any thread)."""
 
     def shutdown(self) -> None:
         ...
@@ -218,12 +347,18 @@ def _q8_wire_overhead(eff: int, world: int, phases: int = 2) -> int:
     return 4 * eff * max(world, 1) * phases + _OP_HEADER_BYTES
 
 
-# numpy dtype names, which order the JAX package's bulk groups
+# numpy dtype names, which order the JAX package's bulk groups on the
+# wire (sorted as strings)
 _NP_NAMES = {
     torch.float32: "float32",
     torch.float64: "float64",
+    torch.float16: "float16",
     torch.int32: "int32",
     torch.int64: "int64",
+    torch.int16: "int16",
+    torch.int8: "int8",
+    torch.uint8: "uint8",
+    torch.bool: "bool",
     torch.bfloat16: "bfloat16",
 }
 
@@ -234,16 +369,16 @@ _DEVICE_PACK_WIRES = (None, "bf16", "q8ef")
 
 
 def _fingerprint(stripes: int, regions: Sequence[str],
-                 hosts: Sequence[str]) -> str:
+                 hosts: Sequence[str], chunks: int, min_bytes: int) -> str:
     """The ring-schedule fingerprint every member checks through the
-    store at configure. The first two fields are the JAX package's
-    pipelined-legacy knobs at their defaults (the port does not
-    pipeline), the stripe count stands for both the flat and the
-    inter-region rings, then the region map, and, only when every rank
-    carries a host label, the host map and the shm knobs (transport and
-    ring capacity: the two ends of a shm ring must agree). Identical to
-    a default JAX member's, so members of both packages share a ring."""
-    fp = f"4:4194304:{stripes}:{stripes}:{','.join(regions)}"
+    store at configure. The first two fields are the legacy pipeline's
+    knobs (they decide how many native ops one allreduce issues), the
+    stripe count stands for both the flat and the inter-region rings,
+    then the region map, and, only when every rank carries a host
+    label, the host map and the shm knobs (transport and ring capacity:
+    the two ends of a shm ring must agree). Identical to a JAX member's
+    with the same knobs, so members of both packages share a ring."""
+    fp = f"{chunks}:{min_bytes}:{stripes}:{stripes}:{','.join(regions)}"
     if hosts and all(hosts):
         shm_on = os.environ.get("TORCHFT_HC_SHM", "").lower() not in (
             "0", "off", "false")
@@ -552,6 +687,144 @@ class _CommPlan:
         return k, self.out_sets[k], self.out_ptrs[k]
 
 
+class _ShardedPlan:
+    """Python handle for one native SHARDED comm plan (per-step ZeRO).
+
+    As for :class:`_CommPlan`, a step allocates nothing: the input
+    pointer array, two alternating f32 shard buffers for the grad leg (a
+    caller may still hold step k's shard while step k+1 reduces) and two
+    alternating full-leaf output sets for the param leg. Over card
+    leaves the buffers are pinned, and the plan also owns the grad leg's
+    pinned inputs (one per leaf, pointers set once), the param leg's
+    pinned shard input and the stream that copies into them; an output
+    set or shard buffer is not rewritten before the event recorded after
+    its upload has passed."""
+
+    def __init__(self, handle: Any, sig: Sig, treedef: Any,
+                 wire: Optional[str], ag_wire: Optional[str],
+                 stripes: int = 1, world: int = 1, pin: bool = False,
+                 device: Optional[torch.device] = None) -> None:
+        if any(dt != torch.float32 for _, dt in sig):
+            raise KeyError("sharded plans take f32 leaves only")
+        self.treedef = treedef
+        self.sig = sig
+        self.wire = wire
+        self.ag_wire = ag_wire
+        n = len(sig)
+        counts = [math.prod(s) for s, _ in sig]
+        plan_id = _lib.tft_plan_build_sharded(
+            handle, (ctypes.c_int64 * n)(*counts),
+            (ctypes.c_int32 * n)(*[_NATIVE_DTYPES[dt] for _, dt in sig]), n,
+            _PLAN_WIRES[wire], _PLAN_WIRES[ag_wire],
+        )
+        if plan_id < 0:
+            _check(2)
+        self.plan_id = plan_id
+        meta = (ctypes.c_int64 * 3)()
+        _check(_lib.tft_plan_sharded_meta(handle, plan_id, meta))
+        self.shard_count, self.eff, self.total = int(meta[0]), int(meta[1]), int(meta[2])
+        self.in_ptrs = (ctypes.c_void_p * n)()
+        self.shard_sets = [torch.empty(self.shard_count, dtype=torch.float32,
+                                       pin_memory=pin) for _ in range(2)]
+        self.shard_uploaded: List[Optional[Any]] = [None, None]
+        self.shard_flip = 0
+        self.out_sets: List[List[torch.Tensor]] = []
+        self.out_ptrs: List[Any] = []
+        for _ in range(2):
+            outs = [torch.empty(s, dtype=torch.float32, pin_memory=pin)
+                    for s, _ in sig]
+            self.out_sets.append(outs)
+            self.out_ptrs.append(
+                (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]))
+        self.uploaded: List[Optional[Any]] = [None, None]
+        self.flip = 0
+        self.execs = 0
+        self.staging: List[torch.Tensor] = []
+        self.shard_in: Optional[torch.Tensor] = None
+        self.stream = None
+        if pin:
+            self.staging = [torch.empty(s, dtype=torch.float32, pin_memory=True)
+                            for s, _ in sig]
+            for i, t in enumerate(self.staging):
+                self.in_ptrs[i] = t.data_ptr()
+            self.shard_in = torch.empty(self.shard_count, dtype=torch.float32,
+                                        pin_memory=True)
+            self.stream = torch.cuda.Stream(device)
+        self.bytes = self.total * 4
+        # per-leg wire bills: the grad leg runs one ring phase at the rs
+        # wire, the param leg one at the ag wire
+        if wire == "q8":
+            self.rs_wire_bytes = self.total + _q8_wire_overhead(
+                self.eff, world, phases=1)
+        else:
+            self.rs_wire_bytes = self.total * (2 if wire == "bf16" else 4)
+        self.ag_wire_bytes = self.total * (2 if ag_wire == "bf16" else 4)
+
+    next_outputs = _CommPlan.next_outputs
+
+
+class _LegacyPacker:
+    """The legacy (non-plan) ops' pack of a fixed tree signature: one flat
+    buffer per group, groups in the JAX package's wire order (numpy dtype
+    names, sorted), the role of its jitted ``_DevicePacker``.
+
+    ``mode`` picks the grouping: ``"acc"`` by accumulation dtype (native
+    dtypes as they are, others in f32; the reductions), ``"f32"`` one f32
+    group (the quantized ring), ``"exact"`` by each leaf's own dtype (the
+    byte-preserving allgather). For leaves on the card a group whose
+    leaves are already consecutive views of one flat buffer (the
+    quantize pack's outputs) is read in place, any other is concatenated
+    on the card (``torch.cat``, a plain copy, not a kernel), and the
+    buffers cross into pinned host memory allocated once here, on the
+    packer's own stream after the event the caller recorded. A host
+    buffer is not rewritten before the event recorded after the last
+    upload out of it has passed."""
+
+    def __init__(self, leaves: Sequence[torch.Tensor], mode: str) -> None:
+        self.sig = _signature(leaves)
+        groups: Dict[torch.dtype, List[int]] = {}
+        for i, (_, dt) in enumerate(self.sig):
+            if mode == "f32":
+                acc = torch.float32
+            elif mode == "exact":
+                acc = dt
+            else:
+                acc = dt if dt in _NATIVE_DTYPES else torch.float32
+            groups.setdefault(acc, []).append(i)
+        self.groups = [(acc, groups[acc])
+                       for acc in sorted(groups, key=lambda d: _NP_NAMES[d])]
+        self.counts = [sum(math.prod(self.sig[i][0]) for i in idxs)
+                       for _, idxs in self.groups]
+        self.device = leaves[0].device if leaves[0].is_cuda else None
+        self.stream = (torch.cuda.Stream(self.device) if self.device is not None
+                       else None)
+        self.host: List[torch.Tensor] = []
+        if self.device is not None:
+            self.host = [torch.empty(c, dtype=acc, pin_memory=True)
+                         for c, (acc, _) in zip(self.counts, self.groups)]
+        self.uploaded: Optional[Any] = None
+        # allgather: the pinned gather buffer, by world size
+        self.gathered: Dict[int, torch.Tensor] = {}
+
+    def group_flat(self, leaves: Sequence[torch.Tensor], g: int,
+                   copy: bool) -> torch.Tensor:
+        """Group ``g`` as one flat tensor on the leaves' device: the flat
+        buffer its leaves are views of (unless ``copy``), else their
+        concatenation in the group's dtype."""
+        acc, idxs = self.groups[g]
+        ls = [leaves[i].detach() for i in idxs]
+        if not copy:
+            buf = flat_buffer(ls, acc)
+            if buf is not None:
+                return buf
+        return torch.cat([l.to(acc).reshape(-1) for l in ls])
+
+    def wait_uploaded(self) -> None:
+        if self.uploaded is not None:
+            self.uploaded.synchronize()
+            self.uploaded = None
+
+
 class OpStatsMixin:
     """Per-op phase-timing recorder (the JAX package's): every op drains
     through one ``pop_op_stats`` with the core keys ``op``, ``bytes``
@@ -592,14 +865,27 @@ class HostCollectives(OpStatsMixin, Collectives):
         timeout: timedelta = timedelta(seconds=60),
         connect_timeout: timedelta = timedelta(seconds=60),
         stripes: Optional[int] = None,
+        pipeline_chunks: Optional[int] = None,
+        pipeline_min_bytes: int = 4 << 20,
     ) -> None:
         """``stripes`` > 1 spreads every ring op over that many parallel
         TCP connections (or shm rings) per neighbour (default: env
-        ``TORCHFT_HC_STRIPES``, else 4). All members of a ring must
-        agree; configure() checks it through the store."""
+        ``TORCHFT_HC_STRIPES``, else 4). ``pipeline_chunks`` > 1 splits
+        each group buffer of the legacy ``allreduce`` of at least
+        ``pipeline_min_bytes`` into that many ring ops, so the card's
+        d2h copy, the ring and the upload overlap (default: env
+        ``TORCHFT_HC_PIPELINE_CHUNKS``, else 4); chunk boundaries depend
+        only on sizes, so results stay bit-identical across ranks. All
+        members of a ring must agree on all three; configure() checks
+        them through the store."""
         self._handle = _lib.tft_hc_create()
         self._timeout = timeout
         self._connect_timeout = connect_timeout
+        if pipeline_chunks is None:
+            pipeline_chunks = int(
+                os.environ.get("TORCHFT_HC_PIPELINE_CHUNKS", "4"))
+        self._pipeline_chunks = max(int(pipeline_chunks), 1)
+        self._pipeline_min_bytes = int(pipeline_min_bytes)
         if stripes is None:
             stripes = int(os.environ.get("TORCHFT_HC_STRIPES", "4"))
         self._stripes = min(max(int(stripes), 1), _MAX_STRIPES)
@@ -614,9 +900,13 @@ class HostCollectives(OpStatsMixin, Collectives):
         # carries and survive configure() (the pack is ring-geometry-free).
         self._dev_packers: Dict[Any, _DeviceWirePacker] = {}
         # Comm plans keyed by (wire, treedef, signature, prepacked, pinned,
-        # hier); None marks a signature no plan can take. Dropped at
-        # configure(): the native layer drops its side at the same moment.
-        self._plans: Dict[Any, Optional[_CommPlan]] = {}
+        # hier), sharded plans by (wires, treedef, signature, "sharded");
+        # None marks a signature no plan can take. Dropped at configure():
+        # the native layer drops its side at the same moment.
+        self._plans: Dict[Any, Any] = {}
+        # The legacy ops' packers keyed by (mode, treedef, signature,
+        # device): their pinned staging survives configure().
+        self._packers: Dict[Any, _LegacyPacker] = {}
         self._op_stats: List[dict] = []
 
     def _last_stripe_seconds(self) -> List[float]:
@@ -661,7 +951,9 @@ class HostCollectives(OpStatsMixin, Collectives):
                 store = _native.StoreClient(
                     hostport, connect_timeout=self._connect_timeout
                 )
-                mine = _fingerprint(self._stripes, region_list, host_list)
+                mine = _fingerprint(self._stripes, region_list, host_list,
+                                    self._pipeline_chunks,
+                                    self._pipeline_min_bytes)
                 key = f"{prefix}/pipecfg" if prefix else "pipecfg"
                 if rank == 0:
                     store.set(key, mine.encode())
@@ -695,6 +987,9 @@ class HostCollectives(OpStatsMixin, Collectives):
 
         self._executor.submit(do_configure).result()
 
+    def abort(self) -> None:
+        _lib.tft_hc_abort(self._handle)
+
     def shutdown(self) -> None:
         if self._shutdown:
             return
@@ -726,18 +1021,109 @@ class HostCollectives(OpStatsMixin, Collectives):
             raise RuntimeError("collectives already shut down")
         return Work(self._executor.submit(fn))
 
-    # -- plain allreduce --
+    # -- legacy (non-plan) data plane --
 
     def allreduce(
         self,
         tree: Any,
         op: ReduceOp = ReduceOp.SUM,
         divisor: Optional[float] = None,
+        wire: Optional[str] = None,
     ) -> Work:
+        """One ring pass per dtype group over flat buffers packed on the
+        leaves' device (card leaves cross into pinned host chunks, see
+        ``pipeline_chunks``), or, with ``wire="q8"``, one pass of the
+        whole tree as one f32 buffer over the quantized ring. Results
+        come back on the leaves' devices in their dtypes."""
         timeout_ms = _ms(self._timeout)
+        if wire not in (None, "q8"):
+            raise ValueError(f"unsupported wire: {wire!r}")
+        if wire == "q8":
+            if op == ReduceOp.AVG:
+                if divisor is not None:
+                    raise ValueError("divisor only composes with ReduceOp.SUM")
+                divisor, op = float(self._world_size), ReduceOp.SUM
+            if op != ReduceOp.SUM:
+                raise ValueError("wire='q8' supports SUM/AVG only")
+        caller = self._caller_event(tree)
         return self._submit(
-            lambda: self._allreduce_sync(tree, op, timeout_ms, divisor)
+            lambda: self._allreduce_sync(tree, op, timeout_ms, divisor,
+                                         wire, caller)
         )
+
+    @staticmethod
+    def _caller_event(tree: Any) -> Optional[Tuple[Any, Any]]:
+        """(stream, event) marking a tree's card leaves as written on the
+        caller's stream, or None for CPU leaves: an op's copies wait on
+        this event, not on whatever the caller queues later."""
+        leaves, _ = _flatten(tree)
+        if not any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves):
+            return None
+        stream = torch.cuda.current_stream(next(
+            l for l in leaves if isinstance(l, torch.Tensor) and l.is_cuda
+        ).device)
+        return stream, stream.record_event()
+
+    def _packer_for(self, leaves: Sequence[torch.Tensor], treedef: Any,
+                    mode: str) -> _LegacyPacker:
+        key = (mode, treedef, _signature(leaves), leaves[0].device)
+        packer = self._packers.get(key)
+        if packer is None:
+            if leaves[0].is_cuda and any(l.device != leaves[0].device
+                                         for l in leaves):
+                raise ValueError("card leaves of one op must share a device")
+            packer = self._packers[key] = _LegacyPacker(leaves, mode)
+        return packer
+
+    def _chunks(self, count: int, itemsize: int) -> List[Tuple[int, int]]:
+        """The pipeline's chunk bounds of a group buffer: sizes only, so
+        every rank issues the same ring ops."""
+        k = self._pipeline_chunks
+        if k <= 1 or count * itemsize < self._pipeline_min_bytes:
+            return [(0, count)]
+        bounds = [count * i // k for i in range(k + 1)]
+        return list(zip(bounds, bounds[1:]))
+
+    def _stage_down(self, packer: _LegacyPacker, leaves: Sequence[torch.Tensor],
+                    caller: Optional[Tuple[Any, Any]], chunked: bool
+                    ) -> Tuple[List[torch.Tensor], List[Tuple[int, int, int, Any]]]:
+        """Each group as one writable host buffer (the ring reduces in
+        place), and the chunk schedule ``(group, start, end, event)``. CPU
+        leaves are concatenated (a copy). Card leaves are packed on the
+        packer's stream and every chunk's d2h copy is queued before the
+        first is waited on (``event`` is each chunk's landing)."""
+        schedule: List[Tuple[int, int, int, Any]] = []
+        if caller is None:
+            hosts = [packer.group_flat(leaves, g, copy=True)
+                     for g in range(len(packer.groups))]
+            for g, (h, (acc, _)) in enumerate(zip(hosts, packer.groups)):
+                bounds = (self._chunks(h.numel(), h.element_size()) if chunked
+                          else [(0, h.numel())])
+                schedule += [(g, a, b, None) for a, b in bounds]
+            return hosts, schedule
+        packer.wait_uploaded()
+        with torch.cuda.device(packer.device), torch.cuda.stream(packer.stream):
+            packer.stream.wait_event(caller[1])
+            for g, host in enumerate(packer.host):
+                dev = packer.group_flat(leaves, g, copy=False)
+                bounds = (self._chunks(host.numel(), host.element_size())
+                          if chunked else [(0, host.numel())])
+                for a, b in bounds:
+                    host[a:b].copy_(dev[a:b], non_blocking=True)
+                    schedule.append((g, a, b, packer.stream.record_event()))
+        return packer.host, schedule
+
+    def _unpack(self, packer: _LegacyPacker, bufs: Sequence[torch.Tensor],
+                leaves: Sequence[torch.Tensor], treedef: Any) -> Any:
+        """Leaves as views of the group buffers, in their own dtypes."""
+        out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        for buf, (_, idxs) in zip(bufs, packer.groups):
+            off = 0
+            for i in idxs:
+                n = leaves[i].numel()
+                out[i] = buf[off:off + n].view(leaves[i].shape).to(leaves[i].dtype)
+                off += n
+        return _unflatten(treedef, out)
 
     def _allreduce_sync(
         self,
@@ -745,6 +1131,8 @@ class HostCollectives(OpStatsMixin, Collectives):
         op: ReduceOp,
         timeout_ms: int,
         divisor: Optional[float] = None,
+        wire: Optional[str] = None,
+        caller: Optional[Tuple[Any, Any]] = None,
     ) -> Any:
         if divisor is not None and op != ReduceOp.SUM:
             raise ValueError("divisor only composes with ReduceOp.SUM")
@@ -754,67 +1142,192 @@ class HostCollectives(OpStatsMixin, Collectives):
         if self._world_size == 1 or not leaves:
             return _identity(tree, leaves, treedef, divisor)
         native_op = int(ReduceOp.SUM if op == ReduceOp.AVG else op)
-        out: List[Optional[torch.Tensor]] = [None] * len(leaves)
-        groups: Dict[torch.dtype, List[int]] = {}
-        for i, l in enumerate(leaves):
-            acc = l.dtype if l.dtype in _NATIVE_DTYPES else torch.float32
-            groups.setdefault(acc, []).append(i)
-        # One ring op per dtype group: the JAX package's per-bucket record
-        buckets: Dict[str, dict] = {}
+        q8 = wire == "q8"
+        packer = self._packer_for(leaves, treedef, "f32" if q8 else "acc")
+        t_pack = time.perf_counter()
+        # the quantized ring takes the whole tree in one op, as in the
+        # JAX package; the plain ring pipelines big groups in chunks
+        hosts, schedule = self._stage_down(packer, leaves, caller,
+                                           chunked=not q8)
+        pack_s = time.perf_counter() - t_pack
+        outs = hosts
+        if caller is not None:
+            with torch.cuda.stream(caller[0]):
+                outs = [torch.empty(h.numel(), dtype=h.dtype,
+                                    device=packer.device) for h in hosts]
+        buckets: Dict[str, dict] = {
+            _NP_NAMES[acc]: {"bytes": 0, "d2h": 0.0, "ring": 0.0, "h2d": 0.0,
+                             "stripe_s": [], "stripe_wall": 0.0}
+            for acc, _ in packer.groups}
         stripe_sum: List[float] = []
-        pack_s = d2h_bytes = 0
-        for acc, idxs in groups.items():
+        for g, a, b, landed in schedule:
+            st = buckets[_NP_NAMES[packer.groups[g][0]]]
             t0 = time.perf_counter()
-            host = [leaves[i].detach().to("cpu", acc).reshape(-1) for i in idxs]
+            if landed is not None:
+                landed.synchronize()
             t1 = time.perf_counter()
-            # cat copies, so the ring may reduce the buffer in place
-            buf = torch.cat(host)
-            t2 = time.perf_counter()
-            _check(
-                _lib.tft_hc_allreduce(
-                    self._handle, buf.data_ptr(), buf.numel(),
-                    _NATIVE_DTYPES[acc], native_op, timeout_ms,
-                )
-            )
+            chunk = hosts[g][a:b]
+            if q8:
+                _check(_lib.tft_hc_allreduce_q8(
+                    self._handle, chunk.data_ptr(), chunk.numel(), timeout_ms))
+            else:
+                _check(_lib.tft_hc_allreduce(
+                    self._handle, chunk.data_ptr(), chunk.numel(),
+                    _NATIVE_DTYPES[chunk.dtype], native_op, timeout_ms))
             stripe_s = self._last_stripe_seconds()
             if divisor is not None:
-                buf = _divide(buf, divisor)
-            t3 = time.perf_counter()
-            offset = 0
-            for i in idxs:
-                n = leaves[i].numel()
-                out[i] = (
-                    buf[offset:offset + n].reshape(leaves[i].shape)
-                    .to(leaves[i].device, leaves[i].dtype)
-                )
-                offset += n
-            pack_s += t2 - t1
-            d2h_bytes += sum(leaves[i].numel() for i in idxs
-                             if leaves[i].is_cuda) * buf.element_size()
-            buckets[_NP_NAMES[acc]] = {
-                "bytes": buf.numel() * buf.element_size(), "d2h": t1 - t0,
-                "ring": t3 - t2, "h2d": time.perf_counter() - t3,
-                "stripe_s": stripe_s,
-                "stripe_wall": max(stripe_s) if stripe_s else 0.0,
-            }
+                _divide_(chunk, divisor)
+            t2 = time.perf_counter()
+            if caller is not None:
+                # the upload starts now and overlaps the next chunk's ring
+                with torch.cuda.stream(caller[0]):
+                    outs[g][a:b].copy_(chunk, non_blocking=True)
+            st["bytes"] += chunk.numel() * chunk.element_size()
+            st["d2h"] += t1 - t0
+            st["ring"] += t2 - t1
+            st["h2d"] += time.perf_counter() - t2
             for k, x in enumerate(stripe_s):
-                if k < len(stripe_sum):
-                    stripe_sum[k] += x
-                else:
-                    stripe_sum.append(x)
-        self._record_op_stats({
-            "op": "allreduce",
-            "bytes": sum(b["bytes"] for b in buckets.values()),
-            "d2h_bytes": d2h_bytes,
-            "chunks": len(buckets),
+                for acc_list in (st["stripe_s"], stripe_sum):
+                    if k < len(acc_list):
+                        acc_list[k] += x
+                    else:
+                        acc_list.append(x)
+            if stripe_s:
+                st["stripe_wall"] += max(stripe_s)
+        if caller is not None:
+            packer.uploaded = caller[0].record_event()
+        total = sum(b["bytes"] for b in buckets.values())
+        stats = {
+            "op": "allreduce_q8" if q8 else "allreduce",
+            "bytes": total,
+            # what crossed the card link: the group buffers, at full width
+            "d2h_bytes": total if caller is not None else 0,
+            "chunks": len(schedule),
             "pack": pack_s,
             "d2h": sum(b["d2h"] for b in buckets.values()),
             "ring": sum(b["ring"] for b in buckets.values()),
             "h2d": sum(b["h2d"] for b in buckets.values()),
             "stripe_s": stripe_sum,
             "buckets": buckets,
+        }
+        if q8:
+            # int8 chunks + the per-(stripe, ring chunk) scales + header
+            n = sum(packer.counts)
+            stats["wire_bytes"] = n + _q8_wire_overhead(
+                _effective_stripes(n, self._stripes), self._world_size)
+        self._record_op_stats(stats)
+        return self._unpack(packer, outs, leaves, treedef)
+
+    def allgather(self, tree: Any) -> Work:
+        """Gathers every rank's tree (a list in rank order). The tree packs
+        by exact dtype, byte for byte, into one buffer per dtype in the
+        JAX package's wire order (its device-packed layout: an int8
+        ``{"q", "scale"}`` payload ships as the f32 scales, then the int8
+        codes), so members of both packages share the gather."""
+        timeout_ms = _ms(self._timeout)
+        caller = self._caller_event(tree)
+        return self._submit(
+            lambda: self._allgather_sync(tree, timeout_ms, caller))
+
+    def _allgather_sync(self, tree: Any, timeout_ms: int,
+                        caller: Optional[Tuple[Any, Any]]) -> List[Any]:
+        if self._world_size == 1:
+            return [tree]
+        leaves, treedef = _flatten(tree)
+        world = self._world_size
+        t0 = time.perf_counter()
+        if not leaves:  # still one ring op, as every member issues it
+            _check(_lib.tft_hc_allgather(self._handle, None, None, 0,
+                                         timeout_ms))
+            return [tree] * world
+        packer = self._packer_for(leaves, treedef, "exact")
+        hosts, schedule = self._stage_down(packer, leaves, caller,
+                                           chunked=False)
+        t1 = time.perf_counter()
+        for *_, landed in schedule:
+            if landed is not None:
+                landed.synchronize()
+        t2 = time.perf_counter()
+        sizes = [h.numel() * h.element_size() for h in hosts]
+        nbytes = sum(sizes)
+        # one contiguous input of the groups in wire order
+        inbuf = torch.cat([h.view(-1).view(torch.uint8) for h in hosts])
+        out = packer.gathered.get(world)
+        if out is None or caller is None:
+            out = torch.empty(world * nbytes, dtype=torch.uint8,
+                              pin_memory=caller is not None)
+            if caller is not None:
+                packer.gathered[world] = out
+        t2b = time.perf_counter()  # host staging copies are not the wire
+        _check(_lib.tft_hc_allgather(self._handle, inbuf.data_ptr(),
+                                     out.data_ptr(), nbytes, timeout_ms))
+        t3 = time.perf_counter()
+        stripe_s = self._last_stripe_seconds()
+        results: List[Any] = []
+        ctx = (torch.cuda.stream(caller[0]) if caller is not None
+               else contextlib.nullcontext())
+        with ctx:
+            for r in range(world):
+                off = r * nbytes
+                bufs = []
+                for (acc, _), count, size in zip(packer.groups, packer.counts,
+                                                 sizes):
+                    buf = torch.empty(count, dtype=acc, device=packer.device)
+                    buf.view(torch.uint8).copy_(out[off:off + size],
+                                                non_blocking=caller is not None)
+                    bufs.append(buf)
+                    off += size
+                results.append(self._unpack(packer, bufs, leaves, treedef))
+            if caller is not None:
+                packer.uploaded = caller[0].record_event()
+        self._record_op_stats({
+            "op": "allgather", "bytes": nbytes,
+            # this rank's groups cross down once; the gathered members
+            # come back on the h2d leg
+            "d2h_bytes": nbytes if caller is not None else 0,
+            "pack": t1 - t0, "d2h": t2 - t1, "host_copy": t2b - t2,
+            "ring": t3 - t2b, "h2d": time.perf_counter() - t3,
+            "stripe_s": stripe_s,
         })
+        return results
+
+    def broadcast(self, tree: Any, root: int = 0) -> Work:
+        """Broadcasts root's tree, leaf bytes in tree order; the result
+        comes back on each leaf's device."""
+        timeout_ms = _ms(self._timeout)
+        caller = self._caller_event(tree)
+        return self._submit(lambda: self._broadcast_sync(tree, root,
+                                                         timeout_ms, caller))
+
+    def _broadcast_sync(self, tree: Any, root: int, timeout_ms: int,
+                        caller: Optional[Tuple[Any, Any]] = None) -> Any:
+        if self._world_size == 1:
+            if root != 0:
+                raise RuntimeError(f"bad broadcast root {root} for world size 1")
+            return tree
+        leaves, treedef = _flatten(tree)
+        if caller is not None:  # the card leaves are written
+            caller[1].synchronize()
+        host = [l.detach().to("cpu").contiguous().reshape(-1) for l in leaves]
+        packed = (torch.cat([h.view(torch.uint8) for h in host]) if host
+                  else torch.empty(0, dtype=torch.uint8))
+        nbytes = packed.numel()
+        _check(_lib.tft_hc_broadcast(
+            self._handle, packed.data_ptr() if nbytes else None, nbytes, root,
+            timeout_ms))
+        out, off = [], 0
+        for l, h in zip(leaves, host):
+            size = h.numel() * h.element_size()
+            # a copy: the slice may sit off the dtype's alignment
+            out.append(packed[off:off + size].clone().view(l.dtype)
+                       .view(l.shape).to(l.device))
+            off += size
         return _unflatten(treedef, out)
+
+    def barrier(self) -> Work:
+        timeout_ms = _ms(self._timeout)
+        return self._submit(
+            lambda: _check(_lib.tft_hc_barrier(self._handle, timeout_ms)))
 
     # -- two-tier (topology-aware) ops --
 
@@ -1316,6 +1829,226 @@ class HostCollectives(OpStatsMixin, Collectives):
                                         ctypes.byref(out)))
         return _native._take_string(out)
 
+    # -- sharded plans (per-step ZeRO) --
+
+    def _shard_ranges(self, count: int, esize: int,
+                      eff: int) -> List[Tuple[int, int]]:
+        """(start, len) element ranges this rank owns of a count-element
+        group at the pinned stripe partition (the native layout)."""
+        if self._world_size == 1:
+            return [(0, count)]
+        buf = (ctypes.c_int64 * (2 * _MAX_STRIPES))()
+        n = _lib.tft_hc_shard_ranges(self._handle, count, esize, self._rank,
+                                     eff, buf, _MAX_STRIPES)
+        if n < 0:
+            _check(2)
+        return [(buf[2 * i], buf[2 * i + 1]) for i in range(n)]
+
+    def plan_reduce_scatter(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,
+        ag_wire: Optional[str] = None,
+    ) -> Work:
+        """The grad leg: one native call over a precompiled sharded plan
+        (pack, the rs ring phase, shard compaction and the divisor). At
+        ``wire=None`` the shard is bit-identical to the matching slice of
+        ``plan_allreduce(wire=None)``'s result. Card leaves reach the
+        native call through pinned inputs the plan owns; the shard comes
+        back as a card tensor."""
+        timeout_ms = _ms(self._timeout)
+        if wire not in (None, "bf16", "q8"):
+            raise ValueError(f"unsupported wire: {wire!r}")
+        if ag_wire not in (None, "bf16"):
+            raise ValueError(f"unsupported ag_wire: {ag_wire!r}")
+        if op == ReduceOp.AVG:
+            if divisor is not None:
+                raise ValueError("divisor only composes with ReduceOp.SUM")
+            divisor, op = float(self._world_size), ReduceOp.SUM
+        if op != ReduceOp.SUM:
+            raise ValueError("plan_reduce_scatter supports SUM/AVG only")
+        caller = self._caller_event(tree)
+        return self._submit(lambda: self._plan_reduce_scatter_sync(
+            tree, divisor, wire, ag_wire, timeout_ms, caller))
+
+    def _sharded_plan_for(self, leaves: Sequence[torch.Tensor], treedef: Any,
+                          wire: Optional[str], ag_wire: Optional[str]
+                          ) -> Optional[_ShardedPlan]:
+        sig = _signature(leaves)
+        pin = leaves[0].is_cuda
+        key = (wire, ag_wire, treedef, sig, pin, "sharded")
+        if key not in self._plans:
+            try:
+                self._plans[key] = _ShardedPlan(
+                    self._handle, sig, treedef, wire, ag_wire,
+                    stripes=self._stripes, world=self._world_size, pin=pin,
+                    device=leaves[0].device if pin else None)
+            except (KeyError, RuntimeError):
+                # non-f32 leaves, or wires the native plan rejects
+                self._plans[key] = None
+        return self._plans[key]
+
+    def _plan_reduce_scatter_sync(
+        self, tree: Any, divisor: Optional[float], wire: Optional[str],
+        ag_wire: Optional[str], timeout_ms: int,
+        caller: Optional[Tuple[Any, Any]],
+    ) -> TreeShard:
+        leaves, treedef = _flatten(tree)
+        if not leaves:
+            raise ValueError("plan_reduce_scatter of an empty tree")
+        plan = self._sharded_plan_for(leaves, treedef, wire, ag_wire)
+        if plan is None:
+            raise ValueError(
+                "sharded comm plans take f32 leaves only (keep f32 master "
+                "weights, or use the fused plan path)")
+        t0 = time.perf_counter()
+        refs: List[torch.Tensor] = []
+        staging_allocs = 0
+        if caller is None:
+            refs, staging_allocs = self._host_inputs(plan, leaves, None)
+        else:
+            with torch.cuda.device(leaves[0].device), \
+                    torch.cuda.stream(plan.stream):
+                plan.stream.wait_event(caller[1])
+                for host, l in zip(plan.staging, leaves):
+                    host.copy_(l.detach(), non_blocking=True)
+                copied = plan.stream.record_event()
+            copied.synchronize()
+        t1 = time.perf_counter()
+        # shards double-buffer like plan outputs
+        k = plan.shard_flip
+        plan.shard_flip ^= 1
+        if plan.shard_uploaded[k] is not None:
+            plan.shard_uploaded[k].synchronize()
+            plan.shard_uploaded[k] = None
+        shard_buf = plan.shard_sets[k]
+        _check(_lib.tft_plan_execute_rs(
+            self._handle, plan.plan_id, plan.in_ptrs,
+            ctypes.cast(shard_buf.data_ptr(), ctypes.POINTER(ctypes.c_float)),
+            float(divisor if divisor is not None else 1.0),
+            0 if divisor is None else 1, timeout_ms))
+        ring_s = time.perf_counter() - t1
+        del refs
+        plan.execs += 1
+        t2 = time.perf_counter()
+        value = shard_buf
+        if caller is not None:
+            with torch.cuda.stream(caller[0]):
+                value = shard_buf.to(leaves[0].device, non_blocking=True)
+                plan.shard_uploaded[k] = caller[0].record_event()
+        self._record_op_stats({
+            # its own key: the grad leg bills apart from the param leg
+            "op": "plan_reduce_scatter",
+            "wire": wire,
+            "bytes": plan.bytes,
+            "shard_bytes": plan.shard_count * 4,
+            "wire_bytes": plan.rs_wire_bytes,
+            # the full tree crosses down once (from the card); only the
+            # shard returns
+            "d2h_bytes": plan.bytes if caller is not None else 0,
+            "d2h": t1 - t0,
+            "ring": ring_s,
+            "h2d": time.perf_counter() - t2,
+            "_buckets_json": self._plan_stats_json(plan.plan_id),
+            "py_staging_allocs": staging_allocs,
+            "plan_execs": plan.execs,
+        })
+        return TreeShard(
+            values={"float32": value},
+            counts={"float32": plan.total},
+            ranges={"float32": self._shard_ranges(plan.total, 4, plan.eff)},
+            layout={"float32": plan.eff},
+            dtypes={"float32": torch.float32},
+            groups={"float32": list(range(len(leaves)))},
+            treedef=treedef, sig=plan.sig, rank=self._rank,
+            world_size=self._world_size, plan=plan,
+            device=leaves[0].device if caller is not None else None,
+        )
+
+    def plan_allgather_into(
+        self, shard: TreeShard, wire: Optional[str] = None
+    ) -> Work:
+        """The param leg: gathers every rank's updated shard into the
+        plan's double-buffered outputs (one native call at the plan's ag
+        wire), then up to the card when the reduced leaves lived there."""
+        timeout_ms = _ms(self._timeout)
+        if wire not in (None, "bf16"):
+            raise ValueError(f"unsupported wire: {wire!r}")
+        caller = self._caller_event(shard.values)
+        return self._submit(lambda: self._plan_allgather_into_sync(
+            shard, wire, timeout_ms, caller))
+
+    def _plan_allgather_into_sync(
+        self, shard: TreeShard, wire: Optional[str], timeout_ms: int,
+        caller: Optional[Tuple[Any, Any]],
+    ) -> Any:
+        plan = shard.plan
+        if plan is None:
+            raise ValueError("pass the TreeShard from plan_reduce_scatter")
+        if wire != plan.ag_wire:
+            raise ValueError(
+                f"plan_allgather_into wire {wire!r} does not match the "
+                f"plan's ag_wire {plan.ag_wire!r} (declared at "
+                "plan_reduce_scatter; the header pins it cohort-wide)")
+        vals = shard.values.get("float32")
+        if vals is None or len(shard.values) != 1:
+            raise ValueError("pass the TreeShard from plan_reduce_scatter "
+                             "(values replaced, layout intact)")
+        if vals.numel() != plan.shard_count:
+            raise ValueError(
+                f"shard has {vals.numel()} elements, the plan's layout "
+                f"expects {plan.shard_count}: pass the TreeShard from "
+                "plan_reduce_scatter (values replaced, layout intact)")
+        t0 = time.perf_counter()
+        d2h_bytes = 0
+        if caller is not None:
+            with torch.cuda.device(vals.device), torch.cuda.stream(plan.stream):
+                plan.stream.wait_event(caller[1])
+                plan.shard_in.copy_(vals.detach().reshape(-1),
+                                    non_blocking=True)
+                copied = plan.stream.record_event()
+            copied.synchronize()
+            v = plan.shard_in
+            d2h_bytes = v.numel() * 4
+        else:
+            v = vals.detach().reshape(-1).to(torch.float32).contiguous()
+        t1 = time.perf_counter()
+        k, outs, out_ptrs = plan.next_outputs()
+        _check(_lib.tft_plan_execute_ag(
+            self._handle, plan.plan_id,
+            ctypes.cast(v.data_ptr(), ctypes.POINTER(ctypes.c_float)),
+            out_ptrs, timeout_ms))
+        ring_s = time.perf_counter() - t1
+        plan.execs += 1
+        t2 = time.perf_counter()
+        dest = shard.device if shard.device is not None else (
+            vals.device if vals.is_cuda else None)
+        result: List[torch.Tensor] = list(outs)
+        if dest is not None:
+            stream = (caller[0] if caller is not None
+                      else torch.cuda.current_stream(dest))
+            with torch.cuda.stream(stream):
+                result = [o.to(dest, non_blocking=True) for o in outs]
+                plan.uploaded[k] = stream.record_event()
+        self._record_op_stats({
+            # the param leg's own key, billed at the ag wire
+            "op": "plan_allgather_into",
+            "wire": wire,
+            "bytes": plan.bytes,
+            "wire_bytes": plan.ag_wire_bytes,
+            # only this rank's updated shard crosses down; the gathered
+            # tree returns on the h2d leg
+            "d2h_bytes": d2h_bytes,
+            "d2h": t1 - t0,
+            "ring": ring_s,
+            "h2d": time.perf_counter() - t2,
+            "_buckets_json": self._plan_stats_json(plan.plan_id),
+            "plan_execs": plan.execs,
+        })
+        return _unflatten(shard.treedef, result)
+
     def plan_reset_feedback(self) -> None:
         """Zeroes the EF carry of every cached q8ef plan (flat and
         two-tier, whose carry sits at the region leader) and of every
@@ -1324,7 +2057,7 @@ class HostCollectives(OpStatsMixin, Collectives):
 
         def reset() -> None:
             for plan in self._plans.values():
-                if plan is not None and plan.wire == "q8ef":
+                if isinstance(plan, _CommPlan) and plan.wire == "q8ef":
                     _check(
                         _lib.tft_plan_reset_feedback(self._handle, plan.plan_id)
                     )
@@ -1343,6 +2076,14 @@ def _identity(tree: Any, leaves: Sequence[torch.Tensor], treedef: Any,
     return _unflatten(treedef, [_divide(l, divisor) for l in leaves])
 
 
+def _divide_(t: torch.Tensor, divisor: float) -> None:
+    """:func:`_divide` in place (a host chunk the ring reduced)."""
+    if t.dtype in (torch.float32, torch.float64):
+        torch.div(t, divisor, out=t)
+    else:
+        t.copy_(_divide(t, divisor))
+
+
 def _divide(t: torch.Tensor, divisor: float) -> torch.Tensor:
     """Same-dtype divide for the divisor/AVG contract: integers
     floor-divide, floats keep their dtype (bf16 divides in f32)."""
@@ -1351,3 +2092,149 @@ def _divide(t: torch.Tensor, divisor: float) -> torch.Tensor:
     if t.dtype == torch.bfloat16:
         return (t.float() / divisor).to(torch.bfloat16)
     return t / divisor
+
+
+class DummyCollectives(Collectives):
+    """No-op fake for tests and wrapper semantics (the JAX package's
+    ``DummyCollectives``): every op completes at once as if this member
+    were alone, lossless, and counts itself in ``op_count``."""
+
+    def __init__(self, rank: int = 0, world_size: int = 1) -> None:
+        self._rank = rank
+        self._world_size = world_size
+        self.configure_count = 0
+        self.op_count = 0
+        self.last_regions: Optional[List[str]] = None
+        self.last_hosts: Optional[List[str]] = None
+        self._hier = False
+
+    def configure(
+        self,
+        store_addr: str,
+        rank: int,
+        world_size: int,
+        regions: Optional[Sequence[str]] = None,
+        hosts: Optional[Sequence[str]] = None,
+    ) -> None:
+        self.configure_count += 1
+        self._rank = rank
+        self._world_size = world_size
+        self.last_regions = list(regions) if regions else None
+        self.last_hosts = list(hosts) if hosts else None
+        # the host ring's capability rule: several regions, or a
+        # (region, host) pair grouping >= 2 ranks
+        multi_region = bool(regions and len(set(regions)) >= 2
+                            and all(regions) and world_size > 1)
+        host_grouped = False
+        if hosts and all(hosts) and world_size > 1:
+            keys = [((regions[i] if regions and all(regions) else ""),
+                     hosts[i]) for i in range(len(hosts))]
+            host_grouped = any(keys.count(k) >= 2 for k in keys)
+        self._hier = multi_region or host_grouped
+
+    def hier_capable(self) -> bool:
+        return self._hier
+
+    def allreduce_hier(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,
+    ) -> Work:
+        """Lossless fake of the two-tier schedule; raises without a usable
+        topology map, like the real backend."""
+        if not self._hier and self._world_size > 1:
+            raise RuntimeError("DummyCollectives: no region map configured")
+        return self.allreduce(tree, op, divisor=divisor)
+
+    def allreduce(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,  # accepted, ignored (lossless fake)
+    ) -> Work:
+        self.op_count += 1
+        if divisor is not None and divisor != 1:
+            # the manager's AVG divides here; the fake honours it
+            leaves, treedef = _flatten(tree)
+            tree = _unflatten(treedef, [_divide(l, divisor) for l in leaves])
+        return _completed(tree)
+
+    def plan_allreduce(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,  # accepted, ignored (lossless fake)
+        device_pack: bool = True,  # accepted, ignored
+        hier: bool = False,
+    ) -> Work:
+        """The fake allreduce under the plan's call shape; ``hier`` keeps
+        the real backend's capability rule."""
+        if op == ReduceOp.AVG:
+            if divisor is not None:
+                raise ValueError("divisor only composes with ReduceOp.SUM")
+            divisor = float(self._world_size)
+        if hier and not self._hier and self._world_size > 1:
+            raise RuntimeError("DummyCollectives: no region map configured")
+        return self.allreduce(tree, ReduceOp.SUM, divisor=divisor)
+
+    def reduce_scatter(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,
+    ) -> Work:
+        """Lossless fake: the shard is the whole flat-packed tree (the
+        world-size-1 layout), so reduce_scatter -> update ->
+        allgather_into round-trips exactly."""
+        self.op_count += 1
+        leaves, treedef = _flatten(tree)
+        flat = (torch.cat([l.detach().to(torch.float32).reshape(-1)
+                           for l in leaves]) if leaves
+                else torch.zeros(0, dtype=torch.float32))
+        if divisor is not None and divisor != 1:
+            flat = flat / divisor
+        return _completed(TreeShard(
+            values={"float32": flat}, counts={"float32": flat.numel()},
+            ranges={"float32": [(0, flat.numel())]}, layout={"float32": 1},
+            dtypes={"float32": torch.float32},
+            groups={"float32": list(range(len(leaves)))},
+            treedef=treedef, sig=_signature(leaves), rank=self._rank,
+            world_size=self._world_size,
+        ))
+
+    def allgather_into(
+        self, shard: TreeShard, wire: Optional[str] = None
+    ) -> Work:
+        self.op_count += 1
+        buf = shard.values["float32"]
+        if wire == "bf16":
+            buf = buf.to(torch.bfloat16).to(torch.float32)
+        out, off = [], 0
+        for shape, dt in shard.sig:
+            n = math.prod(shape)
+            out.append(buf[off:off + n].view(shape).to(dt))
+            off += n
+        return _completed(_unflatten(shard.treedef, out))
+
+    def allgather(self, tree: Any) -> Work:
+        self.op_count += 1
+        return _completed([tree] * self._world_size)
+
+    def broadcast(self, tree: Any, root: int = 0) -> Work:
+        self.op_count += 1
+        return _completed(tree)
+
+    def barrier(self) -> Work:
+        self.op_count += 1
+        return _completed(None)
+
+    def size(self) -> int:
+        return self._world_size
+
+    def rank(self) -> int:
+        return self._rank

@@ -7,9 +7,11 @@ Every training step is a transaction:
   with the forward/backward (quorum RPCs ride a one-thread executor while
   the card computes).
 - ``allreduce()`` / ``plan_allreduce()`` average gradient trees across
-  replica groups through the reconfigurable host collectives; errors are
-  latched, never raised into the train loop, so the step is discarded by
-  the commit vote.
+  replica groups through the reconfigurable host collectives
+  (``allgather()`` gathers them; ``plan_reduce_scatter()`` /
+  ``plan_allgather_into()`` are the two legs of per-step ZeRO); errors
+  are latched, never raised into the train loop, so the step is
+  discarded by the commit vote.
 - ``should_commit()`` is a distributed AND-vote: if any rank of any group
   saw an error, every group discards the step.
 - A recovering replica fetches live weights from a healthy peer over HTTP
@@ -392,23 +394,82 @@ class Manager:
 
     # -- data plane --
 
-    def allreduce(self, tree: Any, op: ReduceOp = ReduceOp.AVG) -> Work:
+    def allreduce(self, tree: Any, op: ReduceOp = ReduceOp.AVG,
+                  wire: Optional[str] = None) -> Work:
         """Fault-tolerantly averages a gradient tree across replica groups.
 
         Data-plane errors never raise: the Work resolves to the tree AS
         CONTRIBUTED (zeroed for a healing/spare replica) and the error is
         latched for ``should_commit``. A failed QUORUM does raise (via
         ``wait_quorum``): membership failure means the step cannot
-        proceed. ``op`` is AVG (divide by ``num_participants``) or SUM."""
+        proceed. ``op`` is AVG (divide by ``num_participants``) or SUM.
+        ``wire`` forwards to the collectives (``"q8"``: the quantized
+        ring, constant wire bytes in world size)."""
         if op not in (ReduceOp.AVG, ReduceOp.SUM):
             raise ValueError(f"unsupported managed allreduce op: {op}")
 
         def dispatch(zeroed_tree: Any) -> Work:
             return self._collectives.allreduce(
-                zeroed_tree, ReduceOp.SUM, divisor=self._divisor(op)
+                zeroed_tree, ReduceOp.SUM, divisor=self._divisor(op),
+                wire=wire,
             )
 
         return self._managed_dispatch("allreduce", tree, dispatch, lambda t: t)
+
+    def allgather(self, tree: Any) -> Work:
+        """Fault-tolerantly gathers ``tree`` from every cohort member (a
+        list by replica rank). Same discipline as :meth:`allreduce`: a
+        non-participating (healing/spare) replica's entry is ZEROED, so
+        consumers averaging entry-wise divide by ``num_participants()``,
+        and a data-plane failure latches and resolves to ``[tree]``."""
+        return self._managed_dispatch(
+            "allgather", tree, self._collectives.allgather, lambda t: [t]
+        )
+
+    def plan_reduce_scatter(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.AVG,
+        wire: Optional[str] = None,
+        ag_wire: Optional[str] = None,
+    ) -> Work:
+        """Fault-tolerantly reduces a gradient tree through a sharded comm
+        plan, stopping at the reduce-scatter boundary: resolves to this
+        rank's :class:`~torchft_tpu_torch.collectives.TreeShard` of the
+        averaged flat tree (route the updated shard back through
+        :meth:`plan_allgather_into`). The per-step ZeRO grad leg.
+        ``wire``: None | "bf16" | "q8" (the shard is full f32 on every
+        wire); ``ag_wire`` (None | "bf16") pre-declares the param leg's.
+        A failure resolves to ``None`` (the plan's buffers may hold a
+        partial result), latches, and ``should_commit`` discards; so does
+        a cohort whose leaves the sharded plan cannot take."""
+        if op not in (ReduceOp.AVG, ReduceOp.SUM):
+            raise ValueError(
+                f"unsupported managed plan_reduce_scatter op: {op}")
+
+        def dispatch(zeroed_tree: Any) -> Work:
+            return self._collectives.plan_reduce_scatter(
+                zeroed_tree, ReduceOp.SUM, divisor=self._divisor(op),
+                wire=wire, ag_wire=ag_wire,
+            )
+
+        return self._managed_dispatch(
+            "plan_reduce_scatter", tree, dispatch, lambda t: None
+        )
+
+    def plan_allgather_into(self, shard: Any,
+                            wire: Optional[str] = None) -> Work:
+        """Fault-tolerantly gathers the cohort's updated plan shards into
+        the full tree, the per-step ZeRO param leg; ``wire`` must equal
+        the ``ag_wire`` declared at :meth:`plan_reduce_scatter`. Failure
+        default ``None``. A non-participating member's shard is NOT
+        zeroed: the gathered tree is replicated state every member owns a
+        slice of, not a sum of contributions."""
+        return self._managed_dispatch(
+            "plan_allgather_into", shard,
+            lambda s: self._collectives.plan_allgather_into(s, wire=wire),
+            lambda s: None, zero_nonparticipating=False,
+        )
 
     def plan_allreduce(
         self,
@@ -513,6 +574,7 @@ class Manager:
         tree: Any,
         dispatch: Callable[[Any], Work],
         default_factory: Callable[[Any], Any],
+        zero_nonparticipating: bool = True,
     ) -> Work:
         """The managed-collective discipline: errored short-circuit, quorum
         join, participant zeroing, span + timer, timeout + error latch.
@@ -522,7 +584,7 @@ class Manager:
             return _completed(default_factory(tree))
         self.wait_quorum()
         try:
-            if not self.is_participating():
+            if zero_nonparticipating and not self.is_participating():
                 tree = tree_map(_zero_leaf, tree)
             t0 = time.perf_counter()
             with span(f"torchft::{op_name}_dispatch"):
@@ -752,6 +814,15 @@ class Manager:
         assert self._quorum_future is not None, "quorum not started"
         self.wait_quorum()
         return self._participating_world_size
+
+    def quorum_id(self) -> int:
+        """Id of the current quorum: it moves exactly when membership, and
+        so the data plane, was reconfigured. Sharded state keys on it
+        (``ShardedDDP`` re-partitions its optimizer shard when it moved).
+        Settles the quorum thread first."""
+        assert self._quorum_future is not None, "quorum not started"
+        self.wait_quorum()
+        return self._quorum_id
 
     def is_participating(self) -> bool:
         """False while healing or a spare: gradients are zeroed then."""

@@ -250,12 +250,16 @@ def _code_offsets(leaves: Sequence[torch.Tensor]) -> List[int]:
     return _offsets([l.numel() for l in leaves])
 
 
-def _group_table(xs: Sequence[torch.Tensor], res_flat: torch.Tensor) -> array.array:
-    """One segment per leaf, its carry (read and written in place) being
-    its slice of ``res_flat`` and its codes at the same offset."""
+def _group_table(xs: Sequence[torch.Tensor], res_flat: torch.Tensor,
+                 res_out: Optional[torch.Tensor] = None) -> array.array:
+    """One segment per leaf, its carry read from its slice of
+    ``res_flat`` and written to its slice of ``res_out`` (in place when
+    None), its codes at the same offset."""
     offs = _code_offsets(xs)
     res = [res_flat.data_ptr() + 4 * off for off in offs]
-    return _seg_table(xs, res, res, offs)
+    out = res if res_out is None else [res_out.data_ptr() + 4 * off
+                                       for off in offs]
+    return _seg_table(xs, res, out, offs)
 
 
 def _q8_absmax_group_plain(leaves: Sequence[torch.Tensor],
@@ -270,23 +274,28 @@ def _q8_absmax_group_plain(leaves: Sequence[torch.Tensor],
 def _q8_quantize_group_plain(leaves: Sequence[torch.Tensor],
                              res_flat: torch.Tensor, absmax: torch.Tensor,
                              codes_out: torch.Tensor,
-                             scales_out: torch.Tensor) -> None:
+                             scales_out: torch.Tensor,
+                             res_out: Optional[torch.Tensor] = None) -> None:
     """The per-leaf plain quantize pass, concatenated: codes into
-    ``codes_out``, scales into ``scales_out``, the carry in place."""
+    ``codes_out``, scales into ``scales_out``, the new carry into
+    ``res_out`` (in place when None)."""
+    dst = res_flat if res_out is None else res_out
     for k, (l, off) in enumerate(zip(leaves, _code_offsets(leaves))):
-        r = res_flat[off:off + l.numel()]
-        q, s, new = _q8_quantize_plain(l.reshape(-1), r, absmax[k])
-        codes_out[off:off + l.numel()] = q
+        n = l.numel()
+        q, s, new = _q8_quantize_plain(l.reshape(-1), res_flat[off:off + n],
+                                       absmax[k])
+        codes_out[off:off + n] = q
         scales_out[k] = s
-        r.copy_(new)
+        dst[off:off + n] = new
 
 
 def _quantize_q8_ef_group_plain(leaves: Sequence[torch.Tensor],
                                 res_flat: torch.Tensor, codes_out: torch.Tensor,
-                                scales_out: torch.Tensor) -> None:
+                                scales_out: torch.Tensor,
+                                res_out: Optional[torch.Tensor] = None) -> None:
     _q8_quantize_group_plain(leaves, res_flat,
                              _q8_absmax_group_plain(leaves, res_flat),
-                             codes_out, scales_out)
+                             codes_out, scales_out, res_out)
 
 
 def q8_absmax_group(leaves: Sequence[torch.Tensor],
@@ -325,23 +334,30 @@ def q8_quantize_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
 
 
 def quantize_q8_ef_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
-                         codes_out: torch.Tensor, scales_out: torch.Tensor) -> None:
+                         codes_out: torch.Tensor, scales_out: torch.Tensor,
+                         res_out: Optional[torch.Tensor] = None) -> None:
     """:func:`quantize_q8_ef` over every leaf of a plan group at once, into
     the group's wire buffers: ``codes_out`` (int8, the leaves' element
     count) gets the codes concatenated in leaf order, ``scales_out`` (f32,
     one per leaf) the scales, and ``res_flat`` (f32, the concatenated EF
-    carry) advances in place. Bit-identical to the per-leaf function leaf
-    by leaf. On the card: one K1a and one K1b launch (per 64 leaves) over
-    one segment table; non-f32 or non-contiguous leaves are copied to f32
-    first."""
+    carry) advances in place, or, given ``res_out`` (a second flat carry
+    of the same size, not overlapping it), is read and left as it was
+    while the new carry lands in ``res_out``. Bit-identical to the
+    per-leaf function leaf by leaf. On the card: one K1a and one K1b
+    launch (per 64 leaves) over one segment table; non-f32 or
+    non-contiguous leaves are copied to f32 first."""
     _check_group(leaves, res_flat, codes_out, scales_out)
+    if res_out is not None:
+        _check_flat(res_out, "res_out", torch.float32, res_flat.numel(),
+                    res_flat.device)
     if device_kind(res_flat) == "cpu":
-        _quantize_q8_ef_group_plain(leaves, res_flat, codes_out, scales_out)
+        _quantize_q8_ef_group_plain(leaves, res_flat, codes_out, scales_out,
+                                    res_out)
         return
     if not leaves:
         return
     xs = [_f32(l) for l in leaves]
-    table = _group_table(xs, res_flat)
+    table = _group_table(xs, res_flat, res_out)
     absmax = torch.empty(len(xs), dtype=torch.float32, device=res_flat.device)
     _absmax_launch(table, absmax)
     _quantize_launch(table, absmax, codes_out, scales_out)

@@ -13,7 +13,7 @@ wrappers read the same in both packages. Updates happen in place, under
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +104,8 @@ class FTTrainState:
     """
 
     def __init__(self, params: Any, tx: AdamW, opt_state: Optional[Any] = None) -> None:
+        """``opt_state=()`` allocates no optimizer state: the mode of
+        ``ShardedDDP``, which keeps only its shard of it."""
         self.params = params
         self.tx = tx
         self.opt_state = opt_state if opt_state is not None else tx.init(params)
@@ -120,6 +122,11 @@ class FTTrainState:
         in place, on their devices. Raises on a structure mismatch."""
         _copy_into(self.params, state_dict["params"])
         sd_opt = state_dict["opt_state"]
+        if not self.opt_state:  # opt_state=(): nothing held here
+            if flatten(sd_opt)[0]:
+                raise ValueError("state dict carries optimizer state this "
+                                 "state was built without")
+            return
         _copy_into(self.opt_state["mu"], sd_opt["mu"])
         _copy_into(self.opt_state["nu"], sd_opt["nu"])
         self.opt_state["count"] = int(sd_opt["count"])
@@ -127,6 +134,24 @@ class FTTrainState:
     def apply_gradients(self, grads: Any) -> None:
         """One optimizer update, in place."""
         self.tx.update_(self.params, self.opt_state, grads)
+
+
+def build_shard_apply_step(tx: AdamW) -> Callable[[Any, Any, Any], Tuple[Any, Any]]:
+    """The shard-local optimizer step of per-step ZeRO: ``(param_shard,
+    opt_shard, grad_shard) -> (new_param_shard, new_opt_shard)``, state
+    and work scaling with the ~1/W shard, not the model. The param shard
+    is updated in place (``ShardedDDP`` slices it afresh every step); the
+    optimizer shard is written into fresh buffers, so the one a
+    discarded step started from survives it."""
+
+    def apply(param_shard: Any, opt_shard: Any, grad_shard: Any) -> Tuple[Any, Any]:
+        new_opt = tree_map(
+            lambda l: l.clone() if isinstance(l, torch.Tensor) else l,
+            opt_shard)
+        tx.update_(param_shard, new_opt, grad_shard)
+        return param_shard, new_opt
+
+    return apply
 
 
 def _copy_into(dst_tree: Any, src_tree: Any) -> None:
