@@ -3,7 +3,8 @@
 
 Drives the port's main paths — the per-step fault-tolerant training
 transaction on the dense LM and on the flash-attention LM, flat, on the
-two-tier schedule, on the legacy transport and as per-step ZeRO —
+two-tier schedule, on the legacy transport and as per-step ZeRO, the
+window strategies (AsyncDiLoCo, sharded DiLoCo) and AdaptiveDDP —
 through the entry points a user calls, at full
 width (random weights from a seed):
 the transformer LM the repository benchmarks by default (vocab 8192,
@@ -97,7 +98,31 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            remat off, full and save_attn on the same weights: time, peak
            memory, K4/K5 launches (8 / 16 / 8 and 16 each) and the
            gradients against remat off (bit for bit, or the difference
-           printed within REMAT_GRAD_RTOL).
+           printed within REMAT_GRAD_RTOL);
+14. async diloco flash  two groups on the big LM on a synchronous-quorum
+           manager: inner steps make_train_step(AdamW, bf16_params=True)
+           + step_applied(), outer AsyncDiLoCo(SGD(0.7, momentum=0.9,
+           nesterov=True)), sync_every 4, in each of compress="bf16"
+           (overlap), "int8" (no overlap) and "q8" (overlap): 1 warm and
+           2 timed windows each; prints per mode the inner step p50, each
+           sync's launch and finish ms, the window time per inner step
+           and its ratio to the bare inner step (no manager) timed in the
+           same workers;
+15. sharded diloco  the same two groups on DiLoCo(sharded=True,
+           shard_wire="q8", param_wire="bf16"), 2 windows of 4: each
+           sync's ms and its reduce_scatter / allgather_into split, the
+           outer momentum (222,332,928 B per group at W = 2);
+16. diloco reshard  two dense groups on sharded DiLoCo (sync_every 2),
+           then a third joins: it heals in its first start_quorum and
+           takes part in that sync, where all three re-partition the
+           outer state;
+17. adaptive flash  two flash groups on AdaptiveDDP(compress="q8",
+           probe_steps=2) with TORCHFT_DEVICE_PACK=auto, an explicit
+           TORCHFT_HOST and TORCHFT_DDP_SHARDED=1: six candidates
+           (blocking, plan on the host pack of the card leaves,
+           plan_devpack, plan_hier over the shm tier, pipelined,
+           ddp_sharded), 12 probe steps after the anchor, 3 locked;
+           prints decision["probe_s"] and the locked mode.
 
 The train, flash train and hier phases drain Manager.observe_op_stats()
 around their timed steps and print, per cell, the native per-bucket
@@ -118,7 +143,16 @@ a pass per step, and one more for a step whose gradients a heal made
 stale), and 0 for every other kernel — the counts are reset to 0 in each worker just before it
 drives a path and read just after; all groups end bit-identical, the
 healed one included (the sharded groups after every step), and the
-heals took the stream path; the sharded groups' shards tile the model. The hier phases also check that every group is
+heals took the stream path; the sharded groups' shards tile the model. The window
+phases check that every sync commits (the diloco joiner's first too),
+that the groups' backups are bit-identical after every AsyncDiLoCo sync
+and the params after every sharded DiLoCo sync (under overlap=False
+the params within each group's error-feedback change of the backup),
+the outer momentum's size, and exact launches: per sync K3 once (bf16;
+and the sharded param leg), K1a/K1b/K2 once (int8/q8, the sharded
+delta), K2 once more per member (int8), K4/K5 per inner step. The
+adaptive phase checks that both groups race the same six candidates,
+none fails, both lock one mode and end bit-identical. The hier phases also check that every group is
 hier-capable with the expected host-tier transport ("shm"; "tcp" under
 TORCHFT_HC_SHM=0), that no wire kernel launched (the two-tier pack is
 native), that the hier plan allocated no staging after warm-up, and in
@@ -126,8 +160,10 @@ the hier dense cell that each region leader's inter tier sent about one
 byte per parameter per step (the q8 wire, not the f32 size) and no
 other group sent any. Prints one ``kernels`` JSON line (each kernel's
 launches in total and by phase; K3 must launch in the heal transport
-phase, K1a/K1b/K2/K3 in the legacy phase, K4/K5 in the sharded flash
-phase), the card's name and power limit, and
+phase, K1a/K1b/K2/K3 in the legacy, async diloco flash, sharded diloco
+and diloco reshard phases, K4/K5 in the sharded flash, async diloco
+flash, sharded diloco and adaptive flash phases, K1a/K1b/K2 in the
+adaptive flash phase), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero.
 
@@ -136,7 +172,8 @@ this script re-run with ``--worker``, the heal donor with
 ``--heal-donor``). ``python3 chip_smoke.py
 --flash-turns`` measures only: the flat q8 and the hier flash phases in
 turns (flat, hier, hier, flat), one JSON line per turn; ``--shm-probe``
-checks only that the machine's /dev/shm takes the shm host tier.
+checks only that the machine's /dev/shm takes the shm host tier;
+``--window-phases`` builds and runs only phases 14-17.
 """
 
 from __future__ import annotations
@@ -184,6 +221,25 @@ FLASH_ADAMW_BYTES = 2 * 4 * 111_166_464
 # sharded reshard phase: founder steps before the late joiner, and steps
 # all three take after the first three-member quorum
 RESHARD_STEPS = 3
+# async diloco flash: AsyncDiLoCo's modes (compress, overlap): bench.py's
+# two link-dependent choices (bench.py:1158-1168) and the q8 ring; each
+# DILOCO_WARM_WINDOWS untimed and DILOCO_WINDOWS timed windows of
+# DILOCO_SYNC_EVERY inner steps, beside RAW_STEPS bare inner steps
+DILOCO_MODES = (("bf16", True), ("int8", False), ("q8", True))
+DILOCO_SYNC_EVERY = 4
+DILOCO_WARM_WINDOWS, DILOCO_WINDOWS = 1, 2
+RAW_STEPS = 6
+# sharded diloco: windows on the big LM; the outer Nesterov momentum is
+# half of the big LM's f32 size per group at W = 2
+SHARDED_DILOCO_WINDOWS = 2
+SHARDED_OUTER_BYTES = 4 * 111_166_464 // 2
+# diloco reshard (dense LM, sync_every 2): founder windows before the
+# joiner, and windows all three take after the first three-member quorum
+DILOCO_RESHARD_WINDOWS = 2
+# adaptive flash: probe steps per candidate, steps after the lock
+ADAPTIVE_PROBE_STEPS = 2
+ADAPTIVE_LOCKED_STEPS = 3
+ADAPTIVE_HOST = "smoke_host"  # an explicit TORCHFT_HOST: plan_hier races
 # the big LM's attention call: (B, S, H, head_dim), S = 2048 less the
 # token loss_fn drops
 FLASH_SHAPE = (BIG_BATCH, BIG_SEQ - 1, 16, 64)
@@ -442,8 +498,16 @@ def _flash_vs_dense(model_cfg, params, cfg: dict, device: torch.device) -> dict:
 
 
 def worker(cfg: dict) -> None:
+    os.environ.update(cfg.get("env", {}))
     if cfg["role"] in ("sharded_flash", "reshard", "reshard_late"):
         sharded_worker(cfg)
+        return
+    if cfg["role"] in ("diloco_flash", "diloco_reshard",
+                       "diloco_reshard_late"):
+        diloco_worker(cfg)
+        return
+    if cfg["role"] == "adaptive_flash":
+        adaptive_worker(cfg)
         return
     import torchft_tpu_torch as tft
     from torchft_tpu_torch.models import transformer as tt
@@ -740,6 +804,300 @@ def sharded_worker(cfg: dict) -> None:
             out["fetch"] = manager.checkpoint_transport().last_fetch_stats
         if on_card:
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    finally:
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _max_abs(tree) -> float:
+    from torchft_tpu_torch._tree import flatten
+
+    return max(float(l.detach().abs().max()) for l in flatten(tree)[0])
+
+
+def diloco_worker(cfg: dict) -> None:
+    """The window strategies on a sync-quorum manager. Roles:
+    ``diloco_flash`` (the big LM: bare inner steps, then AsyncDiLoCo in
+    each of DILOCO_MODES, then sharded DiLoCo), ``diloco_reshard`` (a
+    founder on the dense LM: sharded DiLoCo windows, then on with the
+    late joiner) and ``diloco_reshard_late`` (the joiner, which heals in
+    its first start_quorum and takes part in that sync). Inner steps are
+    ``make_train_step(AdamW, bf16_params=True)`` and ``step_applied()``;
+    the outer optimizer is ``SGD(0.7, momentum=0.9, nesterov=True)``."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch._tree import flatten, tree_map
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir, role = cfg["group"], cfg["workdir"], cfg["role"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    state = tft.FTTrainState(tt.init_params(model_cfg, seed=0, device=device),
+                             tft.AdamW(1e-3, weight_decay=1e-4))
+    train_step = tt.make_train_step(model_cfg, state.tx, bf16_params=True)
+    out: dict = {"group": g, "n_layers": model_cfg.n_layers, "phases": {},
+                 "total": sum(p.numel() for p in flatten(state.params)[0])}
+
+    def card_sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def inner(i: int) -> None:
+        train_step(state.params, state.opt_state,
+                   _tokens(cfg, cfg["data_offset"] + i, device))
+
+    holder: dict = {}
+    collectives = tft.HostCollectives()
+    manager = tft.Manager(
+        collectives=collectives,
+        load_state_dict=lambda sd: holder["e"].load_state_dict(sd),
+        state_dict=lambda: holder["e"].state_dict(),
+        min_replica_size=cfg.get("groups", 2), rank=0, world_size=1,
+        lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}", device=device,
+        use_async_quorum=False,
+    )
+    outer = lambda: tft.SGD(0.7, momentum=0.9, nesterov=True)  # noqa: E731
+    # seconds the smoke's own checks (the digests of 445 MB of params)
+    # took inside a step: billed to no step or window
+    overhead = [0.0]
+
+    def instrument(eng, rec: dict) -> None:
+        """Times each sync's launch and finish (card work included, the
+        inner steps queued before it excluded) and records every
+        committed sync's backup and params digests."""
+        rec.update(launch_s=[], finish_s=[], commits=[], backups=[],
+                   params=[], residual_max=[])
+        finish, launch = eng._finish_pending, getattr(eng, "_launch_sync",
+                                                      None)
+
+        def timed_finish() -> None:
+            if eng._pending is None:
+                return
+            card_sync()
+            t0 = time.perf_counter()
+            finish()
+            card_sync()
+            t1 = time.perf_counter()
+            rec["finish_s"].append(t1 - t0)
+            rec["commits"].append(eng.last_sync_commit)
+            rec["backups"].append(_digest(eng._backup_params))
+            rec["params"].append(_digest(state.params))
+            if eng._residual is not None:
+                rec["residual_max"].append(_max_abs(eng._residual))
+            if not eng._overlap:
+                # θ − G' after a synchronous sync: the EF residual's
+                # change, per group (never bit-identical across groups)
+                rec.setdefault("theta_dev", []).append(max(
+                    float((a - b).abs().max()) for a, b in zip(
+                        flatten(state.params)[0],
+                        flatten(eng._backup_params)[0])))
+                rec["theta_max"] = _max_abs(state.params)
+            overhead[0] += time.perf_counter() - t1
+
+        def timed_launch() -> None:
+            card_sync()
+            t0 = time.perf_counter()
+            launch()
+            card_sync()
+            rec["launch_s"].append(time.perf_counter() - t0)
+
+        eng._finish_pending = timed_finish
+        if launch is not None:
+            eng._launch_sync = timed_launch
+
+    def windows(eng, n: int, step_s: list) -> None:
+        for i in range(n * DILOCO_SYNC_EVERY):
+            o0, t0 = overhead[0], time.perf_counter()
+            inner(i)
+            eng.step_applied()
+            card_sync()
+            step_s.append(time.perf_counter() - t0 - (overhead[0] - o0))
+        cfg["data_offset"] += n * DILOCO_SYNC_EVERY
+
+    try:
+        if role == "diloco_flash":
+            for compress, overlap in DILOCO_MODES:
+                eng = holder["e"] = tft.AsyncDiLoCo(
+                    manager, state, outer(), DILOCO_SYNC_EVERY,
+                    compress=compress, overlap=overlap)
+                rec: dict = {"compress": compress, "overlap": overlap}
+                instrument(eng, rec)
+                before = manager.metrics().snapshot()
+                qk.reset_launch_counts()
+                warm_s: list = []
+                windows(eng, DILOCO_WARM_WINDOWS, warm_s)
+                step_s: list = []
+                o0, t0 = overhead[0], time.perf_counter()
+                windows(eng, DILOCO_WINDOWS, step_s)
+                eng.flush()
+                card_sync()
+                rec["window_s"] = (time.perf_counter() - t0
+                                   - (overhead[0] - o0))
+                rec["launches"] = dict(qk.launch_counts)
+                rec["step_s"], rec["warm_step_s"] = step_s, warm_s
+                rec["inner_steps"] = len(warm_s) + len(step_s)
+                rec["timers_ms"] = _timer_means_ms(
+                    before["timers_s"], manager.metrics().snapshot()["timers_s"])
+                out["phases"][f"async_{compress}"] = rec
+                # the next mode starts at the cohort's agreed params
+                eng._restore_parameters()
+            # sharded DiLoCo on the same cohort
+            eng = holder["e"] = tft.DiLoCo(
+                manager, state, outer(), DILOCO_SYNC_EVERY, sharded=True,
+                shard_wire="q8", param_wire="bf16")
+            rec = {"sync_s": [], "digests": [], "commits": []}
+            sync = eng._perform_sync
+
+            def timed_sync() -> None:
+                card_sync()
+                t0 = time.perf_counter()
+                sync()
+                card_sync()
+                t1 = time.perf_counter()
+                rec["sync_s"].append(t1 - t0)
+                rec["commits"].append(eng.last_sync_commit)
+                rec["digests"].append(_digest(state.params))
+                overhead[0] += time.perf_counter() - t1
+
+            eng._perform_sync = timed_sync
+            manager.observe_op_stats()
+            qk.reset_launch_counts()
+            step_s = []
+            windows(eng, SHARDED_DILOCO_WINDOWS, step_s)
+            rec["launches"] = dict(qk.launch_counts)
+            rec["step_s"] = step_s
+            rec["inner_steps"] = len(step_s)
+            rec["op_split"] = _op_split(manager.observe_op_stats())
+            rec["outer_bytes"] = sum(l.numel() * l.element_size() for l in
+                                     flatten(eng._outer_state)[0])
+            rec["ranges"] = [list(r) for r in
+                             eng._outer_shard_meta["ranges"]["float32"]]
+            out["phases"]["sharded"] = rec
+            # bare inner steps (no manager, no window), both groups at once
+            # as in the windows (the last sync left them in step), on
+            # copies of the state
+            p = tree_map(lambda l: l.clone(), state.params)
+            o = tree_map(lambda l: l.clone() if isinstance(l, torch.Tensor)
+                         else l, state.opt_state)
+            raw = []
+            for i in range(RAW_STEPS):
+                t0 = time.perf_counter()
+                train_step(p, o, _tokens(cfg, 10**6 + i, device))
+                card_sync()
+                raw.append(time.perf_counter() - t0)
+            out["raw_step_s"] = raw[1:]
+            del p, o
+        else:
+            eng = holder["e"] = tft.DiLoCo(
+                manager, state, outer(), 2, sharded=True, shard_wire="q8",
+                param_wire="bf16")
+            rec = {"commits": [], "digests": [], "world": []}
+            sync = eng._perform_sync
+
+            def logged_sync() -> None:
+                sync()
+                rec["commits"].append(eng.last_sync_commit)
+                rec["digests"].append(_digest(state.params))
+                rec["world"].append(collectives.size())
+
+            eng._perform_sync = logged_sync
+            qk.reset_launch_counts()
+            if role == "diloco_reshard":
+                for i in range(DILOCO_RESHARD_WINDOWS * 2):
+                    inner(i)
+                    eng.step_applied()
+                cfg["data_offset"] += DILOCO_RESHARD_WINDOWS * 2
+                open(os.path.join(workdir, f"ready_{g}"), "w").close()
+                _wait_for(os.path.join(workdir, "late_up"), 300)
+            else:
+                open(os.path.join(workdir, "late_up"), "w").close()
+            i = 0
+            while rec["world"].count(3) < DILOCO_RESHARD_WINDOWS:
+                inner(i)
+                eng.step_applied()
+                i += 1
+            card_sync()
+            rec["launches"] = dict(qk.launch_counts)
+            meta = eng._outer_shard_meta
+            rec["ranges"] = [list(r) for r in meta["ranges"]["float32"]]
+            rec["quorum_id"] = meta["quorum_id"]
+            rec["outer_numel"] = flatten(eng._outer_state)[0][0].numel()
+            counters = manager.metrics().snapshot()["counters"]
+            rec["heals"] = {k: v for k, v in counters.items() if "heals" in k}
+            rec["fetch"] = manager.checkpoint_transport().last_fetch_stats
+            out["phases"]["reshard"] = rec
+        if on_card:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                device)
+    finally:
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def adaptive_worker(cfg: dict) -> None:
+    """AdaptiveDDP(compress="q8") on the big LM: 6 candidates (blocking,
+    plan with the host pack of the card leaves, plan_devpack, plan_hier
+    over the shm host tier, pipelined, ddp_sharded), ADAPTIVE_PROBE_STEPS
+    each after the anchor step, then ADAPTIVE_LOCKED_STEPS in the locked
+    mode. The env (TORCHFT_DEVICE_PACK=auto, TORCHFT_HOST,
+    TORCHFT_DDP_SHARDED=1) comes with the worker's config."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    model = tt.TransformerLM(model_cfg, seed=0, device=device)
+    state = tft.FTTrainState(model.params(), tft.AdamW(1e-3, weight_decay=1e-4))
+    model_grad_fn = tt.make_grad_fn(model_cfg)
+    grad_calls = [0]
+
+    def grad_fn(params, tokens):
+        grad_calls[0] += 1
+        return model_grad_fn(params, tokens)
+
+    collectives = tft.HostCollectives()
+    manager = tft.Manager(
+        collectives=collectives, load_state_dict=state.load_state_dict,
+        state_dict=state.state_dict, min_replica_size=cfg.get("groups", 2),
+        rank=0, world_size=1, lighthouse_addr=cfg["lighthouse"],
+        replica_id=f"g{g}", device=device, use_async_quorum=False,
+    )
+    ddp = tft.AdaptiveDDP(manager, state, grad_fn, compress="q8",
+                          probe_steps=ADAPTIVE_PROBE_STEPS)
+    out: dict = {"group": g, "n_layers": model_cfg.n_layers,
+                 "candidates": list(ddp._candidates)}
+    try:
+        qk.reset_launch_counts()
+        steps = 1 + ADAPTIVE_PROBE_STEPS * len(ddp._candidates) \
+            + ADAPTIVE_LOCKED_STEPS
+        modes, step_s, losses = [], [], []
+        for i in range(steps):
+            modes.append(ddp.mode)
+            t0 = time.perf_counter()
+            losses.append(float(ddp.step(_tokens(cfg, i, device))))
+            if on_card:
+                torch.cuda.synchronize(device)
+            step_s.append(time.perf_counter() - t0)
+        out["flush"] = ddp.flush()
+        out.update(launches=dict(qk.launch_counts), grad_passes=grad_calls[0],
+                   decision=ddp.decision, mode=ddp.mode, modes=modes,
+                   step_s=step_s, losses=losses,
+                   digest=_digest(state.params), steps=steps,
+                   committed=manager.current_step(),
+                   topology={"hier_capable": manager.hier_capable(),
+                             "host_tier_transport":
+                             collectives.host_tier_transport()})
+        if on_card:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                device)
     finally:
         manager.shutdown()
         collectives.shutdown()
@@ -2079,6 +2437,288 @@ def check_reshard(res: dict) -> dict:
             "ops": joins[0]["op_split"]}
 
 
+def phase_diloco_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+                       batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+    """Two groups on the big LM: bare inner steps, AsyncDiLoCo in each of
+    DILOCO_MODES, then sharded DiLoCo (q8 shard wire, bf16 param wire)."""
+    base = {"device": device, "role": "diloco_flash", "lm": lm,
+            "batch": batch, "seq": seq}
+    return _run_groups(workdir, base, [{}, {}])
+
+
+def _flash_want(r: dict, steps: int, on_card: bool, lm: dict) -> dict:
+    if not (on_card and lm.get("use_flash")):
+        return {}
+    return {"flash_fwd": r["n_layers"] * steps,
+            "flash_bwd": 2 * r["n_layers"] * steps}
+
+
+def _p50(xs) -> float:
+    xs = sorted(xs)
+    return round(1e3 * xs[len(xs) // 2], 3)
+
+
+def check_async_diloco(res: dict, on_card: bool = True,
+                       lm: dict = BIG_LM) -> dict:
+    """Every sync commits; the groups' backups are bit-identical after
+    every committed sync; under overlap=False each group's params sit
+    within its EF residual's change of that backup (the reconcile
+    θ + (G' − (B − dq)) keeps the per-group residual, so params are
+    cohort-identical only up to it, as in the JAX package); each mode
+    launches exactly its kernels: K3 once a bf16 sync, K1a/K1b/K2 once an
+    int8/q8 sync (int8: K2 once more per member at the finish), K4/K5
+    on every inner step."""
+    results = res["results"]
+    n_syncs = DILOCO_WARM_WINDOWS + DILOCO_WINDOWS
+    launches: dict = {}
+    modes: dict = {}
+    raw = sorted(s for r in results for s in r["raw_step_s"])
+    raw_p50 = _p50(raw)
+    for compress, overlap in DILOCO_MODES:
+        name = f"async_{compress}"
+        recs = [r["phases"][name] for r in results]
+        for r, rec in zip(results, recs):
+            g = r["group"]
+            if rec["commits"] != [True] * n_syncs:
+                fail(f"async diloco {compress} group {g}: syncs "
+                     f"{rec['commits']}")
+            want = dict.fromkeys(rec["launches"], 0)
+            want.update(_flash_want(r, rec["inner_steps"], on_card, lm))
+            if on_card:
+                if compress == "bf16":
+                    want["cast_bf16"] = n_syncs
+                else:
+                    want["q8_absmax"] = want["q8_quantize"] = n_syncs
+                    want["q8_dequantize"] = n_syncs * (
+                        1 + len(results) if compress == "int8" else 1)
+            if rec["launches"] != want:
+                fail(f"async diloco {compress} group {g}: launches "
+                     f"{rec['launches']} != {want}")
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            if not overlap:
+                res_max = [0.0] + rec["residual_max"]
+                for i, dev in enumerate(rec["theta_dev"]):
+                    bound = (res_max[i] + res_max[i + 1]
+                             + 4e-6 * max(1.0, rec["theta_max"]))
+                    if not dev <= bound:
+                        fail(f"async diloco {compress} group {g} sync {i}: "
+                             f"params {dev} from the backup, beyond the EF "
+                             f"bound {bound}")
+        if recs[0]["backups"] != recs[1]["backups"]:
+            fail(f"async diloco {compress}: backups differ across groups")
+        steps = [s for rec in recs for s in rec["step_s"]]
+        window = [round(1e3 * rec["window_s"]
+                        / (DILOCO_WINDOWS * DILOCO_SYNC_EVERY), 3)
+                  for rec in recs]
+        modes[f"{compress} overlap={overlap}"] = {
+            "inner_step_ms_p50": _p50(steps),
+            "sync_launch_ms": [[round(1e3 * x, 3) for x in rec["launch_s"]]
+                               for rec in recs],
+            "sync_finish_ms": [[round(1e3 * x, 3) for x in rec["finish_s"]]
+                               for rec in recs],
+            "window_ms_per_inner_step": window,
+            "ft_over_raw": [round(w / raw_p50, 4) for w in window],
+            "launches": recs[0]["launches"],
+            "timers_ms": recs[0]["timers_ms"],
+            "theta_dev": recs[0].get("theta_dev"),
+        }
+    return {"launches": launches, "modes": modes, "raw_step_ms_p50": raw_p50,
+            "raw_step_ms_all": [round(1e3 * x, 3) for x in raw],
+            "max_memory_allocated_gb": [
+                round(r.get("max_memory_allocated", 0) / 2**30, 3)
+                for r in results]}
+
+
+def check_sharded_diloco(res: dict, on_card: bool = True, lm: dict = BIG_LM,
+                         outer_bytes: int = SHARDED_OUTER_BYTES) -> dict:
+    """Every sync commits with params bit-identical across the groups;
+    each group's outer momentum is half of the f32 model (W = 2) and the
+    shards tile it; per sync K1a/K1b/K2 (the q8 EF delta) and K3 (the
+    bf16 param leg) launch once, K4/K5 on every inner step."""
+    results = res["results"]
+    recs = [r["phases"]["sharded"] for r in results]
+    launches: dict = {}
+    for r, rec in zip(results, recs):
+        g = r["group"]
+        if rec["commits"] != [True] * SHARDED_DILOCO_WINDOWS:
+            fail(f"sharded diloco group {g}: syncs {rec['commits']}")
+        want = dict.fromkeys(rec["launches"], 0)
+        want.update(_flash_want(r, rec["inner_steps"], on_card, lm))
+        if on_card:
+            for k in ("q8_absmax", "q8_quantize", "q8_dequantize",
+                      "cast_bf16"):
+                want[k] = SHARDED_DILOCO_WINDOWS
+        if rec["launches"] != want:
+            fail(f"sharded diloco group {g}: launches {rec['launches']} "
+                 f"!= {want}")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        if rec["outer_bytes"] != outer_bytes:
+            fail(f"sharded diloco group {g}: outer momentum "
+                 f"{rec['outer_bytes']} B, not {outer_bytes} B")
+    if recs[0]["digests"] != recs[1]["digests"]:
+        fail("sharded diloco: params differ across groups after a sync")
+    _check_tiles("sharded diloco", [rec["ranges"] for rec in recs],
+                 results[0]["total"])
+    return {"launches": launches,
+            "inner_step_ms_p50": _p50([s for rec in recs
+                                       for s in rec["step_s"]]),
+            "sync_ms": [[round(1e3 * x, 3) for x in rec["sync_s"]]
+                        for rec in recs],
+            "outer_bytes": [rec["outer_bytes"] for rec in recs],
+            "ops": recs[0]["op_split"]}
+
+
+def phase_diloco_reshard(workdir: str, device: str = "cuda", lm: dict = LM,
+                         batch: int = BATCH, seq: int = SEQ) -> dict:
+    """Two founders on the dense LM through sharded DiLoCo (q8, bf16),
+    then a third group joins: its first start_quorum heals it (a
+    synchronous quorum) and it takes part in that sync, where all three
+    re-partition the outer state."""
+    import torchft_tpu_torch as tft
+
+    lighthouse = tft.Lighthouse(min_replicas=2, join_timeout_ms=10000,
+                                quorum_tick_ms=50, heartbeat_timeout_ms=10000)
+    base = {"lighthouse": lighthouse.address(), "workdir": workdir,
+            "data_offset": 0, "device": device, "lm": lm, "batch": batch,
+            "seq": seq, "groups": 2}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs = [_spawn({**base, "group": g, "role": "diloco_reshard"},
+                        workdir) for g in (0, 1)]
+        deadline = time.monotonic() + 600
+        for g in (0, 1):
+            path = os.path.join(workdir, f"ready_{g}")
+            while not os.path.exists(path):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    _join(procs, deadline, workdir)
+                if time.monotonic() > deadline:
+                    fail("diloco reshard founders never finished")
+                time.sleep(0.1)
+        procs.append(_spawn({**base, "group": 2,
+                             "role": "diloco_reshard_late"}, workdir))
+        _join(procs, deadline, workdir)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        lighthouse.shutdown()
+    results = []
+    for g in (0, 1, 2):
+        with open(os.path.join(workdir, f"result_{g}.json")) as f:
+            results.append(json.load(f))
+    return {"results": results, "total_s": time.perf_counter() - t0}
+
+
+def check_diloco_reshard(res: dict, on_card: bool = True) -> dict:
+    """Every sync commits, the joiner's first included (it healed in its
+    start_quorum and took part); the joiner healed over the stream; all
+    three end bit-identical on one quorum's partition, their outer
+    shards tiling the model; K1a/K1b/K2/K3 once per sync."""
+    results = res["results"]
+    recs = [r["phases"]["reshard"] for r in results]
+    launches: dict = {}
+    for r, rec in zip(results, recs):
+        g = r["group"]
+        if not rec["commits"] or not all(rec["commits"]):
+            fail(f"diloco reshard group {g}: syncs {rec['commits']}")
+        if rec["world"][-DILOCO_RESHARD_WINDOWS:] != [3] * DILOCO_RESHARD_WINDOWS:
+            fail(f"diloco reshard group {g}: worlds {rec['world']}")
+        if rec["outer_numel"] != sum(n for _, n in rec["ranges"]):
+            fail(f"diloco reshard group {g}: outer shard of "
+                 f"{rec['outer_numel']} for ranges {rec['ranges']}")
+        want = dict.fromkeys(rec["launches"], 0)
+        if on_card:
+            for k in ("q8_absmax", "q8_quantize", "q8_dequantize",
+                      "cast_bf16"):
+                want[k] = len(rec["commits"])
+        if rec["launches"] != want:
+            fail(f"diloco reshard group {g}: launches {rec['launches']} "
+                 f"!= {want}")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    late = recs[2]
+    if (late.get("fetch") or {}).get("path") != "stream":
+        fail(f"the diloco joiner did not heal over the stream: "
+             f"{late.get('fetch')}")
+    if sum(late["heals"].values()) < 1:
+        fail(f"the diloco joiner never healed: {late['heals']}")
+    if len({rec["digests"][-1] for rec in recs}) != 1:
+        fail("diloco reshard groups' params differ at the end")
+    if len({rec["quorum_id"] for rec in recs}) != 1:
+        fail(f"diloco reshard groups on different partitions: "
+             f"{[rec['quorum_id'] for rec in recs]}")
+    _check_tiles("diloco reshard", [rec["ranges"] for rec in recs],
+                 results[0]["total"])
+    return {"launches": launches, "commits": [rec["commits"] for rec in recs],
+            "worlds": [rec["world"] for rec in recs], "fetch": late["fetch"]}
+
+
+ADAPTIVE_CANDIDATES = ["blocking", "plan", "plan_devpack", "plan_hier",
+                       "pipelined", "ddp_sharded"]
+
+
+def phase_adaptive_flash(workdir: str, device: str = "cuda",
+                         lm: dict = BIG_LM, batch: int = BIG_BATCH,
+                         seq: int = BIG_SEQ) -> dict:
+    """Two groups on the big LM through AdaptiveDDP(compress="q8") with
+    all six candidates in the race."""
+    base = {"device": device, "role": "adaptive_flash", "lm": lm,
+            "batch": batch, "seq": seq,
+            "env": {"TORCHFT_DEVICE_PACK": "auto",
+                    "TORCHFT_HOST": ADAPTIVE_HOST,
+                    "TORCHFT_DDP_SHARDED": "1"}}
+    return _run_groups(workdir, base, [{}, {}])
+
+
+def check_adaptive(res: dict, on_card: bool = True, lm: dict = BIG_LM) -> dict:
+    """Both groups race the same six candidates, record no failure
+    sentinel, lock the same mode on the same decision and end
+    bit-identical; every transaction committed; K1a/K1b/K2 launched (the
+    legacy q8 and the device pack), K4/K5 once per gradient pass."""
+    results = res["results"]
+    launches: dict = {}
+    for r in results:
+        g = r["group"]
+        if r["candidates"] != ADAPTIVE_CANDIDATES:
+            fail(f"adaptive group {g}: candidates {r['candidates']}")
+        probe = (r["decision"] or {}).get("probe_s") or {}
+        if set(probe) != set(ADAPTIVE_CANDIDATES) or any(
+                v >= 1e9 for v in probe.values()):
+            fail(f"adaptive group {g}: a candidate failed: {r['decision']}")
+        if r["committed"] != r["steps"]:
+            fail(f"adaptive group {g}: {r['committed']} of {r['steps']} "
+                 "transactions committed")
+        if not all(map(_finite, r["losses"])):
+            fail(f"adaptive group {g}: non-finite loss {r['losses']}")
+        if not r["topology"]["hier_capable"]:
+            fail(f"adaptive group {g}: the cohort is not hier-capable")
+        want = dict.fromkeys(r["launches"], 0)
+        want.update(_flash_want(r, r["grad_passes"], on_card, lm))
+        got = dict(r["launches"])
+        if on_card:
+            for k in ("q8_absmax", "q8_quantize", "q8_dequantize"):
+                if got.get(k, 0) < 1:
+                    fail(f"adaptive group {g}: {k} never launched: {got}")
+                want[k] = got[k]
+        if got != want:
+            fail(f"adaptive group {g}: launches {got} != {want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    d0, d1 = results[0]["decision"], results[1]["decision"]
+    if d0 != d1 or results[0]["mode"] != results[1]["mode"]:
+        fail(f"adaptive groups locked differently: {d0} vs {d1}")
+    if results[0]["digest"] != results[1]["digest"]:
+        fail("adaptive groups' params differ after the flush")
+    return {"launches": launches, "decision": d0, "mode": results[0]["mode"],
+            "modes": results[0]["modes"],
+            "step_ms": [[round(1e3 * x, 3) for x in r["step_s"]]
+                        for r in results],
+            "topology": results[0]["topology"]}
+
+
 HEAL_STEP = 5          # the step the heal donor publishes
 HEAL_SEED = 17         # the donor's moments (params: init_params seed 0)
 # (label, path, wire, streams) of each fetch of the heal transport phase
@@ -2481,6 +3121,49 @@ def shm_probe() -> int:
     return 0
 
 
+def window_phases(by_phase: dict) -> None:
+    """The window strategies' phases and AdaptiveDDP's: each runs, is
+    checked and logged, and puts its launch counts into ``by_phase``."""
+    log("phase async diloco flash + sharded diloco")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_diloco_") as workdir:
+        dlres = phase_diloco_flash(workdir)
+        adsum = check_async_diloco(dlres)
+        sdsum = check_sharded_diloco(dlres)
+    by_phase["async diloco flash"] = adsum["launches"]
+    by_phase["sharded diloco"] = sdsum["launches"]
+    log(f"  diloco flash {dlres['total_s']:.1f} s (two groups, inner steps "
+        f"make_train_step(AdamW, bf16_params=True), outer SGD(0.7, "
+        f"momentum=0.9, nesterov=True), sync quorum); raw inner step p50 "
+        f"{adsum['raw_step_ms_p50']} ms (all: {adsum['raw_step_ms_all']}); "
+        f"max_memory_allocated {adsum['max_memory_allocated_gb']} GiB")
+    for mode, row in adsum["modes"].items():
+        log(f"  async diloco {mode}: {json.dumps(row)}")
+    log(f"  sharded diloco (q8 shard wire, bf16 param wire, "
+        f"{SHARDED_DILOCO_WINDOWS} windows of {DILOCO_SYNC_EVERY}): inner "
+        f"step p50 {sdsum['inner_step_ms_p50']} ms; sync ms "
+        f"{sdsum['sync_ms']}; outer momentum {sdsum['outer_bytes']} B per "
+        f"group; op split (group 0) {json.dumps(sdsum['ops'])}; launches "
+        f"{json.dumps(sdsum['launches'])}")
+    log("phase diloco reshard")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dreshard_") as workdir:
+        drres = phase_diloco_reshard(workdir)
+        drsum = check_diloco_reshard(drres)
+    by_phase["diloco reshard"] = drsum["launches"]
+    log(f"  diloco reshard {drres['total_s']:.1f} s: syncs per group "
+        f"{drsum['commits']}, worlds {drsum['worlds']}; the joiner healed in "
+        f"its start_quorum {json.dumps(drsum['fetch'])}; three groups "
+        f"bit-identical, outer shards tile the model")
+    log("phase adaptive flash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_adaptive_") as workdir:
+        apres = phase_adaptive_flash(workdir)
+        apsum = check_adaptive(apres)
+    by_phase["adaptive flash"] = apsum["launches"]
+    log(f"  adaptive flash {apres['total_s']:.1f} s: locked "
+        f"{apsum['mode']}; decision {json.dumps(apsum['decision'])}; mode per "
+        f"step {apsum['modes']}; step ms per group {apsum['step_ms']}; "
+        f"topology {json.dumps(apsum['topology'])}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--worker", help=argparse.SUPPRESS)
@@ -2490,6 +3173,9 @@ def main() -> int:
                         "phases in turns (flat, hier, hier, flat)")
     parser.add_argument("--shm-probe", action="store_true",
                         help="check only that /dev/shm takes the host tier")
+    parser.add_argument("--window-phases", action="store_true",
+                        help="build, then run only the window-strategy and "
+                        "AdaptiveDDP phases")
     args = parser.parse_args()
     if args.worker:
         worker(json.loads(args.worker))
@@ -2510,6 +3196,12 @@ def main() -> int:
         return flash_turns()
     if args.shm_probe:
         return shm_probe()
+    if args.window_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        window_phases({})
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(_smi(), flush=True)
+        return 0
     log("phase build")
     log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
     log("phase kernels")
@@ -2639,6 +3331,8 @@ def main() -> int:
     by_phase["remat"] = rsum["launches"]
     log(f"  remat on the flash LM (B{BIG_BATCH}, S{BIG_SEQ - 1}, bf16), one "
         f"forward+backward each: {json.dumps(rres['rows'])}")
+    torch.cuda.empty_cache()  # the card's memory goes to the workers next
+    window_phases(by_phase)
     # each kernel's launches over the main paths' runs (the counts each
     # worker, or phase, reset just before a path and read just after)
     for name in rows:
@@ -2658,6 +3352,19 @@ def main() -> int:
             fail(f"{name} never launched on the legacy transport")
     if rows["cast_bf16"]["launches_by_phase"]["heal transport"] == 0:
         fail("cast_bf16 never launched on the bf16 heal wire")
+    for phase, names in (
+            ("async diloco flash", ("q8_absmax", "q8_quantize",
+                                    "q8_dequantize", "cast_bf16",
+                                    "flash_fwd", "flash_bwd")),
+            ("sharded diloco", ("q8_absmax", "q8_quantize", "q8_dequantize",
+                                "cast_bf16", "flash_fwd", "flash_bwd")),
+            ("diloco reshard", ("q8_absmax", "q8_quantize", "q8_dequantize",
+                                "cast_bf16")),
+            ("adaptive flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
+                                "flash_fwd", "flash_bwd"))):
+        for name in names:
+            if rows[name]["launches_by_phase"][phase] == 0:
+                fail(f"{name} never launched on the {phase} path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(_smi(), flush=True)

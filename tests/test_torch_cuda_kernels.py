@@ -682,17 +682,34 @@ def _plan_ring(prefix: str, store):
 
 @pytest.mark.cuda
 def test_card_leaves_refuse_the_host_pack(cuda_device):
-    from torchft_tpu_torch.collectives import HostCollectives
+    """A device pack on a wire no kernel encodes raises (nothing falls
+    back to the host pack); the host pack runs only where the caller
+    asks for it (``device_pack=False``), through the plan's pinned
+    inputs, bit-identical to the device pack."""
+    from torchft_tpu_torch._native import Store
 
-    c = HostCollectives(stripes=1)
+    store = Store()
+    c = _plan_ring("refuse", store)
     try:
-        g = {"w": torch.ones(8, device=cuda_device)}
-        with pytest.raises(ValueError, match="packed there"):
-            c.plan_allreduce(g, wire="q8ef", device_pack=False)
+        g = {"w": torch.linspace(-3, 5, 4099, device=cuda_device),
+             "b": torch.full((7, 3), 0.25, device=cuda_device)}
         with pytest.raises(ValueError, match="packed there"):
             c.plan_allreduce(g, wire="q8")  # no kernel encodes this wire
+        for wire in ("q8ef", "bf16", None):
+            host = c.plan_allreduce(g, wire=wire, device_pack=False).wait()
+            dev = c.plan_allreduce(g, wire=wire, device_pack=True).wait()
+            for k in g:
+                assert host[k].is_cuda
+                # equal values: a one-member q8ef ring keeps the host
+                # pack's -0.0 codes (F4), the device pack's decode +0.0
+                assert torch.equal(host[k], dev[k])
+            c.plan_reset_feedback()
+        # the plain q8 wire on the caller's host pack
+        q8 = c.plan_allreduce(g, wire="q8", device_pack=False).wait()
+        assert q8["w"].is_cuda
     finally:
         c.shutdown()
+        store.shutdown()
 
 
 @pytest.mark.cuda

@@ -33,7 +33,10 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
         "torchft_tpu_torch.collectives, torchft_tpu_torch.manager, "
         "torchft_tpu_torch.ddp, torchft_tpu_torch.profiling, chip_smoke\n"
         "import torchft_tpu_torch.quantize, torchft_tpu_torch.optim, "
-        "torchft_tpu_torch.train_state\n"
+        "torchft_tpu_torch.train_state, torchft_tpu_torch.local_sgd\n"
+        "from torchft_tpu_torch import (AdaptiveDDP, AsyncDiLoCo, DiLoCo, "
+        "LocalSGD, SGD)\n"
+        "from torchft_tpu_torch.models import make_train_step\n"
         "import torchft_tpu_torch.checkpointing, "
         "torchft_tpu_torch.models.transformer, "
         "torchft_tpu_torch.ops.flash_attention\n"

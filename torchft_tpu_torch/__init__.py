@@ -22,25 +22,30 @@ from .collectives import (
     Work,
 )
 from .data import DistributedSampler, StatefulDataLoader
-from .ddp import DistributedDataParallel, PipelinedDDP, ShardedDDP
+from .ddp import AdaptiveDDP, DistributedDataParallel, PipelinedDDP, ShardedDDP
+from .local_sgd import AsyncDiLoCo, DiLoCo, LocalSGD
 from .manager import Manager
 from .metrics import Metrics
 from .optim import OptimizerWrapper, ShardedOptimizerWrapper
 from .profiling import Profiler, span
-from .train_state import AdamW, FTTrainState
+from .train_state import SGD, AdamW, FTTrainState
 from ._native import Lighthouse, ManagerClient, Store, StoreClient
 
 __all__ = [
+    "AdaptiveDDP",
     "AdamW",
+    "AsyncDiLoCo",
     "CheckpointServer",
     "CheckpointTransport",
     "Collectives",
+    "DiLoCo",
     "DistributedDataParallel",
     "DistributedSampler",
     "DummyCollectives",
     "FTTrainState",
     "HostCollectives",
     "Lighthouse",
+    "LocalSGD",
     "Manager",
     "ManagerClient",
     "Metrics",
@@ -48,6 +53,7 @@ __all__ = [
     "PipelinedDDP",
     "Profiler",
     "ReduceOp",
+    "SGD",
     "ShardedDDP",
     "ShardedOptimizerWrapper",
     "StatefulDataLoader",

@@ -108,6 +108,26 @@ _SIGNATURES = {
         _i64,  # layout stripes
         ctypes.POINTER(_i64), _i64,
     ]),
+    # the ring's two phases as ops of their own (the sharded outer sync)
+    "tft_hc_reduce_scatter": (_int, [
+        _vp, _vp, ctypes.c_size_t, _int, _int,
+        _vp,   # this rank's shard (out)
+        _i64,  # layout stripes
+        _i64,
+    ]),
+    "tft_hc_reduce_scatter_q8": (_int, [
+        _vp, _vp, ctypes.c_size_t,
+        _vp,   # this rank's shard (out)
+        _int,  # grid_shard: the fused q8 op's owner quantize+decode
+        _i64,  # layout stripes
+        _i64,
+    ]),
+    "tft_hc_allgather_into": (_int, [
+        _vp, _vp, _vp,  # this rank's shard, the full output
+        ctypes.c_size_t, _int,
+        _i64,  # layout stripes
+        _i64,
+    ]),
     "tft_hc_broadcast": (_int, [_vp, _vp, ctypes.c_size_t, _i64, _i64]),
     "tft_hc_barrier": (_int, [_vp, _i64]),
     "tft_hc_allreduce_hier": (_int, [
@@ -393,6 +413,7 @@ class ManagerClient:
         rank: int,
         step: int,
         checkpoint_metadata: str,
+        shrink_only: bool = False,
         force_reconfigure: bool = False,
         timeout: timedelta = timedelta(seconds=60),
     ) -> QuorumResult:
@@ -400,7 +421,7 @@ class ManagerClient:
         _check(
             _lib.tft_client_quorum(
                 self._handle, rank, step, checkpoint_metadata.encode(),
-                0, 1 if force_reconfigure else 0,  # shrink_only off
+                1 if shrink_only else 0, 1 if force_reconfigure else 0,
                 _ms(timeout), ctypes.byref(out),
             )
         )

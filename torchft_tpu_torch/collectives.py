@@ -144,17 +144,19 @@ def _completed(value: Any) -> Work:
 
 @dataclass
 class TreeShard:
-    """This rank's shard of a flat-packed tree, what the sharded plan's
-    two legs trade in: :meth:`Collectives.plan_reduce_scatter` returns
-    one, :meth:`Collectives.plan_allgather_into` takes it back.
+    """This rank's shard of a flat-packed tree, what the split ops'
+    two legs trade in: :meth:`Collectives.reduce_scatter` (or the
+    sharded plan's :meth:`Collectives.plan_reduce_scatter`) returns one,
+    :meth:`Collectives.allgather_into` (``plan_allgather_into``) takes
+    it back.
 
-    The tree packs into one flat f32 group (the sharded plan's only
-    group); the shard is the union of the per-stripe ring chunks this
-    rank owns, compacted in stripe order. ``values`` is what a caller
-    updates in place of the full tree; the rest is layout bookkeeping
-    that rides along unchanged so every member scatters back onto the
-    identical schedule. Keys are the group's numpy dtype name
-    (``"float32"``), as in the JAX package."""
+    The tree packs into one flat buffer per group (the sharded plan and
+    the q8 wire: one f32 group); the shard is the union of the
+    per-stripe ring chunks this rank owns, compacted in stripe order.
+    ``values`` is what a caller updates in place of the full tree; the
+    rest is layout bookkeeping that rides along unchanged so every
+    member scatters back onto the identical schedule. Keys are the
+    groups' numpy dtype names (``"float32"``), as in the JAX package."""
 
     # group name -> this rank's flat shard
     values: Dict[str, torch.Tensor]
@@ -172,8 +174,10 @@ class TreeShard:
     sig: Any
     rank: int
     world_size: int
-    # the sharded comm plan that produced the shard
+    # the sharded comm plan that produced the shard (plan ops)
     plan: Any = None
+    # the bulk ops' pack of the tree's signature (its group layout)
+    packer: Any = None
     # where the reduced tree's leaves lived (the gathered tree returns
     # there); None for CPU leaves
     device: Optional[torch.device] = None
@@ -261,6 +265,45 @@ class Collectives(ABC):
     def plan_reset_feedback(self) -> None:
         """Zeroes the error-feedback carry of every cached ``q8ef`` plan;
         call on heal/abort."""
+
+    # The bulk split ops: not abstract, so a backend without a
+    # reduce-scatter boundary keeps working; callers feature-detect by
+    # catching NotImplementedError.
+    def reduce_scatter(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,
+        grid_shard: bool = False,
+    ) -> Work:
+        """Reduces a tree but stops at the reduce-scatter boundary: the
+        result is a :class:`TreeShard` holding only the ~1/world of the
+        flat-packed reduction this rank owns. Composed with
+        :meth:`allgather_into` at the same wire dtype it is bit-identical
+        to :meth:`allreduce`; updating the shard BEFORE the allgather is
+        the sharded weight update. ``divisor``/``op``/``wire`` as in
+        :meth:`allreduce` (``wire="q8"`` reduces one f32 group over the
+        quantized ring; the shard is full f32). ``grid_shard`` (q8 only)
+        applies the fused op's phase-2 owner quantize+decode to the
+        shard, so the two legs reproduce ``allreduce(wire="q8")`` bit
+        for bit."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no sharded split ops"
+        )
+
+    def allgather_into(
+        self, shard: TreeShard, wire: Optional[str] = None
+    ) -> Work:
+        """Gathers every rank's (possibly updated) :class:`TreeShard` back
+        into the full tree, phase 2 of the ring on current values.
+        ``wire="bf16"`` ships f32 groups as bfloat16 (every member, the
+        owner included, adopts the decoded words, so results stay
+        bit-identical across ranks). All ranks pass shards from the same
+        logical reduce_scatter."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no sharded split ops"
+        )
 
     def plan_reduce_scatter(
         self,
@@ -366,6 +409,26 @@ _NP_NAMES = {
 # ring by contract; quantizing at the device boundary would change its
 # numerics ("q8ef" is what PipelinedDDP's q8 mode uses).
 _DEVICE_PACK_WIRES = (None, "bf16", "q8ef")
+
+
+def _resolve_device_pack_setting(setting: Any) -> Optional[bool]:
+    """The ``TORCHFT_DEVICE_PACK`` knob, one parser for every layer
+    (``HostCollectives``, ``PipelinedDDP``, ``AdaptiveDDP``): a ctor or
+    env setting to True (pack on the card), False (host pack) or None
+    (auto: the card packs its own leaves on the wires it serves, CPU
+    leaves pack on the host). ``None`` reads the env (default
+    ``auto``); junk raises ValueError at once, so a typo fails loudly
+    instead of latching every step."""
+    if setting is None:
+        setting = os.environ.get("TORCHFT_DEVICE_PACK", "auto")
+    if isinstance(setting, str):
+        try:
+            return {"on": True, "off": False, "auto": None}[setting]
+        except KeyError:
+            raise ValueError(
+                f"TORCHFT_DEVICE_PACK={setting!r} (want auto|on|off)"
+            ) from None
+    return bool(setting)
 
 
 def _fingerprint(stripes: int, regions: Sequence[str],
@@ -613,9 +676,10 @@ class _CommPlan:
     then asynchronous, and a set is not rewritten before the event
     recorded after its last upload has passed.
 
-    A two-tier plan (``hier``) over card leaves also owns one pinned host
-    tensor per leaf, the native host pack's input, and the stream that
-    copies the leaves into them; the input pointers are set here once."""
+    A host-packed plan (two-tier, or flat with ``device_pack=False``)
+    over card leaves also owns one pinned host tensor per leaf, the
+    native host pack's input, and the stream that copies the leaves into
+    them; the input pointers are set here once."""
 
     def __init__(self, handle: Any, sig: Sig, wire: Optional[str],
                  prepacked: bool, pin: bool, hier: bool = False,
@@ -647,7 +711,7 @@ class _CommPlan:
             self.group_aux = (ctypes.c_void_p * ng)()
         self.staging: List[torch.Tensor] = []
         self.stream = None
-        if hier and pin:
+        if pin and not prepacked:
             self.staging = [torch.empty(s, dtype=dt, pin_memory=True)
                             for s, dt in sig]
             for i, t in enumerate(self.staging):
@@ -907,6 +971,8 @@ class HostCollectives(OpStatsMixin, Collectives):
         # The legacy ops' packers keyed by (mode, treedef, signature,
         # device): their pinned staging survives configure().
         self._packers: Dict[Any, _LegacyPacker] = {}
+        # per card: the stream a shard crosses down on (allgather_into)
+        self._side_streams: Dict[torch.device, Any] = {}
         self._op_stats: List[dict] = []
 
     def _last_stripe_seconds(self) -> List[float]:
@@ -1531,19 +1597,24 @@ class HostCollectives(OpStatsMixin, Collectives):
         op: ReduceOp = ReduceOp.SUM,
         divisor: Optional[float] = None,
         wire: Optional[str] = None,
-        device_pack: bool = True,
+        device_pack: Any = True,
         hier: bool = False,
     ) -> Work:
         """One native call per step over a cached, precompiled plan.
 
-        Flat (``hier=False``): leaves on the card are always packed
-        there, by the port's kernels (wires ``None``/``"bf16"``/
-        ``"q8ef"``; any other wire, or ``device_pack=False``, raises).
-        For CPU leaves ``device_pack`` picks the pack: the kernels' plain
-        versions (``True``) or the native host pack (``False``, and the
-        only pack of wire ``"q8"``). The two are bit-identical. A device
-        pack that cannot be built or launched raises (latched by the
-        Manager): nothing falls back to the host pack.
+        Flat (``hier=False``): ``device_pack`` picks where the wire
+        encoding runs. ``True`` packs on the leaves' device with the
+        port's kernels (their plain versions for CPU leaves) on wires
+        ``None``/``"bf16"``/``"q8ef"``; card leaves on any other wire
+        raise, CPU leaves take the host pack (the only pack of wire
+        ``"q8"``). ``False`` is the native host pack: card leaves are
+        copied into pinned host tensors the plan owns (allocated once
+        with it), the schedule the caller chose, not a fallback. ``None``
+        / ``"auto"`` (the ``TORCHFT_DEVICE_PACK`` discipline): card
+        leaves pack on the card where the wire allows it, CPU leaves on
+        the host. Every pack is bit-identical. A device pack that cannot
+        be built or launched raises (latched by the Manager): nothing
+        falls back to the host pack.
 
         ``hier=True`` runs the plan over the two-tier schedule (a
         hier-capable configure is required; otherwise the op raises and
@@ -1564,21 +1635,25 @@ class HostCollectives(OpStatsMixin, Collectives):
             divisor, op = float(self._world_size), ReduceOp.SUM
         if op != ReduceOp.SUM:
             raise ValueError("plan_allreduce supports SUM/AVG only")
+        setting = _resolve_device_pack_setting(device_pack)
         leaves, _ = _flatten(tree)
+        on_card = any(l.is_cuda for l in leaves)
+        if setting is None:  # auto
+            setting = on_card and wire in _DEVICE_PACK_WIRES
         caller = None  # (stream, event) of a caller whose leaves are on the card
-        if any(l.is_cuda for l in leaves):
-            if not hier and (not device_pack or wire not in _DEVICE_PACK_WIRES):
+        if on_card:
+            if not hier and setting and wire not in _DEVICE_PACK_WIRES:
                 raise ValueError(
                     f"leaves on the card are packed there by the port's "
-                    f"kernels, on wires {_DEVICE_PACK_WIRES}; got wire "
-                    f"{wire!r}, device_pack={device_pack!r}"
+                    f"kernels on wires {_DEVICE_PACK_WIRES}; got wire "
+                    f"{wire!r} (pass device_pack=False for the host pack)"
                 )
             # Marks the leaves as written on the caller's stream: the
             # pack (or the staging copy) waits on this event, not on
             # whatever is queued later.
             stream = torch.cuda.current_stream(leaves[0].device)
             caller = (stream, stream.record_event())
-        prepacked = device_pack and wire in _DEVICE_PACK_WIRES and not hier
+        prepacked = bool(setting) and wire in _DEVICE_PACK_WIRES and not hier
         return self._submit(
             lambda: self._plan_allreduce_sync(
                 tree, divisor, wire, timeout_ms, prepacked, caller, hier
@@ -1628,7 +1703,7 @@ class HostCollectives(OpStatsMixin, Collectives):
         if plan is None:
             if wire is None and not prepacked:
                 return self._allreduce_sync(
-                    tree, ReduceOp.SUM, timeout_ms, divisor
+                    tree, ReduceOp.SUM, timeout_ms, divisor, None, caller
                 )
             raise ValueError(
                 f"plan wire {wire!r} cannot take leaf dtypes "
@@ -1677,7 +1752,8 @@ class HostCollectives(OpStatsMixin, Collectives):
             })
         else:
             t0 = time.perf_counter()
-            refs, staging_allocs = self._host_inputs(plan, leaves, wire)
+            refs, staging_allocs = self._stage_inputs(plan, leaves, wire,
+                                                      caller)
             t1 = time.perf_counter()
             _check(
                 _lib.tft_plan_execute(
@@ -1696,7 +1772,9 @@ class HostCollectives(OpStatsMixin, Collectives):
                 "wire_bytes": plan.wire_bytes,
                 # the host pack reads every leaf at its full width
                 "d2h_bytes": plan.bytes,
-                "d2h": t1 - t0,  # pointer gather: host leaves are not copied
+                # CPU leaves: the pointer gather; card leaves: until the
+                # copies into the plan's pinned inputs landed
+                "d2h": t1 - t0,
                 "ring": ring_s,  # the native call: pack + ring + unpack
                 "_buckets_json": self._plan_stats_json(plan.plan_id),
                 "py_staging_allocs": staging_allocs,
@@ -1725,6 +1803,32 @@ class HostCollectives(OpStatsMixin, Collectives):
             refs.append(a)
             plan.in_ptrs[i] = a.data_ptr()
         return refs, copies
+
+    def _stage_inputs(
+        self, plan: _CommPlan, leaves: Sequence[torch.Tensor],
+        wire: Optional[str], caller: Optional[Tuple[Any, Any]],
+    ) -> Tuple[List[torch.Tensor], int]:
+        """The native host pack's inputs: the CPU leaves themselves
+        (:meth:`_host_inputs`), or card leaves copied into the plan's
+        pinned inputs on its stream, after the event the caller recorded
+        once they were written (the bf16 wire's NaN canonicalised in
+        place: F1). Returns what :meth:`_host_inputs` returns."""
+        if caller is None:
+            return self._host_inputs(plan, leaves, wire)
+        with torch.cuda.device(leaves[0].device), \
+                torch.cuda.stream(plan.stream):
+            plan.stream.wait_event(caller[1])
+            for host, l in zip(plan.staging, leaves):
+                host.copy_(l.detach(), non_blocking=True)
+            copied = plan.stream.record_event()
+        copied.synchronize()
+        if wire == "bf16":
+            for host in plan.staging:
+                if host.dtype == torch.float32:
+                    c = _canonical_nan(host)
+                    if c is not host:
+                        host.copy_(c)
+        return [], 0
 
     def _plan_hier_sync(
         self,
@@ -1756,26 +1860,7 @@ class HostCollectives(OpStatsMixin, Collectives):
                 f"{sorted({str(l.dtype) for l in leaves})}"
             )
         t0 = time.perf_counter()
-        refs: List[torch.Tensor] = []
-        staging_allocs = 0
-        if caller is None:
-            refs, staging_allocs = self._host_inputs(plan, leaves, wire)
-        else:
-            # Card leaves into the plan's pinned inputs, on its stream,
-            # after the event the caller recorded once they were written.
-            with torch.cuda.device(leaves[0].device), \
-                    torch.cuda.stream(plan.stream):
-                plan.stream.wait_event(caller[1])
-                for host, l in zip(plan.staging, leaves):
-                    host.copy_(l.detach(), non_blocking=True)
-                copied = plan.stream.record_event()
-            copied.synchronize()
-            if wire == "bf16":
-                for host in plan.staging:  # F1, in place
-                    if host.dtype == torch.float32:
-                        c = _canonical_nan(host)
-                        if c is not host:
-                            host.copy_(c)
+        refs, staging_allocs = self._stage_inputs(plan, leaves, wire, caller)
         t1 = time.perf_counter()
         out_set, outs, out_ptrs = plan.next_outputs()
         _check(
@@ -1843,6 +1928,239 @@ class HostCollectives(OpStatsMixin, Collectives):
         if n < 0:
             _check(2)
         return [(buf[2 * i], buf[2 * i + 1]) for i in range(n)]
+
+    # -- bulk split ops (the sharded outer sync) --
+
+    def reduce_scatter(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.SUM,
+        divisor: Optional[float] = None,
+        wire: Optional[str] = None,
+        grid_shard: bool = False,
+    ) -> Work:
+        """Phase 1 of the ring only, per group of the legacy pack (the
+        JAX device pack's layout; ``wire="q8"``: one f32 group): the full
+        tree crosses down once, the ring reduces it in place, and only
+        the owned shard comes back (to the leaves' device). See
+        :meth:`Collectives.reduce_scatter`."""
+        timeout_ms = _ms(self._timeout)
+        if wire not in (None, "q8"):
+            raise ValueError(f"unsupported wire: {wire!r}")
+        if grid_shard and wire != "q8":
+            raise ValueError("grid_shard only applies to wire='q8'")
+        if op == ReduceOp.AVG:
+            divisor, op = float(self._world_size), ReduceOp.SUM
+        if op != ReduceOp.SUM and (divisor is not None or wire == "q8"):
+            raise ValueError(
+                "divisor / wire='q8' compose with ReduceOp.SUM/AVG only")
+        caller = self._caller_event(tree)
+        return self._submit(lambda: self._reduce_scatter_sync(
+            tree, op, divisor, wire, grid_shard, timeout_ms, caller))
+
+    def _reduce_scatter_sync(
+        self, tree: Any, op: ReduceOp, divisor: Optional[float],
+        wire: Optional[str], grid_shard: bool, timeout_ms: int,
+        caller: Optional[Tuple[Any, Any]],
+    ) -> TreeShard:
+        leaves, treedef = _flatten(tree)
+        if not leaves:
+            raise ValueError("reduce_scatter of an empty tree")
+        packer = self._packer_for(leaves, treedef,
+                                  "f32" if wire == "q8" else "acc")
+        t0 = time.perf_counter()
+        hosts, schedule = self._stage_down(packer, leaves, caller,
+                                           chunked=False)
+        for *_, landed in schedule:
+            if landed is not None:
+                landed.synchronize()
+        d2h_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        values: Dict[str, torch.Tensor] = {}
+        counts: Dict[str, int] = {}
+        ranges: Dict[str, List[Tuple[int, int]]] = {}
+        layout: Dict[str, int] = {}
+        dtypes: Dict[str, torch.dtype] = {}
+        groups: Dict[str, List[int]] = {}
+        stripe_s: List[float] = []
+        wire_bytes = 0
+        for (acc, idxs), buf in zip(packer.groups, hosts):
+            name = _NP_NAMES[acc]
+            count = buf.numel()
+            esize = 1 if wire == "q8" else buf.element_size()
+            eff = _effective_stripes(count * esize, self._stripes)
+            rng = self._shard_ranges(count, esize, eff)
+            shard = torch.empty(sum(n for _, n in rng), dtype=acc,
+                                pin_memory=caller is not None)
+            if self._world_size == 1:
+                shard.copy_(buf)
+            elif wire == "q8":
+                _check(_lib.tft_hc_reduce_scatter_q8(
+                    self._handle, buf.data_ptr(), count, shard.data_ptr(),
+                    1 if grid_shard else 0, eff, timeout_ms))
+            else:
+                _check(_lib.tft_hc_reduce_scatter(
+                    self._handle, buf.data_ptr(), count, _NATIVE_DTYPES[acc],
+                    int(op), shard.data_ptr(), eff, timeout_ms))
+            if self._world_size > 1:
+                stripe_s.extend(self._last_stripe_seconds())
+            if divisor is not None and divisor != 1:
+                _divide_(shard, divisor)
+            values[name], counts[name], ranges[name] = shard, count, rng
+            layout[name], dtypes[name], groups[name] = eff, acc, list(idxs)
+            wire_bytes += (count + _q8_wire_overhead(
+                eff, self._world_size, phases=1) if wire == "q8"
+                else count * buf.element_size())
+        ring_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        if caller is not None:
+            with torch.cuda.stream(caller[0]):
+                values = {k: v.to(packer.device, non_blocking=True)
+                          for k, v in values.items()}
+                # the pinned shards are fresh per op: nothing to guard
+        nbytes = sum(h.numel() * h.element_size() for h in hosts)
+        self._record_op_stats({
+            "op": "reduce_scatter",
+            "bytes": nbytes,
+            "shard_bytes": sum(v.numel() * v.element_size()
+                               for v in values.values()),
+            # q8 counts its scale sidecar (one quantized phase) + header
+            "wire_bytes": wire_bytes,
+            # the full tree crosses down once from the card; only the
+            # shard returns
+            "d2h_bytes": nbytes if caller is not None else 0,
+            "d2h": d2h_s, "ring": ring_s,
+            "h2d": time.perf_counter() - t2,
+            "stripe_s": stripe_s,
+        })
+        return TreeShard(
+            values=values, counts=counts, ranges=ranges, layout=layout,
+            dtypes=dtypes, groups=groups, treedef=treedef, sig=packer.sig,
+            rank=self._rank, world_size=self._world_size, packer=packer,
+            device=packer.device,
+        )
+
+    def allgather_into(
+        self, shard: TreeShard, wire: Optional[str] = None
+    ) -> Work:
+        """Phase 2 of the ring on the shard's CURRENT values: each member
+        ships its shard (card values cross down at the wire's width: on
+        ``wire="bf16"`` K3 casts them on the card first), every member
+        ends with the identical full tree, on the device the reduced
+        leaves lived on."""
+        timeout_ms = _ms(self._timeout)
+        if wire not in (None, "bf16"):
+            raise ValueError(f"unsupported wire: {wire!r}")
+        caller = self._caller_event(shard.values)
+        return self._submit(lambda: self._allgather_into_sync(
+            shard, wire, timeout_ms, caller))
+
+    def _shard_down(self, vals: torch.Tensor, gdtype: torch.dtype,
+                    wdtype: torch.dtype,
+                    caller: Optional[Tuple[Any, Any]]) -> torch.Tensor:
+        """A shard's values as a contiguous host tensor of the wire dtype.
+        Card values are cast there (K3 for the bf16 wire) and copied into
+        pinned memory on a side stream after the caller's event, so
+        nothing waits on work the caller queued later; CPU values go
+        through K3's plain version."""
+        if vals.dtype != gdtype:
+            vals = vals.to(gdtype)
+        if not vals.is_cuda:
+            if wdtype == gdtype:
+                return vals.contiguous()
+            w = torch.empty(vals.numel(), dtype=wdtype)
+            qk.cast_bf16_group([vals], w)
+            return w
+        assert caller is not None
+        stream = self._side_streams.get(vals.device)
+        if stream is None:
+            stream = self._side_streams[vals.device] = torch.cuda.Stream(
+                vals.device)
+        host = torch.empty(vals.numel(), dtype=wdtype, pin_memory=True)
+        with torch.cuda.device(vals.device), torch.cuda.stream(stream):
+            stream.wait_event(caller[1])
+            if wdtype != gdtype:
+                w = torch.empty(vals.numel(), dtype=wdtype,
+                                device=vals.device)
+                qk.cast_bf16_group([vals], w)
+                vals = w
+            host.copy_(vals, non_blocking=True)
+            landed = stream.record_event()
+        landed.synchronize()
+        return host
+
+    def _allgather_into_sync(
+        self, shard: TreeShard, wire: Optional[str], timeout_ms: int,
+        caller: Optional[Tuple[Any, Any]],
+    ) -> Any:
+        t0 = time.perf_counter()
+        stripe_s: List[float] = []
+        wire_bytes = d2h_bytes = 0
+        dest = shard.device
+        fulls: Dict[str, torch.Tensor] = {}
+        for name in sorted(shard.counts):
+            count, eff = shard.counts[name], shard.layout[name]
+            gdtype = shard.dtypes[name]
+            vals = shard.values[name].detach().reshape(-1)
+            expected = sum(n for _, n in shard.ranges[name])
+            if vals.numel() != expected:
+                raise ValueError(
+                    f"shard group {name!r} has {vals.numel()} elements, the "
+                    f"layout expects {expected}: pass the TreeShard from "
+                    "reduce_scatter (values replaced, layout intact)")
+            wdtype = gdtype
+            if wire == "bf16":
+                if gdtype == torch.float32:
+                    wdtype = torch.bfloat16
+                elif gdtype != torch.bfloat16:
+                    raise ValueError(
+                        "wire='bf16' applies to f32/bf16 groups only")
+            host = self._shard_down(vals, gdtype, wdtype, caller)
+            if vals.is_cuda:
+                d2h_bytes += host.numel() * host.element_size()
+            full = torch.empty(count, dtype=wdtype,
+                               pin_memory=dest is not None)
+            if self._world_size == 1:
+                full.copy_(host)
+            else:
+                _check(_lib.tft_hc_allgather_into(
+                    self._handle, host.data_ptr(), full.data_ptr(), count,
+                    _NATIVE_DTYPES[wdtype], eff, timeout_ms))
+                stripe_s.extend(self._last_stripe_seconds())
+            wire_bytes += count * full.element_size()
+            fulls[name] = full
+        ring_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out: List[Optional[torch.Tensor]] = [None] * len(shard.sig)
+        ctx = contextlib.nullcontext()
+        if dest is not None:
+            ctx = torch.cuda.stream(caller[0] if caller is not None
+                                    else torch.cuda.current_stream(dest))
+        with ctx:
+            for name, idxs in shard.groups.items():
+                buf = fulls[name]
+                if dest is not None:
+                    # the wire's words go up; bf16 widens on the card (exact)
+                    buf = buf.to(dest, non_blocking=True)
+                buf = buf.to(shard.dtypes[name])
+                off = 0
+                for i in idxs:
+                    shape, dt = shard.sig[i]
+                    n = math.prod(shape)
+                    out[i] = buf[off:off + n].view(shape).to(dt)
+                    off += n
+        self._record_op_stats({
+            "op": "allgather_into",
+            "bytes": sum(b.numel() * b.element_size() for b in fulls.values()),
+            "wire_bytes": wire_bytes,
+            # only this rank's (updated) shard crosses down; the gathered
+            # tree returns on the h2d leg
+            "d2h_bytes": d2h_bytes,
+            "ring": ring_s,
+            "h2d": time.perf_counter() - t1,
+            "stripe_s": stripe_s,
+        })
+        return _unflatten(shard.treedef, out)
 
     def plan_reduce_scatter(
         self,
@@ -2187,6 +2505,7 @@ class DummyCollectives(Collectives):
         op: ReduceOp = ReduceOp.SUM,
         divisor: Optional[float] = None,
         wire: Optional[str] = None,
+        grid_shard: bool = False,  # accepted, ignored (lossless fake)
     ) -> Work:
         """Lossless fake: the shard is the whole flat-packed tree (the
         world-size-1 layout), so reduce_scatter -> update ->

@@ -9,29 +9,46 @@ Intra-replica-group parallelism stays in user code; these wrappers only
 average across groups. ``PipelinedDDP`` runs its sync over the comm plan
 (the port's default) or the legacy managed ops; ``hier=True`` runs the
 plan over the two-tier schedule (the quorum's region and host maps).
-``ShardedDDP`` is per-step ZeRO over the sharded comm plan. The JAX
-package's ``AdaptiveDDP`` and isolated transport are not ported.
+``ShardedDDP`` is per-step ZeRO over the sharded comm plan.
+``AdaptiveDDP`` probes the schedules on the cohort's own hardware and
+locks the cohort-agreed fastest. The JAX package's isolated transport
+is not ported.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ._tree import flatten, tree_map, unflatten
-from .collectives import ReduceOp, Work
+from .collectives import ReduceOp, Work, _resolve_device_pack_setting
 from .manager import Manager
-from .ops import quantize_kernels as qk
-from .quantize import _views, make_dequant_average, quantize_with_feedback
+from .quantize import (_views, cast_bf16_tree, make_dequant_average,
+                       quantize_with_feedback)
 from .train_state import FTTrainState, build_shard_apply_step
 
 logger: logging.Logger = logging.getLogger(__name__)
 
 # PipelinedDDP compress mode -> comm-plan wire.
 _WIRES = {None: None, "bf16": "bf16", "q8": "q8ef"}
+
+
+def _device_pack_available() -> bool:
+    """Whether the port's wire kernels import here (the capability gate
+    of AdaptiveDDP's device-pack candidate). True wherever the package
+    imports: on the CPU the kernels' plain versions serve the pack, so a
+    cohort of JAX and port members builds the same candidate list."""
+    try:
+        from .ops import quantize_kernels  # noqa: F401
+
+        return True
+    except Exception:  # noqa: BLE001 - any import failure = unavailable
+        return False
 
 
 class DistributedDataParallel:
@@ -106,9 +123,13 @@ class PipelinedDDP:
         grad_fn: Callable[..., Tuple[Any, Any]],
         compress: Optional[str] = None,
         transport: str = "plan",
-        device_pack: bool = True,
+        device_pack: Any = True,
         hier: bool = False,
     ) -> None:
+        """``device_pack``: True/"on", False/"off", or None/"auto" (the
+        ``TORCHFT_DEVICE_PACK`` env, default auto: card leaves pack on
+        the card, CPU leaves on the host); parsed here, so a bad value
+        raises at once."""
         if compress not in (None, "bf16", "q8", "int8"):
             raise ValueError(f"unsupported compress: {compress!r}")
         if transport not in ("legacy", "plan"):
@@ -127,9 +148,12 @@ class PipelinedDDP:
         self._grad_fn = grad_fn
         self._compress_mode = compress
         self._transport = transport
-        self._device_pack = device_pack
+        self._device_pack = _resolve_device_pack_setting(device_pack)
         self._hier = hier
         self._inflight: Optional[Work] = None
+        # the transport AT dispatch: the settle branches on what the work
+        # went through, not on the (switchable) current setting
+        self._inflight_transport = transport
         self._inflight_dtypes: List[torch.dtype] = []
         # Outcome of the most recent settle (None before the first).
         self.last_commit: Optional[bool] = None
@@ -173,16 +197,7 @@ class PipelinedDDP:
                 return {"q": out["q"], "scale": out["scale"]}
             return out["dq"]
         # bf16: the f32 leaves into one bf16 buffer (K3), others as they are
-        idx = [i for i, l in enumerate(leaves) if l.dtype == torch.float32]
-        if not idx:
-            return grads
-        buf = torch.empty(sum(leaves[i].numel() for i in idx),
-                          dtype=torch.bfloat16, device=leaves[0].device)
-        qk.cast_bf16_group([leaves[i] for i in idx], buf)
-        out = list(leaves)
-        for i, v in zip(idx, _views(buf, [leaves[i].shape for i in idx])):
-            out[i] = v
-        return unflatten(treedef, out)
+        return cast_bf16_tree(grads)
 
     def _decompress(self, avg: Any) -> Any:
         if self._compress_mode != "bf16":
@@ -192,6 +207,7 @@ class PipelinedDDP:
                                    zip(leaves, self._inflight_dtypes)])
 
     def _dispatch(self, grads: Any) -> Work:
+        self._inflight_transport = self._transport
         if self._transport == "plan":
             return self._manager.plan_allreduce(
                 grads, wire=_WIRES[self._compress_mode],
@@ -211,7 +227,7 @@ class PipelinedDDP:
         self._inflight = None
         committed = self._manager.should_commit()
         self.last_commit = committed
-        if self._transport == "plan":
+        if self._inflight_transport == "plan":
             if committed:
                 # A committed step never sees the None failure default (an
                 # error would have failed the vote).
@@ -461,19 +477,8 @@ class ShardedDDP:
         rng = tuple(tuple(r) for r in shard.ranges["float32"])
         segs = self._slice_segs.get(rng)
         if segs is None:
-            segs = []
-            starts, off = [], 0
-            for l in leaves:
-                starts.append(off)
-                off += l.numel()
-            for s, n in rng:
-                end = s + n
-                for i, (a, l) in enumerate(zip(starts, leaves)):
-                    b = a + l.numel()
-                    if b <= s or a >= end:
-                        continue
-                    segs.append((i, max(s, a) - a, min(end, b) - a))
-            self._slice_segs[rng] = segs
+            segs = self._slice_segs[rng] = _range_segments(
+                [(i, l.numel()) for i, l in enumerate(leaves)], rng)
         with torch.no_grad():
             pieces = [leaves[i].detach().reshape(-1)[a:b] for i, a, b in segs]
             if not pieces:
@@ -482,54 +487,14 @@ class ShardedDDP:
             return torch.cat(pieces)
 
     def _reshard_opt_state(self, shard: Any) -> Any:
-        """Re-partitions the optimizer shard after a membership change:
-        every member scatters its OLD shard of each shard-shaped state
-        leaf into a full-size (mask, values) pair, the cohort allgathers
-        them, and this member slices its NEW ranges out of the
-        first-owner-wins merge. Positions no surviving member owned
-        restart at zero. The payload is one byte buffer laid out as the
-        JAX package's ``{"m": mask, "v": [values...]}`` gather ships (the
-        mask, then each leaf's f32 values), so members of both packages
-        share the reshard."""
+        """Re-partitions the optimizer shard after a membership change
+        (:func:`_reshard_shard_state`)."""
         meta = self._shard_meta
         assert meta is not None
-        count = shard.counts["float32"]
-        old_ranges = [tuple(r) for r in meta["ranges"]["float32"]]
-        old_len = sum(n for _, n in old_ranges)
-        state_leaves, state_def = flatten(self._opt_shard)
-        shard_like = [i for i, l in enumerate(state_leaves)
-                      if isinstance(l, torch.Tensor) and l.dim() == 1
-                      and l.numel() == old_len]
-        dev = shard.values["float32"].device
-        mask = torch.zeros(count, dtype=torch.uint8, device=dev)
-        for s, n in old_ranges:
-            mask[s:s + n] = 1
-        parts = [mask]
-        for i in shard_like:
-            arr = state_leaves[i].to(dev, torch.float32)
-            full = torch.zeros(count, dtype=torch.float32, device=dev)
-            off = 0
-            for s, n in old_ranges:
-                full[s:s + n] = arr[off:off + n]
-                off += n
-            parts.append(full.view(torch.uint8))
-        members = self._manager.allgather({"m": torch.cat(parts)}).wait()
-        new_leaves = list(state_leaves)
-        for j, i in enumerate(shard_like):
-            acc = torch.zeros(count, dtype=torch.float32, device=dev)
-            seen = torch.zeros(count, dtype=torch.bool, device=dev)
-            for m in members:
-                blob = m["m"].to(dev)
-                mm = blob[:count].bool()
-                lo = count + 4 * count * j
-                # a copy: the slice may sit off the f32 alignment
-                vals = blob[lo:lo + 4 * count].clone().view(torch.float32)
-                take = mm & ~seen
-                acc = torch.where(take, vals, acc)
-                seen |= take
-            new_leaves[i] = torch.cat(
-                [acc[s:s + n] for s, n in shard.ranges["float32"]])
-        return unflatten(state_def, new_leaves)
+        return _reshard_shard_state(
+            self._manager, self._opt_shard, meta["ranges"]["float32"],
+            shard.ranges["float32"], shard.counts["float32"],
+            shard.values["float32"].device)
 
     # -- checkpoint plumbing (the manager's state callbacks) --
 
@@ -555,6 +520,428 @@ class ShardedDDP:
                     "counts": {k: int(v) for k, v in meta["counts"].items()},
                     "ranges": _ranges(meta["ranges"])}
         self._shard_meta = meta
+
+
+class AdaptiveDDP:
+    """Per-step DDP that PICKS its schedule per cohort: a runtime probe
+    times a few steps of each candidate, then locks in the cohort-agreed
+    fastest. Candidates, in probe order:
+
+    - ``blocking``: settle every step, legacy transport;
+    - ``plan``: settle every step, the comm plan (host pack while
+      ``plan_devpack`` races it);
+    - ``plan_devpack``: the plan with the card's wire pack (under
+      ``TORCHFT_DEVICE_PACK=auto`` with the kernels importable);
+    - ``plan_hier``: the plan over the two-tier schedule (when this
+      member carries a region label or the operator set
+      ``TORCHFT_HOST``; on a cohort that is not hier-capable every probe
+      step latches and records the failure sentinel);
+    - ``pipelined``: the one-step-stale overlap, legacy transport;
+    - ``ddp_sharded``: per-step ZeRO (``TORCHFT_DDP_SHARDED=1``, f32
+      masters, not ``int8``).
+
+    ``blocking`` comes first and ties resolve to it, so the locked mode
+    is never slower than blocking as measured on this cohort.
+
+    Cohort agreement: after the probe every member allgathers its
+    per-candidate seconds (a float64 vector, the JAX package's layout)
+    and takes the argmin of the cohort sums: one decision from identical
+    data, no leader. ``decision`` records it, and the manager's metrics
+    get ``ddp_probe_<mode>`` and ``ddp_mode_<mode>``.
+
+    Lockstep: the probe clock counts ATTEMPTED steps since the step
+    where this member first observed the current ``quorum_id``, which
+    every member observes at the same transaction. A probe step whose
+    transaction failed records ``1e9`` s instead of its wall time, so a
+    candidate that cannot run here never wins. A clean membership change
+    re-probes; a quorum-id bump on an errored step (the forced
+    reconfigure) does not. A run of consecutive errored steps locks
+    ``blocking`` (the error backstop). ``reprobe_steps`` (env
+    ``TORCHFT_DDP_REPROBE_STEPS``, 0 = never) revalidates the lock every
+    N steps. Crossing the ``ddp_sharded`` tenure resets the optimizer
+    state deterministically on every member.
+
+    ``TORCHFT_DDP_MODE`` pins the mode and skips probing (``auto`` by
+    default). All members must use the same settings.
+
+    Usage (PipelinedDDP's surface)::
+
+        ddp = AdaptiveDDP(manager, state, grad_fn, compress="q8")
+        for batch in batches:
+            loss = ddp.step(batch)
+        ddp.flush()
+    """
+
+    _CANDIDATES = ("blocking", "plan", "pipelined")
+
+    # Recorded for a probe step whose transaction failed: a failing
+    # candidate never wins, and it stays finite (a zeroed entry of a
+    # non-participant is 0, never inf * 0).
+    _PROBE_FAILED_S = 1e9
+
+    def __init__(
+        self,
+        manager: Manager,
+        state: FTTrainState,
+        grad_fn: Callable[..., Tuple[Any, Any]],
+        compress: Optional[str] = None,
+        mode: Optional[str] = None,
+        probe_steps: int = 3,
+        device_pack: Any = None,
+        reprobe_steps: Optional[int] = None,
+    ) -> None:
+        mode = mode or os.environ.get("TORCHFT_DDP_MODE", "auto")
+        if mode not in ("auto", "blocking", "pipelined", "plan",
+                        "plan_hier", "xla_iso", "ddp_sharded"):
+            raise ValueError(f"unsupported TORCHFT_DDP_MODE: {mode!r}")
+        self._manager = manager
+        # one engine; mode switches flip its transport and schedule
+        self._ddp = PipelinedDDP(manager, state, grad_fn, compress,
+                                 transport="legacy")
+        self._devpack_setting = _resolve_device_pack_setting(device_pack)
+        self._candidates = [c for c in self._CANDIDATES
+                            if not (c == "plan" and compress == "int8")]
+        f32_masters = all(l.dtype == torch.float32
+                          for l in flatten(state.params)[0])
+        if mode == "ddp_sharded":
+            if compress == "int8":
+                raise ValueError("compress='int8' has no sharded transport")
+            if not f32_masters:
+                raise ValueError(
+                    "TORCHFT_DDP_MODE=ddp_sharded requires f32 master "
+                    "params (the flat shard layout is one f32 group)")
+        if (os.environ.get("TORCHFT_DDP_SHARDED", "")
+                not in ("", "0", "false", "off")
+                and compress != "int8" and f32_masters):
+            self._candidates.append("ddp_sharded")
+        # topology opt-in: a region label, or an explicit TORCHFT_HOST
+        # (the hostname default is not enough)
+        region_labeled = bool(getattr(manager, "_region", "")
+                              or os.environ.get("TORCHFT_REGION", ""))
+        host_labeled = bool(os.environ.get("TORCHFT_HOST", ""))
+        if "plan" in self._candidates and (region_labeled or host_labeled):
+            self._candidates.insert(self._candidates.index("plan") + 1,
+                                    "plan_hier")
+        if (self._devpack_setting is None  # TORCHFT_DEVICE_PACK=auto
+                and "plan" in self._candidates
+                and _device_pack_available()):
+            self._candidates.insert(self._candidates.index("plan") + 1,
+                                    "plan_devpack")
+        has_iso = getattr(manager, "has_iso_plane", lambda: False)()
+        if has_iso and compress != "int8":
+            self._candidates.append("xla_iso")
+        if mode in ("plan", "plan_hier") and compress == "int8":
+            raise ValueError("compress='int8' has no plan transport")
+        if mode == "xla_iso":
+            if compress == "int8":
+                raise ValueError("compress='int8' has no iso transport")
+            if not has_iso:
+                raise ValueError(
+                    "TORCHFT_DDP_MODE=xla_iso needs "
+                    "Manager(iso_collectives=...)")
+        self._probe_steps = max(int(probe_steps), 2)
+        self._sharded_engine: Optional[ShardedDDP] = None
+        # the mode the previous step ran (the ddp_sharded tenure resets)
+        self._prev_run_mode: Optional[str] = None
+        self._mode: Optional[str] = mode if mode != "auto" else None
+        self._auto = mode == "auto"
+        # probe clock: attempted steps since the anchor transaction
+        self._probe_qid: Optional[int] = None
+        self._probe_idx = 0
+        self._probe_t: List[List[float]] = [[] for _ in self._candidates]
+        self._decision_qid: Optional[int] = None
+        self.decision: Optional[dict] = None
+        self._consec_errors = 0
+        self._error_backstop = max(6, 3 * self._probe_steps)
+        # only a clean step FOLLOWING a clean step reads a new quorum id
+        # as a membership change (an error's reconfigure echoes once)
+        self._last_errored = False
+        if reprobe_steps is None:
+            reprobe_steps = int(os.environ.get("TORCHFT_DDP_REPROBE_STEPS",
+                                               "0"))
+        self._reprobe_steps = max(int(reprobe_steps), 0)
+        self._steps_since_lock = 0
+
+    @property
+    def mode(self) -> Optional[str]:
+        """The locked mode, or None while probing."""
+        return self._mode
+
+    def _plan_device_pack(self) -> Optional[bool]:
+        """The ``plan`` candidate's pack: the host pack while
+        ``plan_devpack`` races it, else the caller's setting."""
+        if "plan_devpack" in self._candidates:
+            return False
+        return self._devpack_setting
+
+    def _sharded(self) -> ShardedDDP:
+        if self._sharded_engine is None:
+            d = self._ddp
+            self._sharded_engine = ShardedDDP(
+                self._manager, d._state, d._grad_fn,
+                shard_wire=d._compress_mode)
+        return self._sharded_engine
+
+    def _run_step(self, mode: str, *batch: Any) -> Any:
+        d = self._ddp
+        if mode != self._prev_run_mode:
+            # The two regimes hold optimizer state in different shapes:
+            # entering ddp_sharded drops the stale shard, leaving it
+            # re-inits the full state. Both are deterministic from the
+            # cohort-identical params, so members stay identical.
+            if mode == "ddp_sharded":
+                self._sharded().begin_fresh_shard()
+            elif self._prev_run_mode == "ddp_sharded":
+                st = d._state
+                st.opt_state = st.tx.init(st.params)
+        self._prev_run_mode = mode
+        if mode == "ddp_sharded":
+            if d._inflight is not None:
+                d.flush()  # settle a pipelined step before sharding
+            s = self._sharded()
+            loss = s.step(*batch)
+            d.last_commit = s.last_commit  # the probe's error signal
+            return loss
+        if mode == "pipelined":
+            d._transport = "legacy"
+            if d._inflight is None:
+                # a fresh pipeline only dispatches: no outcome yet
+                d.last_commit = None
+            return d.step(*batch)
+        d._transport = ("plan" if mode in ("plan", "plan_devpack",
+                                           "plan_hier") else "legacy")
+        # the two-tier schedule is plan_hier's alone (host pack only)
+        d._hier = mode == "plan_hier"
+        if mode == "plan_devpack":
+            d._device_pack = True
+        elif mode == "plan":
+            d._device_pack = self._plan_device_pack()
+        elif mode == "plan_hier":
+            d._device_pack = False
+        return d.blocking_step(*batch)
+
+    def _decide(self) -> None:
+        # Median per candidate over its CLEAN samples: one transient
+        # cohort error must not knock a working candidate (blocking
+        # above all) out. Only a candidate without a clean sample
+        # carries the failure sentinel.
+        def candidate_s(samples: List[float]) -> float:
+            clean = [t for t in samples if t < self._PROBE_FAILED_S]
+            return float(np.median(clean)) if clean else self._PROBE_FAILED_S
+
+        mine = np.array([candidate_s(t) for t in self._probe_t], np.float64)
+        gathered = self._manager.allgather(
+            {"probe_t": torch.from_numpy(mine)}).wait()
+        vecs = [np.asarray(_host(e["probe_t"]), np.float64) for e in gathered]
+        if self._manager.errored() is not None or any(
+                v.shape != mine.shape for v in vecs):
+            # the gather failed, or the cohort's candidate lists differ:
+            # no agreed argmin exists; lock the safe default
+            total = mine
+            best = 0
+        else:
+            total = np.zeros_like(mine)
+            for v in vecs:
+                total = total + v
+            total = np.where(np.isfinite(total), total, self._PROBE_FAILED_S)
+            best = int(np.argmin(total))  # ties: the lowest index, blocking
+        self._mode = self._candidates[best]
+        self._decision_qid = self._probe_qid
+        self._steps_since_lock = 0
+        self.decision = {
+            "mode": self._mode,
+            "probe_s": {c: round(float(total[i]), 6)
+                        for i, c in enumerate(self._candidates)},
+            "quorum_id": self._decision_qid,
+        }
+        metrics = self._manager.metrics()
+        for i, c in enumerate(self._candidates):
+            metrics.record(f"ddp_probe_{c}", float(total[i]))
+        metrics.incr(f"ddp_mode_{self._mode}")
+
+    def _restart_probe(self, qid: Optional[int]) -> None:
+        """Re-anchors the probe clock at the current transaction."""
+        if self._ddp._inflight is not None:
+            self._ddp.flush()
+        self._mode = None
+        self._probe_qid = qid
+        self._probe_idx = 0
+        self._probe_t = [[] for _ in self._candidates]
+
+    def _observed_qid(self) -> Optional[int]:
+        try:
+            return self._manager.quorum_id()
+        except Exception:  # noqa: BLE001 - quorum failed; next step retries
+            return self._probe_qid
+
+    def _note_errored(self, errored: bool) -> bool:
+        """Tracks the consecutive-error run; True when the backstop just
+        tripped (blocking is locked)."""
+        if not errored:
+            self._consec_errors = 0
+            return False
+        self._consec_errors += 1
+        if self._consec_errors < self._error_backstop:
+            return False
+        if self._ddp._inflight is not None:
+            self._ddp.flush()
+        self._mode = "blocking"
+        self._decision_qid = self._observed_qid()
+        self.decision = {
+            "mode": "blocking",
+            "fallback": f"{self._consec_errors} consecutive errored "
+                        "steps — locked the safe default",
+            "quorum_id": self._decision_qid,
+        }
+        self._manager.metrics().incr("ddp_mode_blocking_backstop")
+        self._consec_errors = 0
+        self._steps_since_lock = 0
+        return True
+
+    def step(self, *batch: Any) -> Any:
+        if self._mode is not None:
+            loss = self._run_step(self._mode, *batch)
+            if self._auto:
+                errored = self._errored_now()
+                clean = not errored and not self._last_errored
+                self._last_errored = errored
+                if self._note_errored(errored):
+                    return loss
+                qid = self._observed_qid()
+                if qid != self._decision_qid:
+                    if clean:
+                        # membership moved: every member re-probes here
+                        self._restart_probe(qid)
+                        return loss
+                    # (possibly) an errored step's reconfigure echo
+                    self._decision_qid = qid
+                self._steps_since_lock += 1
+                if (self._reprobe_steps > 0
+                        and self._steps_since_lock >= self._reprobe_steps
+                        and clean):
+                    self._manager.metrics().incr("ddp_reprobe")
+                    self._restart_probe(qid)
+            return loss
+
+        # Probe: candidate = attempted steps since the anchor / probe_steps
+        idx = self._probe_idx
+        cand = min(idx // self._probe_steps, len(self._candidates) - 1)
+        t0 = time.perf_counter()
+        loss = self._run_step(self._candidates[cand], *batch)
+        self._sync_card()
+        elapsed = time.perf_counter() - t0
+        errored = self._errored_now()
+        clean = not errored and not self._last_errored
+        self._last_errored = errored
+        if self._note_errored(errored):
+            return loss
+        qid = self._observed_qid()
+        if qid != self._probe_qid:
+            if clean:
+                # a fresh cohort (or a membership change mid-probe):
+                # anchor here, time nothing from the transition step
+                self._restart_probe(qid)
+                return loss
+            self._probe_qid = qid  # an error's reconfigure: keep the clock
+        if idx % self._probe_steps != 0 or errored:
+            # a candidate's first step is its warm-up (plan build,
+            # staging, pipeline fill), never timed
+            self._probe_t[cand].append(
+                self._PROBE_FAILED_S if errored else elapsed)
+        self._probe_idx += 1
+        if self._probe_idx >= len(self._candidates) * self._probe_steps:
+            if self._ddp._inflight is not None:
+                self._ddp.flush()  # a pipelined probe leaves one in flight
+            self._decide()
+        return loss
+
+    def _sync_card(self) -> None:
+        """Waits for the step's card work on the caller's stream, so a
+        probe sample is the step's wall time, not its dispatch."""
+        leaf = flatten(self._ddp._state.params)[0][0]
+        if leaf.is_cuda:
+            torch.cuda.current_stream(leaf.device).synchronize()
+
+    def _errored_now(self) -> bool:
+        """Whether the step that just ran failed its transaction: the
+        settle outcome PipelinedDDP records (a pipelined step ends with
+        start_quorum, which clears the manager's latched error)."""
+        return self._ddp.last_commit is False
+
+    def flush(self) -> bool:
+        """Settles any in-flight overlap step; call once after the loop."""
+        return self._ddp.flush()
+
+
+def _host(x: Any) -> Any:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _range_segments(sizes: List[Tuple[int, int]],
+                    ranges: Any) -> List[Tuple[int, int, int]]:
+    """The ``(leaf, start, end)`` pieces of the leaves that the element
+    ``ranges`` of a flat group cover, in range order. ``sizes``: each
+    leaf's index and element count, in the group's packing order."""
+    bounds, off = [], 0
+    for i, n in sizes:
+        bounds.append((i, off, off + n))
+        off += n
+    segs = []
+    for s, n in ranges:
+        for i, a, b in bounds:
+            if b <= s or a >= s + n:
+                continue
+            segs.append((i, max(s, a) - a, min(s + n, b) - a))
+    return segs
+
+
+def _reshard_shard_state(manager: Manager, state: Any, old_ranges: Any,
+                         new_ranges: Any, count: int,
+                         device: torch.device) -> Any:
+    """Re-partitions sharded state (``ShardedDDP``'s optimizer shard,
+    sharded ``DiLoCo``'s outer state) after a membership change: every
+    member scatters its OLD shard of each shard-shaped state leaf (1-D,
+    the old shard's length) into a full-size (mask, values) pair, the
+    cohort allgathers them, and this member slices its NEW ranges out of
+    the first-owner-wins merge. Positions no surviving member owned
+    restart at zero. The payload is one byte buffer laid out as the JAX
+    package's ``{"m": mask, "v": [values...]}`` gather ships (the mask,
+    then each leaf's f32 values), so members of both packages share the
+    reshard."""
+    old_ranges = [tuple(r) for r in old_ranges]
+    old_len = sum(n for _, n in old_ranges)
+    state_leaves, state_def = flatten(state)
+    shard_like = [i for i, l in enumerate(state_leaves)
+                  if isinstance(l, torch.Tensor) and l.dim() == 1
+                  and l.numel() == old_len]
+    mask = torch.zeros(count, dtype=torch.uint8, device=device)
+    for s, n in old_ranges:
+        mask[s:s + n] = 1
+    parts = [mask]
+    for i in shard_like:
+        arr = state_leaves[i].to(device, torch.float32)
+        full = torch.zeros(count, dtype=torch.float32, device=device)
+        off = 0
+        for s, n in old_ranges:
+            full[s:s + n] = arr[off:off + n]
+            off += n
+        parts.append(full.view(torch.uint8))
+    members = manager.allgather({"m": torch.cat(parts)}).wait()
+    new_leaves = list(state_leaves)
+    for j, i in enumerate(shard_like):
+        acc = torch.zeros(count, dtype=torch.float32, device=device)
+        seen = torch.zeros(count, dtype=torch.bool, device=device)
+        for m in members:
+            blob = m["m"].to(device)
+            mm = blob[:count].bool()
+            lo = count + 4 * count * j
+            # a copy: the slice may sit off the f32 alignment
+            vals = blob[lo:lo + 4 * count].clone().view(torch.float32)
+            take = mm & ~seen
+            acc = torch.where(take, vals, acc)
+            seen |= take
+        new_leaves[i] = torch.cat([acc[s:s + n] for s, n in new_ranges])
+    return unflatten(state_def, new_leaves)
 
 
 def _ranges(ranges: Dict[str, Any]) -> Dict[str, List[Tuple[int, int]]]:

@@ -5,13 +5,17 @@ Every training step is a transaction:
 
 - ``start_quorum()`` establishes membership asynchronously, overlapped
   with the forward/backward (quorum RPCs ride a one-thread executor while
-  the card computes).
+  the card computes); ``use_async_quorum=False`` waits for it instead,
+  and a healing member applies the fetched state there and takes part
+  in the same step (what the DiLoCo family requires).
 - ``allreduce()`` / ``plan_allreduce()`` average gradient trees across
   replica groups through the reconfigurable host collectives
   (``allgather()`` gathers them; ``plan_reduce_scatter()`` /
   ``plan_allgather_into()`` are the two legs of per-step ZeRO); errors
   are latched, never raised into the train loop, so the step is
-  discarded by the commit vote.
+  discarded by the commit vote. ``reduce_scatter()`` /
+  ``allgather_into()`` are the bulk split legs of the sharded outer
+  sync.
 - ``should_commit()`` is a distributed AND-vote: if any rank of any group
   saw an error, every group discards the step.
 - A recovering replica fetches live weights from a healthy peer over HTTP
@@ -93,6 +97,7 @@ class Manager:
         region: Optional[str] = None,
         host_label: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
+        use_async_quorum: bool = True,
     ) -> None:
         """
         Args:
@@ -120,6 +125,11 @@ class Manager:
                 uploads there, and a publish to a healing peer is ordered
                 after the work the training thread had queued on it
                 (``None``: the card).
+            use_async_quorum: overlap the quorum with the
+                forward/backward (a healing member sits its step out);
+                False waits for it in ``start_quorum``, where a healing
+                member applies the fetched state and then takes part in
+                the step like any other.
 
         A windowed ``torch.profiler`` capture follows the
         ``TORCHFT_PROFILE_*`` variables (:class:`.profiling.Profiler`).
@@ -128,6 +138,7 @@ class Manager:
         self._user_state_dict = state_dict
         self._min_replica_size = min_replica_size
         self._timeout = timeout
+        self._use_async_quorum = use_async_quorum
         self._quorum_timeout = quorum_timeout
         self._connect_timeout = connect_timeout
 
@@ -192,6 +203,7 @@ class Manager:
             region = os.environ.get("TORCHFT_REGION", "")
         if host_label is None:
             host_label = os.environ.get("TORCHFT_HOST", socket.gethostname())
+        self._region = region
         # The quorum's region and host maps (replica-rank order),
         # refreshed at every reconfigure.
         self._replica_regions: List[str] = []
@@ -243,12 +255,22 @@ class Manager:
 
     # -- step lifecycle --
 
-    def start_quorum(self, timeout: Optional[timedelta] = None) -> None:
-        """Starts computing a new quorum, asynchronously: it overlaps the
-        forward/backward, and a replica that must heal sits this step out
-        (its gradients are zeroed; the checkpoint applies at the
-        ``should_commit`` safe point). Call at the start of every step, on
-        every rank."""
+    def start_quorum(
+        self,
+        allow_heal: bool = True,
+        shrink_only: bool = False,
+        timeout: Optional[timedelta] = None,
+    ) -> None:
+        """Starts computing a new quorum. Asynchronously by default: it
+        overlaps the forward/backward, and a replica that must heal sits
+        this step out (its gradients are zeroed; the checkpoint applies
+        at the ``should_commit`` safe point). With
+        ``use_async_quorum=False`` it waits for the quorum, a healing
+        replica applies the fetched state here, and it then takes part
+        in this step. ``allow_heal=False`` neither serves nor fetches a
+        checkpoint (only members at the max step participate);
+        ``shrink_only`` asks the lighthouse for a quorum of the current
+        members only. Call at the start of every step, on every rank."""
         if self._profiler is not None:
             self._profiler.on_step(self._step)
         if self._quorum_future is not None:
@@ -267,8 +289,18 @@ class Manager:
         if self._device.type == "cuda":
             self._writer_stream = torch.cuda.current_stream(self._device)
         self._quorum_future = self._executor.submit(
-            self._async_quorum, quorum_timeout=timeout or self._quorum_timeout
+            self._async_quorum,
+            allow_heal=allow_heal,
+            shrink_only=shrink_only,
+            quorum_timeout=timeout or self._quorum_timeout,
         )
+        if not self._use_async_quorum:
+            self.wait_quorum()
+            if self._healing:
+                # Apply the fetched state now, so this step's work starts
+                # from it and the healed member takes part in full.
+                self._apply_pending_state_dict()
+                self._healing = False
 
     def wait_quorum(self) -> None:
         """Blocks until the quorum started by ``start_quorum`` completes."""
@@ -277,7 +309,8 @@ class Manager:
         ), "must call start_quorum before wait_quorum"
         self._quorum_future.result()
 
-    def _async_quorum(self, quorum_timeout: timedelta) -> None:
+    def _async_quorum(self, allow_heal: bool, shrink_only: bool,
+                      quorum_timeout: timedelta) -> None:
         # Consume the rebuild request atomically; restore it if the RPC
         # fails (the rebuild still hasn't happened).
         with self._error_lock:
@@ -289,6 +322,7 @@ class Manager:
                     rank=self._rank,
                     step=self._step,
                     checkpoint_metadata=self._checkpoint_transport.metadata(),
+                    shrink_only=shrink_only,
                     force_reconfigure=force_reconfigure,
                     timeout=quorum_timeout,
                 )
@@ -298,10 +332,16 @@ class Manager:
                     self._force_reconfigure = True
             raise
 
-        # Healing overlaps this step, so recovering replicas sit it out:
-        # only members already at max_step participate.
-        self._participating_rank = result.max_rank
-        self._participating_world_size = result.max_world_size
+        if self._use_async_quorum or not allow_heal:
+            # Healing overlaps this step, so recovering replicas sit it
+            # out: only members already at max_step participate.
+            self._participating_rank = result.max_rank
+            self._participating_world_size = result.max_world_size
+        else:
+            # The heal completes inside start_quorum: every member takes
+            # part.
+            self._participating_rank = result.replica_rank
+            self._participating_world_size = result.replica_world_size
 
         if result.quorum_id != self._quorum_id:
             if self._quorum_id != -1:
@@ -337,6 +377,8 @@ class Manager:
             self._metrics.incr("reconfigures")
             self._quorum_id = result.quorum_id
 
+        if not allow_heal:
+            return
         if result.recover_dst_ranks:
             # This replica is a recovery source: publish live weights.
             with span("torchft::send_checkpoint"):
@@ -426,6 +468,46 @@ class Manager:
             "allgather", tree, self._collectives.allgather, lambda t: [t]
         )
 
+    def reduce_scatter(
+        self,
+        tree: Any,
+        op: ReduceOp = ReduceOp.AVG,
+        wire: Optional[str] = None,
+    ) -> Work:
+        """Fault-tolerantly reduces a tree but stops at the reduce-scatter
+        boundary: resolves to this rank's
+        :class:`~torchft_tpu_torch.collectives.TreeShard` of the averaged
+        flat-packed tree (update the shard, then :meth:`allgather_into`
+        the result). The failure default is ``None``: there is no "as
+        contributed" shard, so a failure resolves to ``None``, latches,
+        and ``should_commit`` discards the step; treat a ``None`` shard
+        as an aborted sync, never as data. ``wire="q8"`` reduces over the
+        quantized ring (the shard is full f32)."""
+        if op not in (ReduceOp.AVG, ReduceOp.SUM):
+            raise ValueError(f"unsupported managed reduce_scatter op: {op}")
+
+        def dispatch(zeroed_tree: Any) -> Work:
+            return self._collectives.reduce_scatter(
+                zeroed_tree, ReduceOp.SUM, divisor=self._divisor(op),
+                wire=wire,
+            )
+
+        return self._managed_dispatch(
+            "reduce_scatter", tree, dispatch, lambda t: None
+        )
+
+    def allgather_into(self, shard: Any, wire: Optional[str] = None) -> Work:
+        """Fault-tolerantly gathers every member's (updated) TreeShard back
+        into the full tree, the parameter leg of the sharded outer sync
+        (``wire="bf16"`` halves its bytes). Failure default ``None``. A
+        non-participating member's shard is NOT zeroed: the gathered tree
+        is replicated state every member owns a slice of."""
+        return self._managed_dispatch(
+            "allgather_into", shard,
+            lambda s: self._collectives.allgather_into(s, wire=wire),
+            lambda s: None, zero_nonparticipating=False,
+        )
+
     def plan_reduce_scatter(
         self,
         tree: Any,
@@ -476,7 +558,7 @@ class Manager:
         tree: Any,
         op: ReduceOp = ReduceOp.AVG,
         wire: Optional[str] = None,
-        device_pack: bool = True,
+        device_pack: Any = True,
         hier: bool = False,
     ) -> Work:
         """Fault-tolerantly averages a gradient tree through a persistent
@@ -825,8 +907,15 @@ class Manager:
         return self._quorum_id
 
     def is_participating(self) -> bool:
-        """False while healing or a spare: gradients are zeroed then."""
-        return self._participating_rank is not None and not self._healing
+        """False while healing or a spare: gradients are zeroed then. A
+        synchronous quorum never leaves a member healing here (the heal
+        applied in ``start_quorum``)."""
+        if self._participating_rank is None:
+            return False
+        if self._healing:
+            assert self._use_async_quorum
+            return False
+        return True
 
     def is_healing(self) -> bool:
         """True while this step recovers state from a peer (applied at the

@@ -7,6 +7,7 @@ from .transformer import (
     init_params,
     loss_fn,
     make_grad_fn,
+    make_train_step,
     param_count,
     params_from_jax,
     tiny_config,
@@ -19,6 +20,7 @@ __all__ = [
     "init_params",
     "loss_fn",
     "make_grad_fn",
+    "make_train_step",
     "param_count",
     "params_from_jax",
     "tiny_config",

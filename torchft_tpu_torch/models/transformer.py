@@ -254,6 +254,43 @@ def make_grad_fn(cfg: TransformerConfig):
     return grad_fn
 
 
+def make_train_step(cfg: TransformerConfig, tx: Any,
+                    bf16_params: bool = False):
+    """One call for loss, gradients and the optimizer update (the JAX
+    package's fused train step), for window strategies that have no
+    per-step cross-group work (``LocalSGD.step_applied``).
+
+    ``bf16_params``: mixed precision with a master copy. The gradient
+    pass reads a bf16 working copy of the f32 params (one cast pass, not
+    one per use); the optimizer (``tx.update_``, e.g. ``AdamW``) updates
+    the f32 masters in place, which ``params`` stay throughout. The
+    forward is the default's (weights are cast to ``cfg.dtype`` at use
+    anyway); what changes is gradient accumulation, which runs in bf16.
+
+    Returns ``step(params, opt_state, tokens) -> (params, opt_state,
+    loss)``; ``params`` and ``opt_state`` are the ones passed in,
+    updated in place."""
+
+    def step(params: Params, opt_state: Any,
+             tokens: torch.Tensor) -> Tuple[Params, Any, torch.Tensor]:
+        leaves, treedef = flatten(params)
+        with torch.no_grad():
+            work = [
+                l.detach().to(torch.bfloat16)
+                if bf16_params and l.dtype == torch.float32 else l.detach()
+                for l in leaves
+            ]
+        for w in work:
+            w.requires_grad_(True)
+        loss = loss_fn(cfg, unflatten(treedef, work), tokens)
+        grads = torch.autograd.grad(loss, work)
+        grads = [g.to(m.dtype) for g, m in zip(grads, leaves)]
+        tx.update_(params, opt_state, unflatten(treedef, grads))
+        return params, opt_state, loss.detach()
+
+    return step
+
+
 class _Block(nn.Module):
     def __init__(self, p: Params) -> None:
         super().__init__()

@@ -120,6 +120,24 @@ def quantize_with_feedback(tree: Any, residual: Any,
     }
 
 
+def cast_bf16_tree(tree: Any) -> Any:
+    """``tree`` with its f32 leaves as bf16 views of one fresh buffer,
+    cast by K3 (one launch per 64 leaves; its plain version on the CPU),
+    other leaves as they are: the bf16 payload of the legacy transport
+    and of ``AsyncDiLoCo(compress="bf16")``."""
+    leaves, treedef = flatten(tree)
+    idx = [i for i, l in enumerate(leaves) if l.dtype == torch.float32]
+    if not idx:
+        return tree
+    buf = torch.empty(sum(leaves[i].numel() for i in idx),
+                      dtype=torch.bfloat16, device=leaves[idx[0]].device)
+    qk.cast_bf16_group([leaves[i] for i in idx], buf)
+    out = list(leaves)
+    for i, v in zip(idx, _views(buf, [leaves[i].shape for i in idx])):
+        out[i] = v
+    return unflatten(treedef, out)
+
+
 def make_dequant_average() -> Callable[[Sequence[Any], float], Any]:
     """Member-wise dequantize-then-average of gathered ``{"q", "scale"}``
     entries: ``avg = (sum_i q_i * scale_i) / n``, the sum in member order,

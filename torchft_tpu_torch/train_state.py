@@ -1,5 +1,6 @@
 """Training state for fault-tolerant torch loops: parameters plus an
-optimizer with optax ``adamw`` numerics.
+optimizer with optax numerics (``adamw``, and ``sgd`` with optional
+Nesterov momentum, the DiLoCo outer optimizer).
 
 The JAX package needs :class:`FTTrainState` because its pytrees are
 immutable: a heal applied through a callback could be shadowed by stale
@@ -91,6 +92,50 @@ class AdamW:
         torch._foreach_add_(p, upd)
 
 
+class SGD:
+    """``optax.sgd`` in torch: ``trace(momentum, nesterov)`` (when
+    ``momentum`` is given) then ``scale_by_learning_rate``, i.e.
+
+        t' = g + momentum t;  u = g + momentum t' (nesterov) or t'
+        p  = p + (-lr) u
+
+    every product and sum rounded on its own, as optax computes them
+    eagerly. Elementwise, so it runs as well on a 1-D shard (the sharded
+    DiLoCo outer step) as on a tree; the state is
+    ``{"trace": <tree of zeros>}`` with momentum, ``{}`` without. The
+    update is multi-tensor (``torch._foreach_*``)."""
+
+    def __init__(self, learning_rate: float, momentum: Optional[float] = None,
+                 nesterov: bool = False) -> None:
+        self.lr = learning_rate
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def init(self, params: Any) -> Dict[str, Any]:
+        if self.momentum is None:
+            return {}
+        return {"trace": tree_map(torch.zeros_like, params)}
+
+    @torch.no_grad()
+    def update_(self, params: Any, opt_state: Dict[str, Any], grads: Any) -> None:
+        """One step, in place on ``params`` and ``opt_state``."""
+        p, _ = flatten(params)
+        g = [
+            gi.to(pi.dtype) if gi.dtype != pi.dtype else gi
+            for gi, pi in zip(flatten(grads)[0], p)
+        ]
+        d = g
+        if self.momentum is not None:
+            t, _ = flatten(opt_state["trace"])
+            new_t = torch._foreach_add(g, torch._foreach_mul(t, self.momentum))
+            d = new_t
+            if self.nesterov:
+                d = torch._foreach_add(g, torch._foreach_mul(new_t,
+                                                             self.momentum))
+            torch._foreach_copy_(t, new_t)
+        torch._foreach_add_(p, torch._foreach_mul(d, -self.lr))
+
+
 class FTTrainState:
     """Holder for ``params`` (a tree of tensors, e.g. a model's
     parameters) + ``opt_state`` + the optimizer.
@@ -122,14 +167,12 @@ class FTTrainState:
         in place, on their devices. Raises on a structure mismatch."""
         _copy_into(self.params, state_dict["params"])
         sd_opt = state_dict["opt_state"]
-        if not self.opt_state:  # opt_state=(): nothing held here
+        if not self.opt_state:  # opt_state=() (or stateless): nothing held
             if flatten(sd_opt)[0]:
                 raise ValueError("state dict carries optimizer state this "
                                  "state was built without")
             return
-        _copy_into(self.opt_state["mu"], sd_opt["mu"])
-        _copy_into(self.opt_state["nu"], sd_opt["nu"])
-        self.opt_state["count"] = int(sd_opt["count"])
+        _load_opt_state(self.opt_state, sd_opt)
 
     def apply_gradients(self, grads: Any) -> None:
         """One optimizer update, in place."""
@@ -152,6 +195,22 @@ def build_shard_apply_step(tx: AdamW) -> Callable[[Any, Any, Any], Tuple[Any, An
         return param_shard, new_opt
 
     return apply
+
+
+def _load_opt_state(dst: Dict[str, Any], src: Any) -> None:
+    """Loads an optimizer state dict in place: tensor subtrees are copied
+    into (:func:`_copy_into`), other entries (AdamW's step count) are
+    replaced. Raises on a structure mismatch."""
+    if not isinstance(src, dict) or set(src) != set(dst):
+        raise ValueError("state dict structure does not match the live state")
+    for k, v in dst.items():
+        if isinstance(v, dict) and flatten(v)[0] and not all(
+                isinstance(l, torch.Tensor) for l in flatten(v)[0]):
+            _load_opt_state(v, src[k])
+        elif isinstance(v, (int, float)):
+            dst[k] = type(v)(src[k])
+        else:
+            _copy_into(v, src[k])
 
 
 def _copy_into(dst_tree: Any, src_tree: Any) -> None:
