@@ -4,8 +4,9 @@
 Drives the port's main paths — the per-step fault-tolerant training
 transaction on the dense LM and on the flash-attention LM, flat, on the
 two-tier schedule, on the legacy transport and as per-step ZeRO, the
-window strategies (AsyncDiLoCo, sharded DiLoCo) and AdaptiveDDP —
-through the entry points a user calls, at full
+window strategies (AsyncDiLoCo, sharded DiLoCo) and AdaptiveDDP, the
+durable checkpoint tier, the weight-serving plane and the parameter
+server — through the entry points a user calls, at full
 width (random weights from a seed):
 the transformer LM the repository benchmarks by default (vocab 8192,
 d_model 512, 8 heads, 6 layers, d_ff 2048, sequence 512, batch 16: 39 f32
@@ -122,7 +123,32 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            (blocking, plan on the host pack of the card leaves,
            plan_devpack, plan_hier over the shm tier, pipelined,
            ddp_sharded), 12 probe steps after the anchor, 3 locked;
-           prints decision["probe_s"] and the locked mode.
+           prints decision["probe_s"] and the locked mode;
+18. durable flash  two groups on the big LM (PipelinedDDP(q8) blocking
+           steps) with DurableCheckpointer(mode="async", wire="bf16",
+           every 2, keep 2, register_hook=True) into one LocalDirStore
+           for 4 committed steps (captures at 2 and 4, each group writing
+           its half of the 889 MB stream; K3 narrows the AdamW moments),
+           then one mode="sync" capture each (the stall baseline); a fresh
+           group with a new replica id then cold-restores at width 1
+           through the manager's durable consult at its first quorum:
+           params bit-identical to the saved step, moments equal to K3 of
+           the saved ones; prints each capture's stall_s, write_s,
+           commit_s and bytes, and the restore's seconds;
+19. serving flash  a training group (this process) publishes its params
+           through publish_on_commit, 6 versions per wire (q8, bf16,
+           f32; snapshot_every 4): the encode on the card (K1a/K1b, K3)
+           and the q8 decode (K2) of the served tree; a WeightRelay and
+           two subscribers behind it, a third on the publisher, all
+           installing on the card (K2 for q8); every install's digest,
+           the served tree bit for bit, no torn install; prints per
+           version the publish split (encode on the card, d2h, CRC,
+           digest), the relay's sync, each install's fetch / decode /
+           digest ms and bytes;
+20. parameter server  a session over the ring sends the big LM's
+           largest leaf (on the card) from server to client and back,
+           bit-identical; a subscriber of serving_address() installs one
+           q8 version of the LM.
 
 The train, flash train and hier phases drain Manager.observe_op_stats()
 around their timed steps and print, per cell, the native per-bucket
@@ -163,7 +189,9 @@ launches in total and by phase; K3 must launch in the heal transport
 phase, K1a/K1b/K2/K3 in the legacy, async diloco flash, sharded diloco
 and diloco reshard phases, K4/K5 in the sharded flash, async diloco
 flash, sharded diloco and adaptive flash phases, K1a/K1b/K2 in the
-adaptive flash phase), the card's name and power limit, and
+adaptive flash phase; K3 in the durable flash phase, K1a/K1b/K2/K3 in
+the serving flash phase, K1a/K1b/K2 in the parameter server phase,
+with exact counts), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero.
 
@@ -173,7 +201,10 @@ this script re-run with ``--worker``, the heal donor with
 --flash-turns`` measures only: the flat q8 and the hier flash phases in
 turns (flat, hier, hier, flat), one JSON line per turn; ``--shm-probe``
 checks only that the machine's /dev/shm takes the shm host tier;
-``--window-phases`` builds and runs only phases 14-17.
+``--window-phases`` builds and runs only phases 14-17,
+``--serving-phases`` only phases 18-20; ``--legacy-turns A B`` runs the
+legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
+a), each from its own chip_smoke.py and build.
 """
 
 from __future__ import annotations
@@ -508,6 +539,9 @@ def worker(cfg: dict) -> None:
         return
     if cfg["role"] == "adaptive_flash":
         adaptive_worker(cfg)
+        return
+    if cfg["role"] == "durable_flash":
+        durable_worker(cfg)
         return
     import torchft_tpu_torch as tft
     from torchft_tpu_torch.models import transformer as tt
@@ -1325,6 +1359,46 @@ def _k1_group_case(qk, label: str, leaves, res0, at: int, cap: int) -> float:
     return err
 
 
+def _k1_serving_group_case(qk, label: str, leaves, at: int, cap: int) -> float:
+    """The serving wire's EF-free group encode (``quantize_q8_group``:
+    K1a and K1b over a zero carry the caller owns, the residual into a
+    scratch buffer) against ``plain_group["quantize_q8"]`` on the same
+    inputs, bit for bit: codes and scales. Fails on a difference, on a
+    carry that is no longer all zero after the launches, or on a launch
+    count other than one K1a and one K1b per table of up to ``cap``
+    segments (0: the plain versions ran, no launches); returns the
+    largest finite difference (0 when it passes)."""
+    dev = leaves[0].device
+    n = sum(x.numel() for x in leaves)
+    outs = []
+    for body in ("kernel", "plain"):
+        codes = torch.full((n + at,), 99, dtype=torch.int8, device=dev)[at:]
+        scales = torch.full((len(leaves),), 7.0, device=dev)
+        if body == "kernel":
+            zeros = torch.zeros(n + at, device=dev)[at:]
+            scratch = torch.full((n,), 5.0, device=dev)
+            before = dict(qk.launch_counts)
+            qk.quantize_q8_group(leaves, codes, scales, zeros, scratch)
+            tables = -(-len(leaves) // cap) if cap else 0
+            got = (qk.launch_counts["q8_absmax"] - before["q8_absmax"],
+                   qk.launch_counts["q8_quantize"] - before["q8_quantize"])
+            if got != (tables, tables):
+                fail(f"K1 serving group {label}: launches {got}, want "
+                     f"{tables} each")
+            if bool(zeros.any()):
+                fail(f"K1 serving group {label}: the zero carry was written")
+        else:
+            qk.plain_group["quantize_q8"](leaves, codes, scales)
+        outs.append((codes, scales))
+    err = 0.0
+    for part, u, v in zip(("codes", "scales"), *outs):
+        if not _bits_equal(u, v):
+            fail(f"K1b q8_quantize (serving, no carry) disagrees on the group "
+                 f"{label} ({part})")
+        err = max(err, _max_abs_err(u, v))
+    return err
+
+
 def _k3_k2_group_case(qk, label: str, leaves, at: int, cap: int) -> tuple:
     """K3 and K2 over one plan group against their plain group versions on
     the same inputs, bit for bit: K3 casts the leaves into a bf16 wire
@@ -1506,6 +1580,15 @@ def phase_kernels(device: str = "cuda", timing: bool = True, lm: dict = LM,
     log(f"  {len(group_cases)} plan groups ({', '.join(c[0] for c in group_cases)}):"
         " K1a and K1b bit-identical to the plain group version, one launch each "
         "per table; the dense group bit-identical run to run")
+    # the serving wire's encode (no carry) over the same groups: the flash
+    # group's 51 leaves are the serving phase's shapes
+    for label, leaves, _, at in group_cases:
+        e = _k1_serving_group_case(qk, label, leaves, at, cap if on_card else 0)
+        err["q8_quantize"] = max(err["q8_quantize"], e)
+    log(f"  the same {len(group_cases)} groups through quantize_q8_group (the "
+        "serving encode, zero carry): codes and scales bit-identical to "
+        "plain_group['quantize_q8'], the carry left zero, one launch each "
+        "per table")
 
     # K3 and K2 over whole plan groups (one launch each per table): the
     # same groups, a mixed f32/bf16 group (a bf16 NaN payload 0x7FC1 among
@@ -3164,6 +3247,652 @@ def window_phases(by_phase: dict) -> None:
         f"topology {json.dumps(apsum['topology'])}")
 
 
+# -- durable tier, serving plane, parameter server -------------------------------
+
+# durable flash: committed steps with the durable hook armed, and its
+# cadence and retention (captures at steps 2 and 4, both kept)
+DURABLE_STEPS, DURABLE_EVERY, DURABLE_KEEP = 4, 2, 2
+# the AdamW moments of the flash LM (mu and nu per leaf): the f32 leaves
+# K3 narrows on the durable bf16 wire
+DURABLE_MOMENTS = 2 * 51
+# the disk two flash-LM sets at keep=2 take (params f32 + bf16 moments),
+# with room for the sync baseline's set
+DURABLE_DISK_BYTES = 3 * (4 + 2 * 2) * 111_166_464
+# serving flash: versions per wire, the snapshot cadence, the wires
+SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 6, 4
+SERVE_WIRES = ("q8", "bf16", "f32")
+
+
+def _k3_digest(opt_state) -> str:
+    """sha256 of the plain K3 cast of every f32 moment (the bf16 words the
+    durable wire must restore; a restored moment, exact bf16 values
+    widened, casts back to the same words). The plain version: no
+    launch is counted."""
+    from torchft_tpu_torch._tree import flatten
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    h = hashlib.sha256()
+    for m in ("mu", "nu"):
+        for leaf in flatten(opt_state[m])[0]:
+            h.update(qk.plain["cast_bf16"](leaf).view(torch.int16)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def durable_worker(cfg: dict) -> None:
+    """One group of the durable flash phase: PipelinedDDP(q8) blocking
+    steps on the big LM with a DurableCheckpointer(mode="async",
+    wire="bf16", every 2, keep 2, register_hook=True) into the shared
+    LocalDirStore, a hook after it recording the digests of what each
+    capture saw, then one sync-mode capture (the stall baseline) into
+    another store."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    model = tt.TransformerLM(model_cfg, seed=0, device=device)
+    state = tft.FTTrainState(model.params(), tft.AdamW(1e-3, weight_decay=1e-4))
+    collectives = tft.HostCollectives()
+    manager = tft.Manager(
+        collectives=collectives, load_state_dict=state.load_state_dict,
+        state_dict=state.state_dict, min_replica_size=2, rank=0,
+        world_size=1, lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}",
+        device=device,
+    )
+    ckpt = tft.DurableCheckpointer(
+        cfg["store"], manager, state, every=DURABLE_EVERY, keep=DURABLE_KEEP,
+        wire="bf16", mode="async", register_hook=True, device=device,
+        commit_timeout_s=300.0, store=tft.LocalDirStore(cfg["store"]))
+    saved: dict = {}
+
+    def record(step: int, quorum_id: int, committed: bool) -> None:
+        # runs after the checkpointer's hook, on the state it captured
+        if committed and step % DURABLE_EVERY == 0:
+            saved[step] = {"params": _digest(state.params),
+                           "moments_k3": _k3_digest(state.opt_state)}
+
+    manager.add_commit_hook(record)
+    ddp = tft.PipelinedDDP(manager, state, tt.make_grad_fn(model_cfg),
+                           compress="q8", transport="plan", device_pack=True)
+    out: dict = {"group": g, "n_layers": len(state.params["blocks"])}
+    try:
+        qk.reset_launch_counts()
+        commits, step_s, losses = [], [], []
+        for i in range(DURABLE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(ddp.blocking_step(_tokens(cfg, i, device))))
+            if on_card:
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            commits.append(ddp.last_commit)
+        out["launches"] = dict(qk.launch_counts)
+        t0 = time.perf_counter()
+        out["flushed"] = ckpt.flush(300)
+        out["flush_s"] = time.perf_counter() - t0
+        out["committed_steps"] = ckpt.committed_steps()
+        ckpt.close()
+        out.update(commits=commits, step_s=step_s, losses=losses,
+                   snapshots=ckpt.snapshots, saved=saved,
+                   step=manager.current_step(),
+                   participating_rank=manager.participating_rank())
+        sync = tft.DurableCheckpointer(
+            cfg["store_sync"], manager, state, wire="bf16", mode="sync",
+            device=device, commit_timeout_s=300.0,
+            store=tft.LocalDirStore(cfg["store_sync"]))
+        sync.save()
+        sync.close()
+        out["sync"] = sync.snapshots
+    finally:
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_durable_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+                        batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+    """Two groups write async durable sets of the big LM's state, then a
+    fresh group (new replica id, width 1) cold-restores at its first
+    quorum through the manager's durable consult."""
+    import shutil
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch._tree import flatten
+    from torchft_tpu_torch.models import transformer as tt
+
+    free = shutil.disk_usage(workdir).free
+    need = DURABLE_DISK_BYTES if lm is BIG_LM else 0
+    if free < need:
+        fail(f"durable flash: {free} B free under {workdir}, needs {need}")
+    store, store_sync = (os.path.join(workdir, d) for d in ("store", "sync"))
+    base = {"device": device, "role": "durable_flash", "lm": lm,
+            "batch": batch, "seq": seq, "store": store,
+            "store_sync": store_sync}
+    res = _run_groups(workdir, base, [{}, {}])
+    # the cold group: other weights, a new replica id, width 1
+    dev = torch.device(device)
+    model_cfg = tt.TransformerConfig(**lm)
+    state = tft.FTTrainState(tt.TransformerLM(model_cfg, seed=1,
+                                              device=dev).params(),
+                             tft.AdamW(1e-3, weight_decay=1e-4))
+    lighthouse = tft.Lighthouse(min_replicas=1, join_timeout_ms=100,
+                                quorum_tick_ms=50, heartbeat_timeout_ms=10000)
+    manager = tft.Manager(
+        collectives=tft.DummyCollectives(), load_state_dict=state.load_state_dict,
+        state_dict=state.state_dict, min_replica_size=1, rank=0, world_size=1,
+        lighthouse_addr=lighthouse.address(), replica_id="cold0",
+        device=dev, use_async_quorum=False)
+    ckpt = tft.DurableCheckpointer(store, manager, state, device=dev,
+                                   store=tft.LocalDirStore(store))
+    try:
+        t0 = time.perf_counter()
+        manager.start_quorum()  # the consult restores here
+        restore_s = time.perf_counter() - t0
+        res["restore"] = {
+            "step": manager.current_step(), "wall_s": restore_s,
+            "stats": ckpt.last_restore_stats,
+            "cold_restores": manager.metrics().snapshot()["counters"].get(
+                "durable_cold_restores", 0),
+            "params": _digest(state.params),
+            "moments_k3": _k3_digest(state.opt_state),
+            "count": state.opt_state["count"],
+            "on_device": all(p.device.type == dev.type for p in
+                             flatten(state.params)[0]),
+        }
+        res["disk_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for root in (store, store_sync) for d, _, fs in os.walk(root)
+            for f in fs)
+    finally:
+        ckpt.close()
+        manager.shutdown()
+        lighthouse.shutdown()
+    return res
+
+
+def check_durable_flash(res: dict, on_card: bool = True) -> dict:
+    results = res["results"]
+    launches: dict = {}
+    captures = [s for s in range(1, DURABLE_STEPS + 1) if s % DURABLE_EVERY == 0]
+    for r in results:
+        g, layers = r["group"], r["n_layers"]
+        if not all(r["commits"]) or r["step"] != DURABLE_STEPS:
+            fail(f"durable group {g}: commits {r['commits']} step {r['step']}")
+        if not all(map(_finite, r["losses"])):
+            fail(f"durable group {g}: non-finite loss {r['losses']}")
+        if not r["flushed"]:
+            fail(f"durable group {g}: the writer did not drain")
+        rows = r["snapshots"]
+        if [row["step"] for row in rows] != captures or not all(
+                "write_s" in row and not row["aborted"] for row in rows):
+            fail(f"durable group {g}: captures {rows}")
+        if sorted(int(s) for s in r["saved"]) != captures:
+            fail(f"durable group {g}: recorded {sorted(r['saved'])}")
+        sync = r["sync"]
+        if len(sync) != 1 or "write_s" not in sync[0] or sync[0]["aborted"]:
+            fail(f"durable group {g}: sync baseline {sync}")
+        want = dict.fromkeys(r["launches"], 0)
+        if on_card:
+            want.update(q8_absmax=DURABLE_STEPS, q8_quantize=DURABLE_STEPS,
+                        flash_fwd=layers * DURABLE_STEPS,
+                        flash_bwd=2 * layers * DURABLE_STEPS)
+            want["cast_bf16"] = r["launches"].get("cast_bf16", 0)
+        if r["launches"] != want:
+            fail(f"durable group {g}: launches {r['launches']} != {want}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # the member whose shard holds the moments narrows them: one K3 per
+    # 64 moments per capture
+    if on_card and launches.get("cast_bf16") != len(captures) * -(
+            -DURABLE_MOMENTS // 64):
+        fail(f"durable flash: K3 launched {launches.get('cast_bf16')} times")
+    rank0 = next(r for r in results if r["participating_rank"] == 0)
+    if rank0["committed_steps"] != captures[-DURABLE_KEEP:]:
+        fail(f"durable flash: committed sets {rank0['committed_steps']}")
+    if not all(row["committed"] for row in rank0["snapshots"]):
+        fail(f"durable flash: rank 0's sets {rank0['snapshots']}")
+    saved = {json.dumps(r["saved"][str(captures[-1])], sort_keys=True)
+             for r in results}
+    if len(saved) != 1:
+        fail("durable flash: the groups captured different states")
+    want = results[0]["saved"][str(captures[-1])]
+    rs = res["restore"]
+    if rs["step"] != captures[-1] or rs["cold_restores"] != 1:
+        fail(f"durable flash: the cold group restored {rs}")
+    if rs["params"] != want["params"]:
+        fail("durable flash: restored params differ from the saved step's")
+    if rs["moments_k3"] != want["moments_k3"]:
+        fail("durable flash: restored moments are not K3 of the saved ones")
+    if not rs["on_device"]:
+        fail("durable flash: the restore did not land on the group's device")
+    rows = [row for r in results for row in r["snapshots"]]
+    sync = [r["sync"][0] for r in results]
+    keys = ("stall_s", "capture_split", "write_s", "commit_s", "shard_bytes",
+            "captured_bytes", "total_bytes")
+    return {
+        "launches": launches,
+        "captures": [{k: row[k] for k in keys + ("rank", "step") if k in row}
+                     for row in rows],
+        "sync": [{k: row[k] for k in keys + ("rank",) if k in row}
+                 for row in sync],
+        "step_ms": [round(1e3 * s, 3) for r in results for s in r["step_s"]],
+        "flush_s": [r["flush_s"] for r in results],
+        "restore": {k: rs[k] for k in ("step", "wall_s", "stats")},
+        "disk_bytes": res["disk_bytes"],
+    }
+
+
+def _plain_served(served, params, wire: str, snapshot: bool):
+    """The publisher's served tree after one publish, through the wire
+    kernels' plain versions (``plain_group``) on the same tensors: a
+    snapshot is the decode of the params' encode, a delta ``served +
+    decode(encode(params - served))`` with the subtraction, the decode's
+    product and the add each rounded on its own."""
+    from torchft_tpu_torch._tree import flatten, unflatten
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    leaves, treedef = flatten(params)
+    cur = [l.detach().float().contiguous() for l in leaves]
+    base = None if snapshot else flatten(served)[0]
+    xs = cur if snapshot else [c - b for c, b in zip(cur, base)]
+    counts = [x.numel() for x in xs]
+    n, dev = sum(counts), xs[0].device
+    if wire == "f32":
+        dec = [x.clone() for x in xs]
+    else:
+        if wire == "q8":
+            codes = torch.empty(n, dtype=torch.int8, device=dev)
+            scales = torch.empty(len(xs), device=dev)
+            qk.plain_group["quantize_q8"](xs, codes, scales)
+            flat = torch.empty(n, device=dev)
+            qk.plain_group["q8_dequantize"](codes, scales, counts, flat)
+        else:
+            words = torch.empty(n, dtype=torch.bfloat16, device=dev)
+            qk.plain_group["cast_bf16"](xs, words)
+            flat = words.float()
+        dec = [v.view(x.shape) for v, x in zip(flat.split(counts), xs)]
+    return unflatten(treedef, dec if snapshot
+                     else [b + d for b, d in zip(base, dec)])
+
+
+class _PublishTo:
+    """publish_on_commit's target: forwards to the current wire's
+    publisher, so one commit hook serves the phase's three wires. After
+    each publish it advances the served tree through the plain versions
+    (``_plain_served``) and notes whether the publisher's equals it bit
+    for bit (a hook's exception would be logged and dropped, so the
+    phase reads ``plain_equal``)."""
+
+    def __init__(self) -> None:
+        self.use(None)
+
+    def use(self, publisher) -> None:
+        self.publisher, self.plain, self.plain_equal = publisher, None, []
+
+    def publish(self, params, step=None):
+        m = self.publisher.publish(params, step=step)
+        self.plain = _plain_served(self.plain, params, self.publisher.wire,
+                                   m["kind"] == "snapshot")
+        self.plain_equal.append(_tree_bits_equal(self.plain,
+                                                 self.publisher.served()))
+        return m
+
+
+def _tree_bits_equal(a, b) -> bool:
+    from torchft_tpu_torch._tree import flatten
+
+    la, da = flatten(a)
+    lb, db = flatten(b)
+    return da == db and all(_bits_equal(x, y) for x, y in zip(la, lb))
+
+
+def _concurrently(fns) -> list:
+    """Runs the callables on threads at once; their results in order (an
+    exception raises here)."""
+    out: list = [None] * len(fns)
+    errors: list = []
+
+    def run(i: int) -> None:
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def phase_serving_flash(device: str = "cuda", lm: dict = BIG_LM,
+                        batch: int = BIG_BATCH, seq: int = BIG_SEQ,
+                        versions: int = SERVE_VERSIONS) -> dict:
+    """A training group (this process, one member) publishes its params
+    through publish_on_commit at every committed step: SERVE_VERSIONS
+    versions per wire, a WeightRelay between the publisher and two
+    subscribers, a third subscriber on the publisher (the relay's sync
+    beside the third's install, then the relay's two at once); the
+    publisher's served tree is checked against the plain versions' after
+    every publish, and every subscriber installs on the card and is
+    checked against the publisher's served tree after every version."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch import serving as sv
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    model_cfg = tt.TransformerConfig(**lm)
+    state = tft.FTTrainState(tt.TransformerLM(model_cfg, seed=0,
+                                              device=dev).params(),
+                             tft.AdamW(1e-3, weight_decay=1e-4))
+    grad_fn = tt.make_grad_fn(model_cfg)
+    lighthouse = tft.Lighthouse(min_replicas=1, join_timeout_ms=100,
+                                quorum_tick_ms=50, heartbeat_timeout_ms=10000)
+    manager = tft.Manager(
+        collectives=tft.DummyCollectives(), load_state_dict=state.load_state_dict,
+        state_dict=state.state_dict, min_replica_size=1, rank=0, world_size=1,
+        lighthouse_addr=lighthouse.address(), replica_id="trainer",
+        device=dev, use_async_quorum=False)
+    target = _PublishTo()
+    sv.publish_on_commit(manager, target, lambda: state.params)
+    cfg = {"group": 0, "lm": lm, "batch": batch, "seq": seq}
+    out: dict = {"wires": {}}
+    step_i = [0]
+
+    def train_step() -> bool:
+        manager.start_quorum()
+        _, grads = grad_fn(state.params, _tokens(cfg, step_i[0], dev))
+        step_i[0] += 1
+        avg = manager.allreduce(grads).wait()
+        committed = manager.should_commit()  # the hook publishes here
+        if committed:
+            state.apply_gradients(avg)
+        return committed
+
+    try:
+        qk.reset_launch_counts()
+        t_phase = time.perf_counter()
+        for wire in SERVE_WIRES:
+            pub = sv.WeightPublisher(wire=wire,
+                                     snapshot_every=SERVE_SNAPSHOT_EVERY)
+            relay = sv.WeightRelay(pub.server.local_address(), timeout_s=120.0)
+            subs = [sv.WeightSubscriber(relay.server.local_address(),
+                                        device=dev, timeout_s=120.0,
+                                        name=f"relay-sub{i}")
+                    for i in range(2)]
+            subs.append(sv.WeightSubscriber(pub.server.local_address(),
+                                            device=dev, timeout_s=120.0,
+                                            name="direct-sub"))
+            target.use(pub)
+            rows = []
+            try:
+                for v in range(versions):
+                    if not train_step():
+                        fail(f"serving flash {wire}: step {v} did not commit")
+                    if target.plain_equal != [True] * (v + 1):
+                        fail(f"serving flash {wire} v{v}: the publisher's "
+                             "served tree differs from the plain versions' "
+                             f"({target.plain_equal})")
+                    m = pub.node.store.get(v).manifest
+                    # the relay's sync beside the direct subscriber's
+                    # install, then the relay's two subscribers at once:
+                    # independent clients, as they would run
+                    timed: dict = {}
+
+                    def sync() -> None:
+                        t0 = time.perf_counter()
+                        relay.sync_once()
+                        timed["relay_s"] = time.perf_counter() - t0
+
+                    polled = _concurrently([sync, subs[2].poll])
+                    polled = _concurrently([subs[0].poll, subs[1].poll]) \
+                        + polled[1:]
+                    relay_s = timed["relay_s"]
+                    installs = []
+                    for s, ok in zip(subs, polled):
+                        if not ok:
+                            fail(f"serving flash {wire} v{v}: {s.name} did "
+                                 f"not install ({s.stats})")
+                        version, tree, _ = s.current()
+                        if version != v or sv.tree_digest(tree) != m["digest"]:
+                            fail(f"serving flash {wire} v{v}: {s.name} digest")
+                        if not _tree_bits_equal(tree, pub.served()):
+                            fail(f"serving flash {wire} v{v}: {s.name} differs "
+                                 "from the publisher's served tree")
+                        installs.append(s.last_install)
+                    rows.append({"version": v, "kind": m["kind"],
+                                 "wire_bytes": m["total"],
+                                 "f32_bytes": m["f32_nbytes"],
+                                 "publish": pub.last_publish,
+                                 "relay_sync_s": relay_s,
+                                 "installs": installs})
+                out["wires"][wire] = {
+                    "rows": rows,
+                    "subscribers": {s.name: dict(s.stats) for s in subs},
+                    "relay": relay.node.status()["counters"],
+                    "publisher": pub.status()["counters"],
+                }
+            finally:
+                for s in subs:
+                    s.close()
+                relay.shutdown()
+                pub.shutdown()
+        if on_card:
+            torch.cuda.synchronize()
+        out["launches"] = dict(qk.launch_counts)
+        out["total_s"] = time.perf_counter() - t_phase
+        out["n_layers"] = len(state.params["blocks"])
+    finally:
+        manager.shutdown()
+        lighthouse.shutdown()
+    return out
+
+
+def check_serving_flash(res: dict, on_card: bool = True,
+                        versions: int = SERVE_VERSIONS) -> dict:
+    summary: dict = {"launches": res["launches"], "wires": {}}
+    for wire, w in res["wires"].items():
+        for name, st in w["subscribers"].items():
+            if st["installs"] != versions or st["torn_installs"] != 0:
+                fail(f"serving flash {wire}: {name} {st}")
+        if w["relay"]["syncs"] != versions:
+            fail(f"serving flash {wire}: the relay fetched {w['relay']}")
+        kinds = [r["kind"] for r in w["rows"]]
+        if kinds != ["snapshot" if v % SERVE_SNAPSHOT_EVERY == 0 else "delta"
+                     for v in range(versions)]:
+            fail(f"serving flash {wire}: kinds {kinds}")
+        summary["wires"][wire] = [{
+            "v": r["version"], "kind": r["kind"], "wire_bytes": r["wire_bytes"],
+            "publish_ms": {k: round(1e3 * r["publish"][k], 3) for k in
+                           ("wait_s", "encode_s", "staging_s", "crc_s",
+                            "digest_s", "total_s")},
+            "relay_sync_ms": round(1e3 * r["relay_sync_s"], 3),
+            "install_ms": [{k: round(1e3 * i[k], 3) for k in
+                            ("fetch_s", "decode_s", "digest_s")}
+                           for i in r["installs"]],
+            "bytes_per_subscriber": [i["bytes"] for i in r["installs"]],
+        } for r in w["rows"]]
+    n = len(SERVE_WIRES) * versions
+    layers = res["n_layers"]
+    if on_card:
+        q8 = versions  # one encode per q8 publish
+        want = {"q8_absmax": q8, "q8_quantize": q8,
+                # the publisher's decode of every q8 version, and every
+                # subscriber's install of it
+                "q8_dequantize": q8 * (1 + 3), "cast_bf16": versions,
+                "flash_fwd": layers * n, "flash_bwd": 2 * layers * n}
+        got = {k: res["launches"].get(k, 0) for k in want}
+        if got != want:
+            fail(f"serving flash: launches {got} != {want}")
+    return summary
+
+
+def phase_parameter_server(device: str = "cuda", lm: dict = BIG_LM) -> dict:
+    """A ParameterServer session over the ring shares the big LM's largest
+    leaf (on the card) from server to client and back; a subscriber of
+    serving_address() installs one published version of the LM."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch import serving as sv
+    from torchft_tpu_torch._tree import flatten
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    dev = torch.device(device)
+    params = tt.TransformerLM(tt.TransformerConfig(**lm), seed=0,
+                              device=dev).params()
+    leaf = max(flatten(params)[0], key=lambda t: t.numel()).detach().clone()
+    back: dict = {}
+    done = threading.Event()
+
+    class _Server(tft.ParameterServer):
+        @classmethod
+        def new_collectives(cls):
+            return tft.HostCollectives()
+
+        def forward(self, session_id, collectives):
+            try:
+                collectives.broadcast(leaf, root=0).wait()
+                back["leaf"] = collectives.broadcast(
+                    torch.empty_like(leaf), root=1).wait()
+            finally:
+                done.set()
+
+    out: dict = {"leaf_numel": leaf.numel()}
+    qk.reset_launch_counts()
+    server = _Server(wire="q8", snapshot_every=4)
+    try:
+        port = server.publisher.server.port
+        t0 = time.perf_counter()
+        client = _Server.new_session(f"http://[::1]:{port}/new_session")
+        got = client.broadcast(torch.empty_like(leaf), root=0).wait()
+        client.broadcast(got, root=1).wait()
+        if not done.wait(120):
+            fail("parameter server: the session did not finish")
+        out["session_s"] = time.perf_counter() - t0
+        client.shutdown()
+        out["client_bits"] = _bits_equal(got.to(dev), leaf)
+        out["server_bits"] = _bits_equal(back["leaf"].to(dev), leaf)
+        out["client_on_device"] = got.device.type == dev.type
+        t0 = time.perf_counter()
+        m = server.publish(params, step=0)
+        out["publish_s"] = time.perf_counter() - t0
+        sub = sv.WeightSubscriber(f"http://[::1]:{port}", device=dev,
+                                  timeout_s=120.0)
+        try:
+            out["installed"] = sub.poll()
+            _, tree, _ = sub.current()
+            out["digest_ok"] = sv.tree_digest(tree) == m["digest"]
+            out["served_bits"] = _tree_bits_equal(tree,
+                                                  server.publisher.served())
+            out["install"] = sub.last_install
+            out["stats"] = dict(sub.stats)
+        finally:
+            sub.close()
+        out["serving_address"] = server.serving_address()
+    finally:
+        server.shutdown()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = dict(qk.launch_counts)
+    return out
+
+
+def check_parameter_server(res: dict, on_card: bool = True) -> dict:
+    for k in ("client_bits", "server_bits", "client_on_device", "installed",
+              "digest_ok", "served_bits"):
+        if not res[k]:
+            fail(f"parameter server: {k} failed ({res})")
+    if res["stats"]["torn_installs"]:
+        fail(f"parameter server: {res['stats']}")
+    if on_card:
+        want = {"q8_absmax": 1, "q8_quantize": 1, "q8_dequantize": 2}
+        got = {k: res["launches"].get(k, 0) for k in want}
+        if got != want:
+            fail(f"parameter server: launches {got} != {want}")
+    return {"launches": res["launches"],
+            **{k: res[k] for k in ("leaf_numel", "session_s", "publish_s",
+                                   "install")}}
+
+
+def serving_phases(by_phase: dict) -> None:
+    """The durable flash, serving flash and parameter server phases: each
+    runs, is checked and logged, and puts its launch counts into
+    ``by_phase``."""
+    log("phase durable flash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_durable_") as workdir:
+        t0 = time.perf_counter()
+        dres = phase_durable_flash(workdir)
+        dsum = check_durable_flash(dres)
+        d_s = time.perf_counter() - t0
+    by_phase["durable flash"] = dsum["launches"]
+    log(f"  durable flash {d_s:.1f} s (two groups, PipelinedDDP(q8) blocking "
+        f"steps, DurableCheckpointer(async, bf16 wire, every "
+        f"{DURABLE_EVERY}, keep {DURABLE_KEEP}, register_hook) into a "
+        f"LocalDirStore, {dsum['disk_bytes']} B on disk); async captures "
+        f"{json.dumps(dsum['captures'])}; sync baseline "
+        f"{json.dumps(dsum['sync'])}; step ms {dsum['step_ms']}; writer "
+        f"flush s {dsum['flush_s']}; cold restore at width 1 "
+        f"{json.dumps(dsum['restore'])}")
+    log("phase serving flash")
+    sres = phase_serving_flash()
+    ssum = check_serving_flash(sres)
+    by_phase["serving flash"] = ssum["launches"]
+    log(f"  serving flash {sres['total_s']:.1f} s ({SERVE_VERSIONS} versions "
+        f"per wire from publish_on_commit, snapshot_every "
+        f"{SERVE_SNAPSHOT_EVERY}, a relay and two subscribers behind it, a "
+        f"third on the publisher, all installing on the card)")
+    for wire, rows in ssum["wires"].items():
+        log(f"  serving {wire}: {json.dumps(rows)}")
+    log("phase parameter server")
+    pres = phase_parameter_server()
+    psum = check_parameter_server(pres)
+    by_phase["parameter server"] = psum["launches"]
+    log(f"  parameter server: {json.dumps(psum)}")
+
+
+def legacy_turns(tree_a: str, tree_b: str) -> int:
+    """The legacy and sharded flash phases of two checkouts in turns (a,
+    b, b, a), each turn a process of that checkout's own chip_smoke (its
+    own build), one JSON line per turn: each legacy mode's step p50 and
+    the sharded flash step p50 and all steps."""
+    code = (
+        "import json, tempfile, chip_smoke as cs\n"
+        "cs.phase_build()\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    l = cs.check_legacy(cs.phase_legacy(d))\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    s = cs.check_sharded_flash(cs.phase_sharded_flash(d))\n"
+        "print('TURN ' + json.dumps({'legacy': {m: {k: r[k] for k in "
+        "('step_ms_p50', 'step_ms_all', 'blocking_ms')} for m, r in "
+        "l['modes'].items()}, 'sharded': {k: s[k] for k in "
+        "('step_ms_p50', 'step_ms_all')}}), flush=True)\n"
+    )
+    for label, tree in (("a", tree_a), ("b", tree_b), ("b", tree_b),
+                        ("a", tree_a)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                              capture_output=True, text=True, timeout=1200)
+        line = next((l for l in proc.stdout.splitlines()
+                     if l.startswith("TURN ")), None)
+        if proc.returncode != 0 or line is None:
+            log(proc.stdout[-3000:] + proc.stderr[-3000:])
+            fail(f"turn in {tree} exited {proc.returncode}")
+        print(json.dumps({"turn": label, "tree": tree,
+                          "s": round(time.perf_counter() - t0, 1),
+                          **json.loads(line[5:])}), flush=True)
+    print(_smi(), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--worker", help=argparse.SUPPRESS)
@@ -3176,6 +3905,12 @@ def main() -> int:
     parser.add_argument("--window-phases", action="store_true",
                         help="build, then run only the window-strategy and "
                         "AdaptiveDDP phases")
+    parser.add_argument("--serving-phases", action="store_true",
+                        help="build, then run only the durable flash, "
+                        "serving flash and parameter server phases")
+    parser.add_argument("--legacy-turns", nargs=2, metavar=("TREE_A", "TREE_B"),
+                        help="measure only: the legacy and sharded flash "
+                        "phases of two checkouts in turns (a, b, b, a)")
     args = parser.parse_args()
     if args.worker:
         worker(json.loads(args.worker))
@@ -3196,6 +3931,16 @@ def main() -> int:
         return flash_turns()
     if args.shm_probe:
         return shm_probe()
+    if args.legacy_turns:
+        return legacy_turns(*args.legacy_turns)
+    if args.serving_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase: dict = {}
+        serving_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(_smi(), flush=True)
+        return 0
     if args.window_phases:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         window_phases({})
@@ -3333,6 +4078,8 @@ def main() -> int:
         f"forward+backward each: {json.dumps(rres['rows'])}")
     torch.cuda.empty_cache()  # the card's memory goes to the workers next
     window_phases(by_phase)
+    torch.cuda.empty_cache()
+    serving_phases(by_phase)
     # each kernel's launches over the main paths' runs (the counts each
     # worker, or phase, reset just before a path and read just after)
     for name in rows:
@@ -3361,7 +4108,12 @@ def main() -> int:
             ("diloco reshard", ("q8_absmax", "q8_quantize", "q8_dequantize",
                                 "cast_bf16")),
             ("adaptive flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
-                                "flash_fwd", "flash_bwd"))):
+                                "flash_fwd", "flash_bwd")),
+            ("durable flash", ("cast_bf16",)),
+            ("serving flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
+                               "cast_bf16")),
+            ("parameter server", ("q8_absmax", "q8_quantize",
+                                  "q8_dequantize"))):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:
                 fail(f"{name} never launched on the {phase} path")

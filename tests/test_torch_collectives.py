@@ -266,6 +266,83 @@ class TestBf16WireNaN:
                 c.shutdown()
 
 
+class TestRingKnobs:
+    """ROADMAP F7: the inter-region stripe count and the ring's CRC32C
+    trailer ride the negotiated fingerprint in both packages, so a JAX
+    member and a port member with either knob set share a ring."""
+
+    KNOBS = {"stripes_inter": ("TORCHFT_HC_STRIPES_INTER", "3"),
+             "wire_crc": ("TORCHFT_WIRE_CRC", "1")}
+
+    @pytest.mark.parametrize("wire", [None, "q8ef"])
+    @pytest.mark.parametrize("knob", sorted(KNOBS))
+    def test_mixed_ring_commits_bit_identical(self, store, monkeypatch,
+                                              knob, wire):
+        monkeypatch.setenv(*self.KNOBS[knob])
+        cols = [jcol.HostCollectives(timeout=timedelta(seconds=20), stripes=2),
+                tcol.HostCollectives(timeout=timedelta(seconds=20), stripes=2)]
+        assert cols[1]._stripes_inter == cols[0]._stripes_inter
+        assert cols[1]._wire_crc == cols[0]._wire_crc
+        addr = f"{store.address()}/f7_{knob}_{wire}"
+        regions = ["r0", "r1"]  # two regions: the inter ring is built
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            for f in [ex.submit(c.configure, addr, r, 2, regions)
+                      for r, c in enumerate(cols)]:
+                f.result(timeout=60)
+        try:
+            if knob == "wire_crc":
+                assert tcol._lib.tft_hc_wire_crc(cols[1]._handle) == 1
+            assert cols[1].hier_capable() and cols[0].hier_capable()
+            for step in range(2):
+                grads = _grads(2, seed=7, step=step)
+
+                def run(r, c):
+                    if r == 0:
+                        return c.plan_allreduce(
+                            grads[0], jcol.ReduceOp.AVG, wire=wire,
+                            device_pack=False).wait()
+                    return c.plan_allreduce(
+                        _to_torch(grads[1]), tcol.ReduceOp.AVG, wire=wire,
+                        device_pack=True).wait()
+
+                jax_out, port_out = _run_all(cols, run)
+                assert _leaf_bytes(jax_out) == _leaf_bytes(port_out)
+            hier = _run_all(cols, lambda r, c: c.allreduce_hier(
+                grads[r] if r == 0 else _to_torch(grads[r]),
+                jcol.ReduceOp.AVG if r == 0 else tcol.ReduceOp.AVG).wait())
+            assert _leaf_bytes(hier[0]) == _leaf_bytes(hier[1])
+        finally:
+            for c in cols:
+                c.shutdown()
+
+    @pytest.mark.parametrize("knob", sorted(KNOBS))
+    def test_fingerprint_tokens_match_the_jax_package(self, knob):
+        env, val = self.KNOBS[knob]
+        inter = int(val) if knob == "stripes_inter" else 2
+        crc = knob == "wire_crc"
+        fp = tcol._fingerprint(2, inter, ["r0", "r1"], [], 4, 4 << 20, crc)
+        assert fp == f"4:{4 << 20}:2:{inter}:r0,r1" + (":crc1" if crc else "")
+
+    def test_crc_mismatch_fails_configure(self, store):
+        # (the connect timeouts bound rank 0's wait for its lost peer)
+        cols = [jcol.HostCollectives(timeout=timedelta(seconds=20),
+                                     connect_timeout=timedelta(seconds=2),
+                                     stripes=2, wire_crc=False),
+                tcol.HostCollectives(timeout=timedelta(seconds=20),
+                                     connect_timeout=timedelta(seconds=2),
+                                     stripes=2, wire_crc=True)]
+        try:
+            addr = f"{store.address()}/f7_mismatch"
+            with ThreadPoolExecutor(max_workers=2) as ex:
+                futs = [ex.submit(c.configure, addr, r, 2)
+                        for r, c in enumerate(cols)]
+                with pytest.raises(RuntimeError, match="mismatch"):
+                    futs[1].result(timeout=60)
+        finally:
+            for c in cols:
+                c.shutdown()
+
+
 def test_plain_allreduce_matches_jax(store):
     jax_member = jcol.HostCollectives(timeout=timedelta(seconds=20), stripes=2)
     port_member = tcol.HostCollectives(timeout=timedelta(seconds=20), stripes=2)

@@ -1003,3 +1003,103 @@ def test_legacy_ops_on_card_leaves_match_cpu_leaves(cuda_device):
                     assert x.dtype == y.dtype and _bytes(x) == _bytes(y), k
     finally:
         store.shutdown()
+
+
+# -- the serving wire and the durable capture on the card ----------------------
+
+
+@pytest.mark.cuda
+def test_q8_group_encode_matches_plain(cuda_device):
+    """The serving wire's EF-free group encode: one K1a and one K1b launch
+    per 64 leaves over a zero carry that is never written, the codes and
+    scales bit for bit the plain version's (the poisoned leaves too)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    shapes = [(1000,), (0,), (33, 17), (), (2049,), (7,)] * 12  # 72 leaves
+    leaves = [_randn(s, gen, cuda_device, 1e-2) for s in shapes]
+    leaves[3].fill_(float("nan"))  # a 0-d leaf
+    leaves[8].view(-1)[0] = float("inf")  # a (33, 17) leaf
+    n = sum(l.numel() for l in leaves)
+    zeros = torch.zeros(n, device=cuda_device)
+    scratch = torch.empty(n, device=cuda_device)
+    codes = torch.empty(n, dtype=torch.int8, device=cuda_device)
+    scales = torch.empty(len(leaves), device=cuda_device)
+    before = dict(tq.launch_counts)
+    tq.quantize_q8_group(leaves, codes, scales, zeros, scratch)
+    assert tq.launch_counts["q8_absmax"] == before["q8_absmax"] + _tables(72)
+    assert tq.launch_counts["q8_quantize"] == before["q8_quantize"] + _tables(72)
+    assert not zeros.any()
+    pc = torch.empty(n, dtype=torch.int8)
+    ps = torch.empty(len(leaves))
+    tq.plain_group["quantize_q8"]([l.cpu() for l in leaves], pc, ps)
+    assert _bytes(codes) == _bytes(pc) and _bytes(scales) == _bytes(ps)
+    assert scales[3].view(torch.int32).item() == 0x7FC00000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["q8", "bf16", "f32"])
+def test_card_resident_served_tree_matches_the_cpu_publisher(cuda_device, wire):
+    """The publisher's served tree on the card (encode K1a/K1b or K3, the
+    delta's decode K2 and its add as two roundings) is bit for bit the one
+    a publisher of the same weights on the CPU (the plain versions) keeps:
+    equal manifests' CRC and digest, equal served bits; a subscriber on
+    the card installs the same bits."""
+    from torchft_tpu_torch import serving as ts
+
+    pubs = {d: ts.WeightPublisher(wire=wire, snapshot_every=4)
+            for d in ("cuda", "cpu")}
+    sub = ts.WeightSubscriber(pubs["cuda"].server.local_address(),
+                              device=cuda_device, timeout_s=30.0)
+    try:
+        before = dict(tq.launch_counts)
+        for v in range(6):
+            ms = {d: pubs[d].publish(ts.demo_params(4, 5, 3001, v, device=d),
+                                     step=v)
+                  for d in pubs}
+            assert ms["cuda"]["crc"] == ms["cpu"]["crc"]
+            assert ms["cuda"]["digest"] == ms["cpu"]["digest"]
+            served = {d: pubs[d].served() for d in pubs}
+            for k in served["cpu"]:
+                assert served["cuda"][k].is_cuda
+                assert _bytes(served["cuda"][k]) == _bytes(served["cpu"][k])
+            assert sub.poll()
+            got = sub.current()[1]
+            for k in got:
+                assert got[k].is_cuda
+                assert _bytes(got[k]) == _bytes(served["cpu"][k])
+        after = tq.launch_counts
+        if wire == "q8":
+            assert after["q8_quantize"] - before["q8_quantize"] == 6
+            # the publisher's 6 decodes (snapshots and deltas) and the
+            # subscriber's 6 installs
+            assert after["q8_dequantize"] - before["q8_dequantize"] == 6 + 6
+        if wire == "bf16":
+            assert after["cast_bf16"] - before["cast_bf16"] == 6
+    finally:
+        sub.close()
+        for p in pubs.values():
+            p.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_copy", [False, True])
+def test_durable_capture_on_card_holds_the_captured_step(cuda_device,
+                                                         zero_copy):
+    """A shard-limited staging of card state: K3 narrows the moments, the
+    bytes equal a CPU staging's, and an in-place update queued after the
+    capture (behind a ~0.5 s spin) does not reach them, with the d2h
+    deferred (zero_copy) or not."""
+    from torchft_tpu_torch import checkpointing as ck
+
+    card = _heal_state(cuda_device)
+    want = ck._StreamStaging(_tree_to(card, "cpu"), "bf16", shard_of=(1, 3))
+    w = card["user"]["params"]["w"]
+    staged = ck._StreamStaging(card, "bf16", shard_of=(1, 3),
+                               zero_copy=zero_copy)
+    torch.cuda._sleep(500_000_000)
+    w.add_(1.0)  # the next step's write, queued behind the capture
+    for m in card["user"]["opt_state"]["mu"]:
+        m.mul_(-1.0)
+    assert staged.captured_bytes == want.captured_bytes
+    b, e = staged._range
+    assert staged.range_crc32c(b, e) == want.range_crc32c(b, e)
+    assert bytes(staged._slice(b, e)) == bytes(want._slice(b, e))

@@ -40,6 +40,10 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
         "import torchft_tpu_torch.checkpointing, "
         "torchft_tpu_torch.models.transformer, "
         "torchft_tpu_torch.ops.flash_attention\n"
+        "import torchft_tpu_torch.durable, torchft_tpu_torch.serving, "
+        "torchft_tpu_torch.parameter_server\n"
+        "from torchft_tpu_torch import (DurableCheckpointer, ParameterServer, "
+        "StaleWeightsError, WeightPublisher, WeightRelay, WeightSubscriber)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'optax', 'ml_dtypes', 'torchft_tpu'))\n"
         "assert not bad, bad\n"

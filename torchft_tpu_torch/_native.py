@@ -95,6 +95,9 @@ _SIGNATURES = {
     # host-tier transport of the last configure: 0 none, 1 loopback TCP
     # (TORCHFT_HC_SHM=0), 2 shared-memory rings
     "tft_hc_host_tier_transport": (_i64, [_vp]),
+    # the ring's CRC32C frame trailer: 1 on, 0 off (before configure)
+    "tft_hc_set_wire_crc": (None, [_vp, _int]),
+    "tft_hc_wire_crc": (_int, [_vp]),
     "tft_hc_release": (_int, [_vp]),
     "tft_hc_abort": (None, [_vp]),
     "tft_hc_allreduce": (_int, [_vp, _vp, ctypes.c_size_t, _int, _int, _i64]),

@@ -307,9 +307,10 @@ def _bytes_of(t: torch.Tensor) -> torch.Tensor:
 
 
 class _StreamStaging:
-    """The donor half of the streamed heal, built once per (publish,
-    wire): the layout (``meta``: the skeleton and the packed total) and
-    one host buffer holding every leaf's bytes at its offset.
+    """A packed-stream staging of a state tree: the layout (``meta``: the
+    skeleton and the packed total) and a host buffer holding the bytes.
+    The streamed heal builds one per (publish, wire); the durable tier
+    and the serving plane build one per snapshot or version.
 
     Card leaves reach the buffer on a side stream that first waits on
     ``ready`` (a device and an event recorded there on the stream that
@@ -318,11 +319,32 @@ class _StreamStaging:
     the next optimizer update. Under ``wire="bf16"`` the ``opt_state``
     f32 leaves are narrowed on their device first (on the card one
     segmented K3 call over all of them, a launch per 64 leaves; on the
-    CPU its plain version), which halves their copy."""
+    CPU its plain version), which halves their copy.
+
+    ``shard_of=(rank, world)`` limits the capture to one member's shard:
+    the layout and ``total`` follow from shapes alone, then only the
+    bytes in ``[total*rank//world, total*(rank+1)//world)`` are copied
+    (the floor split of ``durable.shard_bounds``). A leaf that straddles
+    an edge gives only its in-range elements, the span widened outward to
+    whole wire elements; ``captured_bytes`` counts what was copied, and a
+    read outside the shard raises. The buffer always owns its bytes (a
+    copy, unlike the JAX package's views of immutable arrays), so a
+    staging may outlive the step it captured: every staging is a
+    snapshot, and the JAX package's ``snapshot`` switch has no
+    counterpart.
+
+    ``zero_copy`` (card leaves only): the capture is one device-side copy
+    of the shard's bytes on the current stream, behind which the
+    trainer's next update queues, plus an event; the d2h into the host
+    buffer runs at the first read (the durable writer thread) behind
+    that event. The trainer's stall is then the device copy alone, not
+    the d2h. Leaves off the card take the copying path."""
 
     def __init__(
         self, state_dict: Any, wire: Optional[str], seq: int = 0,
         ready: Optional[Tuple[torch.device, torch.cuda.Event]] = None,
+        shard_of: Optional[Tuple[int, int]] = None,
+        zero_copy: bool = False,
     ) -> None:
         t0 = time.perf_counter()
         self.seq = seq
@@ -348,10 +370,47 @@ class _StreamStaging:
             plan.append((t, narrow, offset, nbytes))
             offset += nbytes
         self.total = offset
-        on_card = any(t.is_cuda for t, _, _, _ in plan)
-        self.buffer = torch.empty(offset, dtype=torch.uint8, pin_memory=on_card)
-        self._view = memoryview(self.buffer.numpy()).cast("B")
-        self._capture(plan, ready)
+        if shard_of is not None:
+            rank, world = shard_of
+            if world < 1 or not 0 <= rank < world:
+                raise ValueError(f"bad shard {rank} of {world}")
+            begin, end = offset * rank // world, offset * (rank + 1) // world
+        else:
+            begin, end = 0, offset
+        self._range = (begin, end)
+        # The in-range element slice of every leaf that meets the range:
+        # (flat slice, narrow, stream offset, bytes).
+        ents: List[Tuple[torch.Tensor, bool, int, int]] = []
+        for t, narrow, off, nbytes in plan:
+            if off >= end or off + nbytes <= begin:
+                continue
+            ws = 2 if narrow else t.element_size()
+            lo = (max(begin, off) - off) // ws * ws
+            hi = min(nbytes, -(-(min(end, off + nbytes) - off) // ws) * ws)
+            ents.append((t.reshape(-1)[lo // ws:hi // ws], narrow, off + lo,
+                         hi - lo))
+        # contiguous in the stream: [first slice's start, last slice's end)
+        self._base = ents[0][2] if ents else begin
+        self.captured_bytes = (ents[-1][2] + ents[-1][3] - self._base
+                               if ents else 0)
+        self._lock = threading.Lock()
+        # zero_copy: (card buffer, event after its copy, [(lo, hi)] runs)
+        self._pending: Optional[Tuple[torch.Tensor, Any, list]] = None
+        on_card = any(t.is_cuda for t, _, _, _ in ents)
+        t1 = time.perf_counter()
+        if zero_copy and ents and all(t.is_cuda for t, _, _, _ in ents) \
+                and len({t.device for t, _, _, _ in ents}) == 1:
+            self.buffer: Optional[torch.Tensor] = None
+            self._view: Optional[memoryview] = None
+            t2 = t1
+            self._capture_on_card(ents, ready)
+        else:
+            self._set_buffer(torch.empty(self.captured_bytes,
+                                         dtype=torch.uint8,
+                                         pin_memory=on_card))
+            t2 = time.perf_counter()
+            self._capture(ents, ready)
+        t3 = time.perf_counter()
         buf = io.BytesIO()
         pickle.dump(
             {"v": 1, "wire": wire, "total": offset, "seq": seq,
@@ -359,16 +418,25 @@ class _StreamStaging:
             buf, protocol=pickle.HIGHEST_PROTOCOL,
         )
         self.meta = buf.getvalue()
-        # what the first request of the publish paid (host buffer, copies)
+        # what the build cost its caller (the stall of a durable
+        # capture), and its parts: the layout, the host buffer's
+        # allocation, the copies (waiting for the state's writer
+        # included), the meta pickle
         self.build_s = time.perf_counter() - t0
+        self.split = {"layout_s": t1 - t0, "alloc_s": t2 - t1,
+                      "copy_s": t3 - t2, "meta_s": self.build_s - (t3 - t0)}
 
-    def _capture(self, plan, ready) -> None:
+    def _set_buffer(self, buffer: torch.Tensor) -> None:
+        self.buffer = buffer
+        self._view = memoryview(buffer.numpy()).cast("B")
+
+    def _capture(self, ents, ready) -> None:
         by_device: Dict[torch.device, list] = {}
-        for ent in plan:
+        for ent in ents:
             by_device.setdefault(ent[0].device, []).append(ent)
-        for device, ents in by_device.items():
+        for device, dents in by_device.items():
             if device.type != "cuda":
-                self._copy_in(ents)
+                self._copy_in(dents, self.buffer)
                 continue
             side = torch.cuda.Stream(device)
             if ready is not None and ready[0] == device:
@@ -376,14 +444,27 @@ class _StreamStaging:
             else:
                 side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
-                self._copy_in(ents)
+                self._copy_in(dents, self.buffer)
                 done = side.record_event()
             done.synchronize()
 
-    def _copy_in(self, ents) -> None:
-        """Copies leaves of one device into the buffer at their offsets
-        (on the current stream), narrowing the marked ones with one K3
-        launch over all of them."""
+    def _capture_on_card(self, ents, ready) -> None:
+        """The zero-copy capture: the shard's bytes into one card buffer
+        on the current stream (the trainer's next update queues behind
+        the copy), an event after it; :meth:`_host_view` moves them."""
+        device = ents[0][0].device
+        cur = torch.cuda.current_stream(device)
+        if ready is not None and ready[0] == device:
+            cur.wait_event(ready[1])
+        dev = torch.empty(self.captured_bytes, dtype=torch.uint8,
+                          device=device)
+        self._copy_in(ents, dev)
+        self._pending = (dev, cur.record_event(), [(0, self.captured_bytes)])
+
+    def _copy_in(self, ents, dst: torch.Tensor) -> None:
+        """Copies leaf slices of one device into ``dst`` at their stream
+        offsets less the staging's base (on the current stream),
+        narrowing the marked ones with one K3 launch over all of them."""
         narrow = [t for t, n, _, _ in ents if n]
         words = None
         if narrow:
@@ -398,19 +479,95 @@ class _StreamStaging:
             else:
                 src = t
             if nbytes:
-                self.buffer[off:off + nbytes].copy_(_bytes_of(src),
-                                                    non_blocking=t.is_cuda)
+                rel = off - self._base
+                dst[rel:rel + nbytes].copy_(
+                    _bytes_of(src), non_blocking=t.is_cuda and not dst.is_cuda)
+
+    def _host_view(self) -> memoryview:
+        """The host bytes, moving a zero-copy capture's card buffer down
+        first (once, on a side stream behind the capture's event)."""
+        with self._lock:
+            if self._pending is not None:
+                dev, event, runs = self._pending
+                self._set_buffer(torch.empty(self.captured_bytes,
+                                             dtype=torch.uint8,
+                                             pin_memory=True))
+                side = torch.cuda.Stream(dev.device)
+                side.wait_event(event)
+                with torch.cuda.stream(side):
+                    for lo, hi in runs:
+                        self.buffer[lo:hi].copy_(dev[lo:hi], non_blocking=True)
+                side.synchronize()
+                self._pending = None  # the card buffer goes
+            return self._view
+
+    def _slice(self, begin: int, end: int) -> memoryview:
+        cb, ce = self._range
+        if begin < cb or end > ce:
+            raise ValueError(
+                f"range [{begin}, {end}) outside captured span [{cb}, {ce}) "
+                "of a shard-limited staging")
+        return self._host_view()[begin - self._base:end - self._base]
 
     def write_range(self, wfile: Any, begin: int, end: int) -> None:
         """Streams bytes [begin, end) of the packed layout into ``wfile``
         as one slice of the staging buffer."""
         if begin < end:
-            wfile.write(self._view[begin:end])
+            wfile.write(self._slice(begin, end))
 
     def range_crc32c(self, begin: int, end: int) -> int:
         """CRC32C over bytes [begin, end): the ``X-TFT-Crc32c`` header of a
         range response, over exactly what :meth:`write_range` ships."""
-        return _crc32c(self._view[begin:end] if begin < end else b"")
+        return _crc32c(self._slice(begin, end) if begin < end else b"")
+
+
+def load_packed_meta(raw: bytes) -> Dict[str, Any]:
+    """Safelisted unpickle of a packed-stream meta blob (a
+    :class:`_StreamStaging`'s ``meta``): the layout skeleton and the wire
+    parameters, never code."""
+    meta = _SafeUnpickler(io.BytesIO(raw)).load()
+    if not isinstance(meta, dict) or "skeleton" not in meta:
+        raise ValueError("packed meta blob missing skeleton")
+    return meta
+
+
+def rebuild_from_packed(
+    meta: Dict[str, Any], buf: Any, *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Any:
+    """The state tree of a packed byte buffer laid out by
+    :class:`_StreamStaging` (all ``meta['total']`` bytes: a durable
+    snapshot reassembled from its shards, or a verified serving version),
+    its leaves on ``device`` (``None``: the card). On the CPU a leaf is a
+    view of ``buf`` (a copy of it when ``buf`` is read-only); on the card
+    the whole buffer goes up in one copy and the leaves are views of it.
+    Wire-narrowed leaves (the bf16 opt-state) widen back to their dtype
+    (exact)."""
+    device = resolve_device(device)
+    total = int(meta["total"])
+    view = memoryview(buf).cast("B")
+    if view.nbytes < total:
+        raise ValueError(
+            f"packed buffer holds {view.nbytes} bytes, layout needs {total}")
+    if view.readonly:
+        view = memoryview(bytearray(view[:total]))
+    host = (torch.frombuffer(view, dtype=torch.uint8, count=total)
+            if total else torch.empty(0, dtype=torch.uint8))
+    base = host if device.type == "cpu" else host.to(device)
+    slots, treedef = flatten(meta["skeleton"])
+    out: List[Any] = []
+    for slot in slots:
+        if not isinstance(slot, _ArraySlot):
+            out.append(slot)
+            continue
+        wdtype = _dtype_by_name(slot.wire_dtype)
+        odtype = _dtype_by_name(slot.dtype)
+        raw = base[slot.offset:slot.offset + slot.nbytes]
+        if slot.offset % wdtype.itemsize:
+            raw = raw.clone()  # a dtype view needs an aligned offset
+        leaf = raw.view(wdtype).reshape(slot.shape)
+        out.append(leaf if wdtype == odtype else leaf.to(odtype))
+    return unflatten(treedef, out)
 
 
 class _TimedAcquire:

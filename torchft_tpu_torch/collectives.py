@@ -431,17 +431,21 @@ def _resolve_device_pack_setting(setting: Any) -> Optional[bool]:
     return bool(setting)
 
 
-def _fingerprint(stripes: int, regions: Sequence[str],
-                 hosts: Sequence[str], chunks: int, min_bytes: int) -> str:
+def _fingerprint(stripes: int, stripes_inter: int, regions: Sequence[str],
+                 hosts: Sequence[str], chunks: int, min_bytes: int,
+                 wire_crc: bool) -> str:
     """The ring-schedule fingerprint every member checks through the
     store at configure. The first two fields are the legacy pipeline's
-    knobs (they decide how many native ops one allreduce issues), the
-    stripe count stands for both the flat and the inter-region rings,
-    then the region map, and, only when every rank carries a host
-    label, the host map and the shm knobs (transport and ring capacity:
-    the two ends of a shm ring must agree). Identical to a JAX member's
-    with the same knobs, so members of both packages share a ring."""
-    fp = f"{chunks}:{min_bytes}:{stripes}:{stripes}:{','.join(regions)}"
+    knobs (they decide how many native ops one allreduce issues), then
+    the flat and the inter-region stripe counts, the region map,
+    ``:crc1`` only when the ring's CRC trailer is on (a CRC-off fleet
+    keeps the fingerprint of peers without the knob), and, only when
+    every rank carries a host label, the host map and the shm knobs
+    (transport and ring capacity: the two ends of a shm ring must
+    agree). Identical to a JAX member's with the same knobs, so members
+    of both packages share a ring."""
+    fp = (f"{chunks}:{min_bytes}:{stripes}:{stripes_inter}"
+          f":{','.join(regions)}" + (":crc1" if wire_crc else ""))
     if hosts and all(hosts):
         shm_on = os.environ.get("TORCHFT_HC_SHM", "").lower() not in (
             "0", "off", "false")
@@ -931,6 +935,8 @@ class HostCollectives(OpStatsMixin, Collectives):
         stripes: Optional[int] = None,
         pipeline_chunks: Optional[int] = None,
         pipeline_min_bytes: int = 4 << 20,
+        stripes_inter: Optional[int] = None,
+        wire_crc: Optional[bool] = None,
     ) -> None:
         """``stripes`` > 1 spreads every ring op over that many parallel
         TCP connections (or shm rings) per neighbour (default: env
@@ -939,9 +945,17 @@ class HostCollectives(OpStatsMixin, Collectives):
         ``pipeline_min_bytes`` into that many ring ops, so the card's
         d2h copy, the ring and the upload overlap (default: env
         ``TORCHFT_HC_PIPELINE_CHUNKS``, else 4); chunk boundaries depend
-        only on sizes, so results stay bit-identical across ranks. All
-        members of a ring must agree on all three; configure() checks
-        them through the store."""
+        only on sizes, so results stay bit-identical across ranks.
+        ``stripes_inter`` is the inter-region (leader) ring's connection
+        count under the two-tier schedule (default: env
+        ``TORCHFT_HC_STRIPES_INTER``; <= 0 follows ``stripes``).
+        ``wire_crc`` puts a CRC32C trailer on every ring frame, and a
+        mismatch raises :class:`~._native.WireCorruption` (latched by the
+        Manager, the step discarded) instead of committing corrupted
+        bytes (default: env ``TORCHFT_WIRE_CRC`` in 1/on/true; off, the
+        frames are those of peers without the knob). All members of a
+        ring must agree on all of these; configure() checks them through
+        the store."""
         self._handle = _lib.tft_hc_create()
         self._timeout = timeout
         self._connect_timeout = connect_timeout
@@ -953,6 +967,16 @@ class HostCollectives(OpStatsMixin, Collectives):
         if stripes is None:
             stripes = int(os.environ.get("TORCHFT_HC_STRIPES", "4"))
         self._stripes = min(max(int(stripes), 1), _MAX_STRIPES)
+        if stripes_inter is None:
+            stripes_inter = int(
+                os.environ.get("TORCHFT_HC_STRIPES_INTER", "0"))
+        # <= 0: follow stripes (resolved at configure, so the fingerprint
+        # carries the effective count)
+        self._stripes_inter = min(int(stripes_inter), _MAX_STRIPES)
+        if wire_crc is None:
+            wire_crc = os.environ.get("TORCHFT_WIRE_CRC", "").lower() in (
+                "1", "on", "true")
+        self._wire_crc = bool(wire_crc)
         self._world_size = 0
         self._rank = -1
         # One thread: collectives must issue in submission order.
@@ -1011,15 +1035,19 @@ class HostCollectives(OpStatsMixin, Collectives):
                     f"labels for world_size {world_size})"
                 )
 
+        stripes_inter = (self._stripes_inter if self._stripes_inter > 0
+                         else self._stripes)
+
         def do_configure() -> None:
             if world_size > 1:
                 hostport, _, prefix = store_addr.partition("/")
                 store = _native.StoreClient(
                     hostport, connect_timeout=self._connect_timeout
                 )
-                mine = _fingerprint(self._stripes, region_list, host_list,
+                mine = _fingerprint(self._stripes, stripes_inter,
+                                    region_list, host_list,
                                     self._pipeline_chunks,
-                                    self._pipeline_min_bytes)
+                                    self._pipeline_min_bytes, self._wire_crc)
                 key = f"{prefix}/pipecfg" if prefix else "pipecfg"
                 if rank == 0:
                     store.set(key, mine.encode())
@@ -1034,11 +1062,12 @@ class HostCollectives(OpStatsMixin, Collectives):
                             "use the same ring settings and see the same "
                             "region and host maps"
                         )
+            _lib.tft_hc_set_wire_crc(self._handle, 1 if self._wire_crc else 0)
             _check(
                 _lib.tft_hc_configure_hier(
                     self._handle, store_addr.encode(), rank, world_size,
                     _ms(self._connect_timeout), self._stripes,
-                    self._stripes,
+                    stripes_inter,
                     json.dumps(region_list).encode() if region_list else b"",
                     json.dumps(host_list).encode() if host_list else b"",
                 )

@@ -31,8 +31,11 @@ plane's per-op stats into the rolling wire and per-tier throughput that
 ``signals()`` reports and ``push_status`` publishes to the lighthouse.
 
 A "replica group" is one GPU (or one host's GPUs); intra-group
-parallelism is invisible to this class. The isolated data plane and
-durable-restore arbitration of the JAX Manager are not ported.
+parallelism is invisible to this class. Commit hooks
+(:meth:`Manager.add_commit_hook`) observe every vote, which is where the
+durable tier captures and the serving plane publishes; a cold fleet's
+first quorum consults the durable tier (``durable_restore``). The
+isolated data plane of the JAX Manager is not ported.
 """
 
 from __future__ import annotations
@@ -98,6 +101,9 @@ class Manager:
         host_label: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
         use_async_quorum: bool = True,
+        checkpoint_transport: Optional[CheckpointTransport[Dict[str, T]]] = None,
+        profiler: Optional[Profiler] = None,
+        durable_restore: Optional[Callable[[], Optional[int]]] = None,
     ) -> None:
         """
         Args:
@@ -130,9 +136,17 @@ class Manager:
                 False waits for it in ``start_quorum``, where a healing
                 member applies the fetched state and then takes part in
                 the step like any other.
-
-        A windowed ``torch.profiler`` capture follows the
-        ``TORCHFT_PROFILE_*`` variables (:class:`.profiling.Profiler`).
+            checkpoint_transport: the live-recovery transport (default:
+                a :class:`~.checkpointing.CheckpointServer` on ``device``).
+            profiler: a windowed ``torch.profiler`` capture (default: one
+                from the ``TORCHFT_PROFILE_*`` variables, or none).
+            durable_restore: the durable tier's cold-start fallback
+                (``DurableCheckpointer.restore_latest``; its constructor
+                registers it through :meth:`set_durable_restore`). It is
+                consulted once, at the first quorum, and only when no
+                member has committed a step (``max_step == 0``) and this
+                one is at step 0: a live donor always wins over the
+                durable tier.
         """
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
@@ -171,7 +185,8 @@ class Manager:
         # a healing peer waits for (card state)
         self._writer_stream: Optional[torch.cuda.Stream] = None
         self._checkpoint_transport: CheckpointTransport[Dict[str, T]] = (
-            CheckpointServer(timeout=timeout, device=self._device)
+            checkpoint_transport if checkpoint_transport is not None
+            else CheckpointServer(timeout=timeout, device=self._device)
         )
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="async_quorum"
@@ -193,7 +208,11 @@ class Manager:
         self._participating_rank: Optional[int] = None
         self._participating_world_size: int = 0
         self._metrics = Metrics()
-        self._profiler = Profiler.from_env()
+        self._profiler = profiler if profiler is not None else Profiler.from_env()
+        # observers of every vote: hook(step, quorum_id, committed)
+        self._commit_hooks: List[Callable[[int, int, bool], None]] = []
+        self._durable_restore = durable_restore
+        self._durable_consulted = False
         # signals(): the last measured wire and per-tier throughput
         self._last_wire_eff_mbps: Optional[float] = None
         self._last_tier_mbps: Dict[str, float] = {}
@@ -342,6 +361,23 @@ class Manager:
             # part.
             self._participating_rank = result.replica_rank
             self._participating_world_size = result.replica_world_size
+
+        if self._durable_restore is not None and not self._durable_consulted:
+            # One-shot donor/durable arbitration at the first quorum: a
+            # live donor (max_step > 0) is at least as fresh as any
+            # committed snapshot and the heal ships it, so the durable
+            # tier is consulted only by a cold fleet. Every member
+            # restores from the shared store, so the fleet rises at one
+            # committed step; a member that finds nothing init-syncs
+            # from a restored peer as usual.
+            self._durable_consulted = True
+            if self._step == 0 and result.max_step == 0:
+                restored = self._durable_restore()
+                if restored is not None:
+                    self._metrics.incr("durable_cold_restores")
+                    logger.info(
+                        f"[{self._replica_id}/{self._rank}] cold fleet: "
+                        f"restored durable step {restored} (no live donor)")
 
         if result.quorum_id != self._quorum_id:
             if self._quorum_id != -1:
@@ -720,10 +756,14 @@ class Manager:
 
     # -- commit protocol --
 
-    def should_commit(self, timeout: Optional[timedelta] = None) -> bool:
+    def should_commit(self, timeout: Optional[timedelta] = None,
+                      count_batches: bool = True) -> bool:
         """Distributed AND-vote on step validity: True iff every rank of
         every participating group completed the step without errors and
-        the quorum has at least ``min_replica_size`` participants."""
+        the quorum has at least ``min_replica_size`` participants.
+        ``count_batches=False`` marks a control transaction: a commit
+        advances the step but not ``batches_committed``. The commit hooks
+        run last, on this thread, with the vote final."""
         self.wait_quorum()
 
         for work in self._pending_work:
@@ -760,11 +800,21 @@ class Manager:
 
         if should_commit:
             self._step += 1
-            self._batches_committed += self.num_participants()
+            if count_batches:
+                self._batches_committed += self.num_participants()
         self._metrics.incr("commits" if should_commit else "aborts")
         if self._errored is not None:
             self._metrics.incr("errors")
         self._healing = False
+        # The commit boundary: the quorum thread is settled and the vote
+        # final, so (step, quorum_id) names one committed fleet state.
+        # Hooks are observers: a failing snapshot or publish must never
+        # abort training, so their exceptions are logged and dropped.
+        for hook in self._commit_hooks:
+            try:
+                hook(self._step, self._quorum_id, should_commit)
+            except Exception as e:  # noqa: BLE001
+                logger.warning(f"commit hook failed: {e!r}")
         return should_commit
 
     # -- state --
@@ -890,6 +940,34 @@ class Manager:
         """Committed step count; skipped steps don't increment it."""
         return self._step
 
+    def replica_id(self) -> str:
+        """This group's replica id (the configured name, then a per-run
+        uuid): the durable tier keys per-member state on its stable
+        prefix."""
+        return self._replica_id
+
+    def batches_committed(self) -> int:
+        """Batches committed across all replica groups and steps."""
+        return self._batches_committed
+
+    def add_commit_hook(self, hook: Callable[[int, int, bool], None]) -> None:
+        """Registers ``hook(step, quorum_id, committed)``, run at the end
+        of every ``should_commit`` on the training thread, after the step
+        counter moved on a commit: the durable tier's capture point and
+        the serving plane's publish point. The optimizer has not yet
+        written the next step, but card work it queued may still be in
+        flight: a hook that reads card state orders itself after the
+        current stream (the staging does). Hooks must not raise; an
+        exception is logged and dropped."""
+        self._commit_hooks.append(hook)
+
+    def set_durable_restore(
+        self, fn: Optional[Callable[[], Optional[int]]]
+    ) -> None:
+        """Registers (or clears) the durable tier's cold-start fallback
+        (the ``durable_restore`` argument); ``DurableCheckpointer``
+        registers its ``restore_latest`` here when built."""
+        self._durable_restore = fn
 
     def num_participants(self) -> int:
         """Replica groups participating in the current step."""
@@ -905,6 +983,13 @@ class Manager:
         assert self._quorum_future is not None, "quorum not started"
         self.wait_quorum()
         return self._quorum_id
+
+    def participating_rank(self) -> Optional[int]:
+        """This group's rank among the participants; None while healing
+        or a spare. Settles the quorum thread first."""
+        assert self._quorum_future is not None, "quorum not started"
+        self.wait_quorum()
+        return self._participating_rank
 
     def is_participating(self) -> bool:
         """False while healing or a spare: gradients are zeroed then. A

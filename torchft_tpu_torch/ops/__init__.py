@@ -15,6 +15,7 @@ from .quantize_kernels import (
     quantize_q8,
     quantize_q8_ef,
     quantize_q8_ef_group,
+    quantize_q8_group,
 )
 
 __all__ = [
@@ -27,5 +28,6 @@ __all__ = [
     "quantize_q8",
     "quantize_q8_ef",
     "quantize_q8_ef_group",
+    "quantize_q8_group",
     "reset_launch_counts",
 ]

@@ -33,8 +33,9 @@ carry advanced in place (the q8ef device pack's path,
 ``collectives._DeviceWirePacker``); :func:`cast_bf16_group` one K3
 launch, the bf16 words written into the group's wire buffer (the bf16
 device pack's path); :func:`dequantize_q8_group` one K2 launch, the
-inverse of the q8ef group layout. The per-leaf functions launch the same
-kernels with a one-segment table.
+inverse of the q8ef group layout; :func:`quantize_q8_group` the EF-free
+encode of the serving wire, on the K1a/K1b pair over a zero carry. The
+per-leaf functions launch the same kernels with a one-segment table.
 
 Bound on the card (H100 SXM, 3.35 TB/s): bytes. K1a reads x and res (8
 B/element), K1b reads them again and writes the int8 code and the new
@@ -363,6 +364,34 @@ def quantize_q8_ef_group(leaves: Sequence[torch.Tensor], res_flat: torch.Tensor,
     _quantize_launch(table, absmax, codes_out, scales_out)
 
 
+def quantize_q8_group(leaves: Sequence[torch.Tensor], codes_out: torch.Tensor,
+                      scales_out: torch.Tensor, zeros: torch.Tensor,
+                      res_scratch: torch.Tensor) -> None:
+    """:func:`quantize_q8` over every leaf of a group at once, with no
+    error feedback (the serving wire): leaf k's codes into ``codes_out``
+    at its offset in the leaves' concatenation, its scale into
+    ``scales_out[k]``. The launches are :func:`quantize_q8_ef_group`'s
+    (one K1a, one K1b per 64 leaves) over a zero carry: ``zeros`` (flat
+    f32, the leaves' element count, all zero) is read and never written,
+    and the residual the pair writes lands in ``res_scratch`` (the same
+    size, not overlapping it). The caller owns both and keeps them
+    across calls. ``d = x + 0`` turns only a ``-0.0`` into ``+0.0``,
+    whose code is 0 either way, so the codes and scales are the JAX
+    package's ``quantize_q8`` and its numpy oracle's for finite leaves; a
+    leaf holding NaN or Inf gives codes 0 and scale ``0x7FC00000``."""
+    quantize_q8_ef_group(leaves, zeros, codes_out, scales_out,
+                         res_out=res_scratch)
+
+
+def _quantize_q8_group_plain(leaves: Sequence[torch.Tensor],
+                             codes_out: torch.Tensor,
+                             scales_out: torch.Tensor) -> None:
+    n = sum(l.numel() for l in leaves)
+    zeros = torch.zeros(n, dtype=torch.float32, device=codes_out.device)
+    _quantize_q8_ef_group_plain(leaves, zeros, codes_out, scales_out,
+                                torch.empty_like(zeros))
+
+
 def quantize_q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """EF-free quantization: ``(q, scale)`` of :func:`quantize_q8_ef`
     with a zero residual."""
@@ -518,6 +547,7 @@ plain = {
 plain_group = {
     "q8_absmax": _q8_absmax_group_plain,
     "quantize_q8_ef": _quantize_q8_ef_group_plain,
+    "quantize_q8": _quantize_q8_group_plain,
     "q8_dequantize": _dequantize_q8_group_plain,
     "cast_bf16": _cast_bf16_group_plain,
 }
