@@ -6,8 +6,9 @@ transaction on the dense LM and on the flash-attention LM, flat, on the
 two-tier schedule, on the legacy transport and as per-step ZeRO, the
 window strategies (AsyncDiLoCo, sharded DiLoCo) and AdaptiveDDP, the
 durable checkpoint tier, the weight-serving plane and the parameter
-server — through the entry points a user calls, at full
-width (random weights from a seed):
+server, the durable control plane with the launcher's hot spares, the
+chaos plane and the policy engine — through the entry points a user
+calls, at full width (random weights from a seed):
 the transformer LM the repository benchmarks by default (vocab 8192,
 d_model 512, 8 heads, 6 layers, d_ff 2048, sequence 512, batch 16: 39 f32
 leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
@@ -50,14 +51,14 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            FTTrainState/AdamW + PipelinedDDP(compress="q8",
            transport="plan", device_pack=True), which gates every update
            on the commit vote: 2 warm-up steps (first quorum, ring, plan,
-           staging), 6 timed steps, 3 steps under a torch.profiler trace
+           staging), 4 timed steps, 2 steps under a torch.profiler trace
            of the card (group 0), then one step with compress="bf16";
 5. heal    a third worker joins late, heals from a live peer through the
            CheckpointServer's streamed zero-copy path onto the card (the
            smoke fails on any other path), and all three train on;
 6. flash train  two replica-group workers train the big LM with
            use_flash=True through the same PipelinedDDP(compress="q8")
-           transaction: 2 warm-up steps, 4 timed steps, then 2 steps under
+           transaction: 2 warm-up steps, 3 timed steps, then 2 steps under
            a torch.profiler trace of the card (group 0), which must show
            the tensor-core flash kernels; group 0 first holds the flash
            loss against the dense loss on the same weights (forward only,
@@ -66,7 +67,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            PipelinedDDP(compress="q8", transport="plan", hier=True): their
            sync rides the shared-memory host tier (one region: no inter
            hop, so no q8; the f32 average, a different schedule from the
-           flat q8 ring, not a faster copy of it); 2 warm-up, 4 timed and
+           flat q8 ring, not a faster copy of it); 2 warm-up, 3 timed and
            2 traced steps;
 8. hier dense  four groups on the dense LM in regions [r0, r0, r1, r1]
            on hosts [h0, h0, h1, h1]: the shm host tier and the
@@ -74,13 +75,13 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            steps;
 9. legacy  two groups on the dense LM through PipelinedDDP(transport=
            "legacy") in every compress mode (None, bf16, q8, int8: 1
-           warm-up, 3 pipelined and 1 blocking step each) beside the plan
-           transport's q8 (1 + 3 steps), then broadcast and barrier across
+           warm-up, 2 pipelined and 1 blocking step each) beside the plan
+           transport's q8 (1 + 2 steps), then broadcast and barrier across
            the two and the DummyCollectives fake on the card;
 10. sharded flash  two groups on the big LM through
            ShardedOptimizerWrapper (ShardedDDP, shard_wire="q8",
            param_wire="bf16") on states built with opt_state=(): 2 warm-up
-           and 4 steps, the optimizer state half of AdamW's per group;
+           and 3 steps, the optimizer state half of AdamW's per group;
 11. sharded reshard  two dense groups on ShardedOptimizerWrapper, then a
            third joins: it heals the wrapper's state (the shard, its
            meta of Python ints) over the stream and every member
@@ -105,7 +106,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            + step_applied(), outer AsyncDiLoCo(SGD(0.7, momentum=0.9,
            nesterov=True)), sync_every 4, in each of compress="bf16"
            (overlap), "int8" (no overlap) and "q8" (overlap): 1 warm and
-           2 timed windows each; prints per mode the inner step p50, each
+           1 timed window each; prints per mode the inner step p50, each
            sync's launch and finish ms, the window time per inner step
            and its ratio to the bare inner step (no manager) timed in the
            same workers;
@@ -122,7 +123,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            TORCHFT_HOST and TORCHFT_DDP_SHARDED=1: six candidates
            (blocking, plan on the host pack of the card leaves,
            plan_devpack, plan_hier over the shm tier, pipelined,
-           ddp_sharded), 12 probe steps after the anchor, 3 locked;
+           ddp_sharded), 12 probe steps after the anchor, 2 locked;
            prints decision["probe_s"] and the locked mode;
 18. durable flash  two groups on the big LM (PipelinedDDP(q8) blocking
            steps) with DurableCheckpointer(mode="async", wire="bf16",
@@ -136,7 +137,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            the saved ones; prints each capture's stall_s, write_s,
            commit_s and bytes, and the restore's seconds;
 19. serving flash  a training group (this process) publishes its params
-           through publish_on_commit, 6 versions per wire (q8, bf16,
+           through publish_on_commit, 5 versions per wire (q8, bf16,
            f32; snapshot_every 4): the encode on the card (K1a/K1b, K3)
            and the q8 decode (K2) of the served tree; a WeightRelay and
            two subscribers behind it, a third on the publisher, all
@@ -148,7 +149,37 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
 20. parameter server  a session over the ring sends the big LM's
            largest leaf (on the card) from server to client and back,
            bit-identical; a subscriber of serving_address() installs one
-           q8 version of the LM.
+           q8 version of the LM;
+21. control dense  two dense groups through launcher.launch with hot
+           spares, two in-process region lighthouses and a root failover
+           set of two RootProcesses (an active root with a WAL, a standby
+           with --standby --peers); the workers are this script re-run
+           with --control-worker on PipelinedDDP(q8) blocking steps; each
+           spare runs HostCollectives.prewarm and FTTrainState.warm on the
+           card and parks at standby_gate(). Group 1's primary is
+           SIGKILLed at step CONTROL_KILL_STEP: its spare is promoted and
+           heals over the stream on the bf16 wire (K3 in the donor); then
+           the active root is SIGKILLed and the fleet fails over to the
+           standby root. The same two groups then run cold (restart only,
+           the raw heal wire) with the same kill. Prints kill-to-first-
+           commit seconds (promoted, cold), the heals' fetch_s / h2d_s,
+           the takeover and failover seconds, and each spare's warm-up
+           seconds, launches and memory;
+22. chaos flash  two flash groups on PipelinedDDP(q8) blocking steps with
+           TORCHFT_WIRE_CRC=1 under a seeded FaultPlan (ring_send
+           bit_flip, duplicate, drop, delay, truncate and ring_hdr
+           bit_flip, one each at attempted steps 1-6), armed each step
+           in each worker's own fault engine; then a SIGKILL of group 1
+           and its restart, healing through a HealFaultProxy that
+           truncates one stream range of the donor (the fallback must
+           carry it). Prints the seed and plan, the faults injected and
+           detected, the steps discarded and the recovery times;
+23. policy flash  two flash groups on a sync-quorum manager under
+           PolicyEngine: ddp_plan (q8) against sharded diloco_q8_h4
+           (outer SGD(0.7, 0.9, Nesterov)), a decision every 4 steps,
+           CostKnobs(sync_fixed_s=0.5); prints each decision's costs and
+           signals, the switch tick and each decision transaction's
+           seconds.
 
 The train, flash train and hier phases drain Manager.observe_op_stats()
 around their timed steps and print, per cell, the native per-bucket
@@ -191,7 +222,20 @@ and diloco reshard phases, K4/K5 in the sharded flash, async diloco
 flash, sharded diloco and adaptive flash phases, K1a/K1b/K2 in the
 adaptive flash phase; K3 in the durable flash phase, K1a/K1b/K2/K3 in
 the serving flash phase, K1a/K1b/K2 in the parameter server phase,
-with exact counts), the card's name and power limit, and
+with exact counts; K1a/K1b/K3 in the control dense phase, K1a/K1b/K4/K5
+in the chaos flash phase and K1a/K1b/K2/K4/K5 in the policy flash
+phase). The control dense phase checks that quorum ids only go up,
+that every replacement healed over the stream to a state the donor
+served (bit for bit), that the cold run ends bit-identical and the hot
+run (whose bf16 heal wire rounds the AdamW moments) within the AdamW
+step bound, that the standby root took over and that each spare's
+prewarm launched the q8 pack. The chaos flash phase checks the four
+invariants: quorum epochs never go back, the groups end bit-identical,
+every corrupting fault's step is discarded and detected as
+WireCorruption, and commits follow the last fault and the restart (whose
+heal must fall back off the stream path). The policy flash phase checks
+that both members took identical decisions, at least one a committed
+switch, and end bit-identical. The card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero.
 
@@ -202,7 +246,9 @@ this script re-run with ``--worker``, the heal donor with
 turns (flat, hier, hier, flat), one JSON line per turn; ``--shm-probe``
 checks only that the machine's /dev/shm takes the shm host tier;
 ``--window-phases`` builds and runs only phases 14-17,
-``--serving-phases`` only phases 18-20; ``--legacy-turns A B`` runs the
+``--serving-phases`` only phases 18-20, ``--control-phases`` only
+phases 21-23 (the launched workers are this script re-run with
+``--control-worker``); ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
 a), each from its own chip_smoke.py and build.
 """
@@ -228,15 +274,15 @@ LM = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
           max_seq_len=512)
 BATCH, SEQ = 16, 512
 WARM_STEPS = 2         # untimed q8 steps: first quorum, ring, plan, staging
-Q8_STEPS = 6           # timed PipelinedDDP(q8) steps of the train phase
-TRACED_STEPS = 3       # q8 steps under the profiler (not timed)
+Q8_STEPS = 4           # timed PipelinedDDP(q8) steps of the train phase
+TRACED_STEPS = 2       # q8 steps under the profiler (not timed)
 TRACED_FLASH_STEPS = 2  # flash steps under the profiler (not timed)
-HEAL_STEPS = 3         # steps all three groups take after the late join
+HEAL_STEPS = 2         # steps all three groups take after the late join
 # bench.py's "big" LM (bench.py:131-147) on its flash path
 BIG_LM = dict(vocab_size=8192, d_model=1024, n_heads=16, n_layers=8,
               d_ff=4096, max_seq_len=2048, use_flash=True)
 BIG_BATCH, BIG_SEQ = 16, 2048
-FLASH_STEPS = 4        # timed flash steps, after WARM_STEPS untimed ones
+FLASH_STEPS = 3        # timed flash steps, after WARM_STEPS untimed ones
 HIER_HOST = "smoke_host"  # the host label both hier flash groups carry
 # hier dense: (region, host) of each of its four groups
 HIER_DENSE_LABELS = [("r0", "h0"), ("r0", "h0"), ("r1", "h1"), ("r1", "h1")]
@@ -244,9 +290,9 @@ HIER_DENSE_STEPS = 3   # steps after WARM_STEPS untimed ones
 # legacy phase: the compress modes of PipelinedDDP(transport="legacy"),
 # each 1 warm-up and LEGACY_STEPS timed pipelined steps then a blocking one
 LEGACY_MODES = (None, "bf16", "q8", "int8")
-LEGACY_STEPS = 3
+LEGACY_STEPS = 2
 # sharded flash phase: ShardedDDP(shard_wire="q8") steps on the big LM
-SHARDED_WARM, SHARDED_STEPS = 2, 4
+SHARDED_WARM, SHARDED_STEPS = 2, 3
 # the big LM's full AdamW state (mu + nu, f32): what ZeRO halves at W = 2
 FLASH_ADAMW_BYTES = 2 * 4 * 111_166_464
 # sharded reshard phase: founder steps before the late joiner, and steps
@@ -258,8 +304,8 @@ RESHARD_STEPS = 3
 # DILOCO_SYNC_EVERY inner steps, beside RAW_STEPS bare inner steps
 DILOCO_MODES = (("bf16", True), ("int8", False), ("q8", True))
 DILOCO_SYNC_EVERY = 4
-DILOCO_WARM_WINDOWS, DILOCO_WINDOWS = 1, 2
-RAW_STEPS = 6
+DILOCO_WARM_WINDOWS, DILOCO_WINDOWS = 1, 1
+RAW_STEPS = 4
 # sharded diloco: windows on the big LM; the outer Nesterov momentum is
 # half of the big LM's f32 size per group at W = 2
 SHARDED_DILOCO_WINDOWS = 2
@@ -269,7 +315,7 @@ SHARDED_OUTER_BYTES = 4 * 111_166_464 // 2
 DILOCO_RESHARD_WINDOWS = 2
 # adaptive flash: probe steps per candidate, steps after the lock
 ADAPTIVE_PROBE_STEPS = 2
-ADAPTIVE_LOCKED_STEPS = 3
+ADAPTIVE_LOCKED_STEPS = 2
 ADAPTIVE_HOST = "smoke_host"  # an explicit TORCHFT_HOST: plan_hier races
 # the big LM's attention call: (B, S, H, head_dim), S = 2048 less the
 # token loss_fn drops
@@ -284,7 +330,7 @@ FLASH_DENSE_LOSS_RTOL = 2.0 ** -7
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # K3 against its library call: rounds, and graph replays of each per round
-K3_ROUNDS, K3_REPLAYS = 5, 200
+K3_ROUNDS, K3_REPLAYS = 3, 200
 KERNEL_SOURCES = {
     "q8_absmax": "torchft_tpu_torch/csrc/quantize_kernels.cu",
     "q8_quantize": "torchft_tpu_torch/csrc/quantize_kernels.cu",
@@ -542,6 +588,12 @@ def worker(cfg: dict) -> None:
         return
     if cfg["role"] == "durable_flash":
         durable_worker(cfg)
+        return
+    if cfg["role"] == "chaos":
+        chaos_worker(cfg)
+        return
+    if cfg["role"] == "policy":
+        policy_worker(cfg)
         return
     import torchft_tpu_torch as tft
     from torchft_tpu_torch.models import transformer as tt
@@ -3259,7 +3311,7 @@ DURABLE_MOMENTS = 2 * 51
 # with room for the sync baseline's set
 DURABLE_DISK_BYTES = 3 * (4 + 2 * 2) * 111_166_464
 # serving flash: versions per wire, the snapshot cadence, the wires
-SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 6, 4
+SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 5, 4
 SERVE_WIRES = ("q8", "bf16", "f32")
 
 
@@ -3859,6 +3911,1043 @@ def serving_phases(by_phase: dict) -> None:
     log(f"  parameter server: {json.dumps(psum)}")
 
 
+# -- the durable control plane, the chaos plane, the policy engine ---------------
+
+# control dense: group 1's primary dies once both groups committed
+# CONTROL_KILL_STEP steps; the active root dies CONTROL_ROOT_KILL_AFTER
+# commits after the promoted spare's first; every group then takes
+# CONTROL_TAIL_STEPS more steps. The cold run kills at the same step.
+CONTROL_KILL_STEP = 4
+CONTROL_ROOT_KILL_AFTER = 3
+CONTROL_TAIL_STEPS = 3
+CONTROL_LEASE_MS = 1000      # the managers' lease: a dead group leaves fast
+CONTROL_TAKEOVER_MS = 1500   # the standby root's sync-starvation bound
+CONTROL_LR = 1e-3            # the workers' AdamW rate (the drift bound)
+# a ring configure waits this long for a member that registered its
+# next quorum intent and then died (async quorum: the intent goes out at
+# the top of the step), then the step fails and the next quorum drops it
+CONTROL_CONNECT_S = 3
+# a quorum round or a ring op that outlives these raises or fails the
+# step, and the worker retries: through the region tier a member's
+# quorum request can arrive after the root formed the quorum from its
+# previous intent, and it then waits for a newer one (ROADMAP Queue 3,
+# R1) while its peer waits in the ring (a dense step's ring is ~60 ms)
+CONTROL_QUORUM_TIMEOUT_S = 10
+CONTROL_OP_TIMEOUT_S = 10
+# chaos flash: the plan's faults land at attempted steps 1..6, one each;
+# the SIGKILL of group 1 at CHAOS_KILL_STEP; CHAOS_TAIL_STEPS clean steps
+# after the restarted group's first commit
+CHAOS_SEED = 1212
+CHAOS_KINDS = (("ring_send", "bit_flip"), ("ring_send", "duplicate"),
+               ("ring_send", "drop"), ("ring_send", "delay"),
+               ("ring_send", "truncate"), ("ring_hdr", "bit_flip"))
+CHAOS_KILL_STEP = 8
+CHAOS_TAIL_STEPS = 2
+# a ring op's deadline: a dropped frame can cost one, and the donor's op
+# must outlast the restarted group's heal inside its sync quorum (the
+# 1.33 GB fetch falling back to the striped path, ~6 s on the card)
+CHAOS_OP_TIMEOUT_S = 20.0
+CORRUPTING_KINDS = ("bit_flip", "duplicate")
+# policy flash: two candidates, a decision every 4 attempted steps, the
+# windowed one on 4-step windows; POLICY_STEPS ends on a window's sync
+POLICY_DECIDE_EVERY = 4
+POLICY_SYNC_EVERY = 4
+POLICY_STEPS = 12
+# the knob that makes the switch: a per-sync fixed cost of 0.5 s (the
+# model's default is 2 ms) charges every per-step sync and a quarter of
+# it to a 4-step window
+POLICY_KNOBS = {"sync_fixed_s": 0.5}
+
+
+def _checksum(params) -> int:
+    """An exact fingerprint of the params' bits, folded on the device
+    (the leaves' int32 words summed in int64), cheap enough to take at a
+    heal."""
+    from torchft_tpu_torch._tree import flatten
+
+    total = 0
+    for p in flatten(params)[0]:
+        s = int(p.detach().reshape(-1).view(torch.int32).to(torch.int64).sum())
+        total = (total * 1000003 + s) % (1 << 64)
+    return total
+
+
+def _smi_used_bytes() -> "int | None":
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits", "--id=0"],
+            capture_output=True, text=True, timeout=20).stdout
+        return int(float(out.strip().splitlines()[0])) << 20
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
+def _context_bytes() -> "int | None":
+    """What one more process's CUDA context takes on the card: the card's
+    used memory before and after a fresh process creates its context
+    (one small allocation), less that allocation's pool, with no other
+    worker running. Every spare pays it on top of its warm-up."""
+    code = (
+        "import json, torch, chip_smoke as cs\n"
+        "before = cs._smi_used_bytes()\n"
+        "torch.empty(1, device='cuda')\n"
+        "torch.cuda.synchronize()\n"
+        "after = cs._smi_used_bytes()\n"
+        "print(json.dumps([before, after, torch.cuda.memory_reserved()]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    try:
+        before, after, reserved = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        return None
+    if before is None or after is None:
+        return None
+    return after - before - reserved
+
+
+def _read_stop(workdir: str) -> "int | None":
+    try:
+        with open(os.path.join(workdir, "stop")) as f:
+            return int(f.read())
+    except (OSError, ValueError):
+        return None
+
+
+def _progress(workdir: str, g: int) -> list:
+    try:
+        with open(os.path.join(workdir, f"progress_{g}.jsonl")) as f:
+            return [json.loads(l) for l in f if l.strip()]
+    except OSError:
+        return []
+
+
+def control_worker(cfg: dict) -> None:
+    """One process of a launched replica group (``launch`` sets
+    REPLICA_GROUP_ID, TORCHFT_LIGHTHOUSE, TORCHFT_LIGHTHOUSE_ROOT,
+    TORCHFT_REGION, and TORCHFT_STANDBY_FILE on a hot spare). A spare
+    warms on the card (``HostCollectives.prewarm`` and
+    ``FTTrainState.warm`` on zero gradients), records its memory and
+    parks at ``standby_gate()``; a primary (or a promoted spare) trains
+    on PipelinedDDP(compress="q8") blocking steps until the stop file's
+    step, logging every transaction to ``progress_<group>.jsonl``."""
+    os.environ.update(cfg.get("env", {}))
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch import platform as tplat
+    from torchft_tpu_torch._tree import flatten, tree_map
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+    from datetime import timedelta
+
+    g = int(os.environ["REPLICA_GROUP_ID"])
+    workdir = cfg["workdir"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    standby = bool(os.environ.get("TORCHFT_STANDBY_FILE"))
+    tag = f"{g}_{os.getpid()}"
+    info: dict = {"group": g, "pid": os.getpid(), "standby": standby,
+                  "t_start": time.time()}
+    qk.reset_launch_counts()
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    model = tt.TransformerLM(model_cfg, seed=0, device=device)
+    state = tft.FTTrainState(model.params(),
+                             tft.AdamW(CONTROL_LR, weight_decay=1e-4))
+    collectives = tft.HostCollectives(
+        timeout=timedelta(seconds=CONTROL_OP_TIMEOUT_S),
+        connect_timeout=timedelta(seconds=CONTROL_CONNECT_S))
+    if standby and tplat.standby_should_warm():
+        t0 = time.perf_counter()
+        if on_card:
+            torch.cuda.synchronize(device)
+            info["reserved_before_warm"] = torch.cuda.memory_reserved(device)
+        grads_like = tree_map(torch.zeros_like, state.params)
+        collectives.prewarm(grads_like, wire="q8ef")
+        state.warm(grads_like)
+        if on_card:
+            torch.cuda.synchronize(device)
+            info["reserved_after_warm"] = torch.cuda.memory_reserved(device)
+        info["warm_s"] = time.perf_counter() - t0
+        info["warm_launches"] = dict(qk.launch_counts)
+        with open(os.path.join(workdir, f"standby_{tag}.json"), "w") as f:
+            json.dump(info, f)
+    tplat.standby_gate()
+    info["t_gate"] = time.time()
+    served: list = []
+    healed: list = []
+    box: dict = {}
+
+    def state_dict():
+        served.append({"step": box["m"].current_step(),
+                       "checksum": _checksum(state.params)})
+        return state.state_dict()
+
+    def load_state_dict(sd):
+        state.load_state_dict(sd)
+        healed.append({"checksum": _checksum(state.params),
+                       "t": time.time()})
+
+    manager = box["m"] = tft.Manager(
+        collectives=collectives, load_state_dict=load_state_dict,
+        state_dict=state_dict, min_replica_size=2, rank=0, world_size=1,
+        replica_id=f"g{g}", device=device,
+        timeout=timedelta(seconds=CONTROL_OP_TIMEOUT_S),
+        quorum_timeout=timedelta(seconds=CONTROL_QUORUM_TIMEOUT_S))
+    model_grad = tt.make_grad_fn(model_cfg)
+    ddp = tft.PipelinedDDP(manager, state, model_grad, compress="q8",
+                           transport="plan", device_pack=True)
+    prog = open(os.path.join(workdir, f"progress_{g}.jsonl"), "a")
+    data = {"group": g, "lm": cfg["lm"], "batch": cfg["batch"],
+            "seq": cfg["seq"]}
+    heals_seen = 0
+    try:
+        while True:
+            stop = _read_stop(workdir)
+            if stop is not None and manager.current_step() >= stop:
+                break
+            tokens = _tokens(data, manager.current_step(), device)
+            t0 = time.time()
+            err = None
+            try:
+                ddp.blocking_step(tokens)
+                committed = bool(ddp.last_commit)
+            except Exception as e:  # noqa: BLE001 - a peer died mid-quorum
+                err = repr(e)
+                committed = False
+                try:
+                    if manager.errored() is None:
+                        manager.report_error(e)
+                    manager.should_commit()
+                except Exception:  # noqa: BLE001
+                    pass
+            # (the quorum's id as configured: quorum_id() would re-raise a
+            # failed quorum)
+            row = {"t0": t0, "t": time.time(), "pid": os.getpid(),
+                   "step": manager.current_step(),
+                   "qid": manager._quorum_id, "committed": committed,
+                   "err": err or (repr(manager.errored())
+                                  if manager.errored() else None)}
+            if len(healed) > heals_seen:
+                heals_seen = len(healed)
+                row["heal"] = {
+                    **(manager.checkpoint_transport().last_fetch_stats or {}),
+                    "checksum": healed[-1]["checksum"]}
+            prog.write(json.dumps(row) + "\n")
+            prog.flush()
+        if on_card:
+            torch.cuda.synchronize(device)
+        info.update({
+            "launches": dict(qk.launch_counts), "served": served,
+            "step": manager.current_step(), "digest": _digest(state.params),
+            "heals": manager.metrics().snapshot()["counters"].get("heals", 0),
+        })
+        # the final params, for the drift bound across a bf16-wire heal
+        torch.save([p.detach().cpu() for p in flatten(state.params)[0]],
+                   os.path.join(workdir, f"params_{tag}.pt"))
+        if on_card:
+            info["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                device)
+    finally:
+        prog.close()
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{tag}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def _wait_progress(workdir: str, pred, timeout_s: float, what: str,
+                   watch=None) -> dict:
+    """Polls the groups' progress logs until ``pred(logs)`` returns a
+    truthy value; fails after ``timeout_s`` or when ``watch()`` says the
+    run is gone."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        logs = {g: _progress(workdir, g) for g in (0, 1)}
+        v = pred(logs)
+        if v:
+            return v
+        if watch is not None and watch():
+            fail(f"control run ended while waiting for {what}")
+        if time.monotonic() > deadline:
+            fail(f"timed out waiting for {what}: "
+                 f"{ {g: l[-3:] for g, l in logs.items()} }")
+        time.sleep(0.05)
+
+
+def _committed(log_rows: list, after: float = 0.0, pid=None) -> list:
+    return [r for r in log_rows if r["committed"] and r["t"] > after
+            and (pid is None or r["pid"] == pid)]
+
+
+def _control_run(workdir: str, lighthouse_addr: str, hot: bool, base: dict,
+                 roots=None) -> dict:
+    """One launched run of two dense groups: ``hot`` with a spare per
+    group, two in-process regions and the root failover set (``roots``:
+    the active and the standby RootProcess, killed in turn); cold with
+    restarts only. Group 1's primary dies at CONTROL_KILL_STEP."""
+    from torchft_tpu_torch import launcher
+    from torchft_tpu_torch.chaos import kill_process
+
+    os.makedirs(workdir, exist_ok=True)
+    cfg = {**base, "workdir": workdir}
+    if hot:
+        cfg["env"] = {**cfg.get("env", {}), "TORCHFT_HEAL_WIRE": "bf16"}
+    cmd = [sys.executable, os.path.abspath(__file__), "--control-worker",
+           json.dumps(cfg)]
+    result: dict = {}
+    kw = {"hot_spare": True, "regions": 2,
+          "root_addrs": ",".join(r.address() for r in roots)} if hot else {}
+
+    def run() -> None:
+        result["rc"] = launcher.launch(cmd, 2, lighthouse_addr,
+                                       max_restarts=2, **kw)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    gone = lambda: not th.is_alive()  # noqa: E731
+    out: dict = {"hot": hot}
+    _wait_progress(workdir, lambda logs: all(
+        len(_committed(logs[g])) >= CONTROL_KILL_STEP for g in (0, 1)),
+        300, "both groups' first steps", gone)
+    if hot:  # promote a spare that finished its warm-up
+        def warm_spare(_):
+            return [f for f in os.listdir(workdir)
+                    if f.startswith("standby_1_")]
+        _wait_progress(workdir, warm_spare, 300, "group 1's warm spare", gone)
+    victim = _progress(workdir, 1)[-1]["pid"]
+    t_kill = out["t_kill"] = time.time()
+    kill_process(victim)
+    first = _wait_progress(
+        workdir, lambda logs: next(iter(
+            [r for r in _committed(logs[1], t_kill) if r["pid"] != victim]),
+            None), 300, "the replacement's first commit", gone)
+    out["kill_to_first_commit_s"] = first["t"] - t_kill
+    out["replacement_pid"] = first["pid"]
+    heal = _wait_progress(workdir, lambda logs: next(iter(
+        [r["heal"] for r in logs[1] if r["pid"] == first["pid"]
+         and "heal" in r]), None), 60, "the replacement's heal", gone)
+    out["heal"] = heal
+    if hot:
+        _wait_progress(workdir, lambda logs: len(_committed(
+            logs[1], t_kill, first["pid"])) >= CONTROL_ROOT_KILL_AFTER,
+            120, "commits after the promotion", gone)
+        active, standby = roots
+        t_root = time.time()
+        active.kill()
+        while not (standby.status(timeout=0.5) or {}).get("active"):
+            if time.time() - t_root > 60:
+                fail("the standby root never took over")
+            time.sleep(0.02)
+        out["takeover_s"] = time.time() - t_root
+        # failed over: both groups' leases are live at the new active root
+        # again (their regions' digests, or a demoted manager's own
+        # renewal); the leases it mirrored from the dead root lapsed
+        # before the takeover (CONTROL_LEASE_MS < CONTROL_TAKEOVER_MS)
+        def both_at_standby() -> bool:
+            st = standby.status(timeout=0.5) or {}
+            ids = {m["replica_id"].split(":")[0]
+                   for m in st.get("members", [])
+                   if m.get("lease_remaining_ms", 0) > 0}
+            return {"g0", "g1"} <= ids
+        while not both_at_standby():
+            if time.time() - t_root > 60:
+                fail(f"the fleet never registered at the standby root: "
+                     f"{standby.status()}")
+            time.sleep(0.02)
+        out["root_failover_s"] = time.time() - t_root
+        after = _wait_progress(workdir, lambda logs: all(
+            _committed(logs[g], t_root) for g in (0, 1)) and logs, 120,
+            "commits after the root failover", gone)
+        out["first_commits_after_root_kill_s"] = [round(
+            _committed(after[g], t_root)[0]["t"] - t_root, 3)
+            for g in (0, 1)]
+        # a commit under a quorum the new root formed: the cohort's
+        # membership is re-agreed there (a quorum id past the last one
+        # committed before the kill)
+        qid_before = max(r["qid"] for g in (0, 1) for r in after[g]
+                         if r["committed"] and r["t"] <= t_root)
+        st = standby.status() or {}
+        out["standby_root"] = {k: st.get(k) for k in (
+            "role", "active", "root_epoch", "quorum_id", "wal_replayed")}
+        out["standby_root"]["regions"] = sorted(
+            r.get("region_id") for r in st.get("regions", []))
+        out["qid_before_root_kill"] = qid_before
+    last = max(r["step"] for g in (0, 1) for r in _progress(workdir, g))
+    with open(os.path.join(workdir, "stop.tmp"), "w") as f:
+        f.write(str(last + CONTROL_TAIL_STEPS))
+    os.replace(os.path.join(workdir, "stop.tmp"),
+               os.path.join(workdir, "stop"))
+    th.join(300)
+    if th.is_alive() or result.get("rc") != 0:
+        fail(f"the launched groups did not exit cleanly: {result}")
+    out["total_s"] = time.perf_counter() - t0
+    out["logs"] = {g: _progress(workdir, g) for g in (0, 1)}
+    out["results"] = []
+    out["standbys"] = []
+    for name in sorted(os.listdir(workdir)):
+        path = os.path.join(workdir, name)
+        if name.startswith("result_"):
+            with open(path) as f:
+                r = json.load(f)
+            r["params_file"] = os.path.join(
+                workdir, "params_" + name[len("result_"):-5] + ".pt")
+            out["results"].append(r)
+        elif name.startswith("standby_"):
+            with open(path) as f:
+                out["standbys"].append(json.load(f))
+    return out
+
+
+def phase_control_dense(workdir: str, device: str = "cuda", lm: dict = LM,
+                        batch: int = BATCH, seq: int = SEQ) -> dict:
+    """The hot run (spares, two regions, a WAL'd active root and a standby
+    root as processes) then the cold run (restarts only, a flat
+    in-process lighthouse) of the same two dense groups. Every quorum
+    holds both groups (``min_replicas=2``): the survivor waits for the
+    replacement instead of training alone."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.chaos import RootProcess, free_port
+
+    base = {"device": device, "lm": lm, "batch": batch, "seq": seq,
+            "env": {"TORCHFT_LEASE_TTL_MS": str(CONTROL_LEASE_MS)}}
+    context = _context_bytes() if device == "cuda" else None
+    t0 = time.perf_counter()
+    ports = [free_port(), free_port()]
+    addrs = [f"http://localhost:{p}" for p in ports]
+    roots = []
+    try:
+        for i in (0, 1):
+            roots.append(RootProcess(
+                ports[i], wal_dir=os.path.join(workdir, f"wal_{i}"),
+                peers=addrs[1 - i], standby=i == 1,
+                takeover_ms=CONTROL_TAKEOVER_MS, join_timeout_ms=2000,
+                heartbeat_timeout_ms=CONTROL_LEASE_MS, min_replicas=2))
+            roots[-1].wait_serving()
+        hot = _control_run(os.path.join(workdir, "hot"), addrs[0], True, base,
+                           roots)
+    finally:
+        for r in roots:
+            r.stop()
+    lighthouse = tft.Lighthouse(min_replicas=2, join_timeout_ms=2000,
+                                heartbeat_timeout_ms=CONTROL_LEASE_MS)
+    try:
+        cold = _control_run(os.path.join(workdir, "cold"),
+                            lighthouse.address(), False, base)
+    finally:
+        lighthouse.shutdown()
+    return {"hot": hot, "cold": cold, "total_s": time.perf_counter() - t0,
+            "context_bytes": context}
+
+
+def _param_drift(a: str, b: str) -> float:
+    return max(float((x - y).abs().max()) for x, y in
+               zip(torch.load(a), torch.load(b)))
+
+
+def check_control_dense(res: dict, on_card: bool = True) -> dict:
+    launches: dict = {}
+    summary: dict = {}
+    for name in ("hot", "cold"):
+        run = res[name]
+        # every quorum id a group committed under only goes up
+        for g, rows in run["logs"].items():
+            qids = [r["qid"] for r in rows if r["committed"]]
+            if qids != sorted(qids):
+                fail(f"control {name}: group {g}'s quorum_id went back: {qids}")
+        heal = run["heal"]
+        if heal.get("path") != "stream":
+            fail(f"control {name}: the replacement healed off the stream "
+                 f"path: {heal}")
+        # each group's last process (a crashed replacement is replaced)
+        by_group = {}
+        for r in sorted(run["results"], key=lambda r: r["t_gate"]):
+            by_group[r["group"]] = r
+        if sorted(by_group) != [0, 1]:
+            fail(f"control {name}: results of groups {sorted(by_group)}")
+        r0, r1 = by_group[0], by_group[1]
+        if r0["step"] != r1["step"]:
+            fail(f"control {name}: groups ended at steps {r0['step']}, "
+                 f"{r1['step']}")
+        served = {s["checksum"] for s in r0["served"]}
+        if heal["checksum"] not in served:
+            fail(f"control {name}: the healed params {heal['checksum']} are "
+                 f"not a state the donor served {sorted(served)}")
+        if name == "cold" or heal.get("wire") != "bf16":
+            if r0["digest"] != r1["digest"]:
+                fail(f"control {name}: the groups do not end bit-identical")
+            drift = 0.0
+        else:
+            # the bf16 heal wire rounds the AdamW moments (its contract):
+            # the params arrive bit for bit (the checksum above), then the
+            # groups' moments differ, and an AdamW step moves a param by
+            # at most lr (1 - b1) / sqrt(1 - b2) plus the decay, so two
+            # trajectories part by at most twice that per step
+            after = sum(1 for r in run["logs"][1]
+                        if r["pid"] == run["replacement_pid"]
+                        and r["committed"])
+            drift = _param_drift(r0["params_file"], r1["params_file"])
+            bound = 2 * after * CONTROL_LR * (0.1 / 0.001 ** 0.5 + 1e-4)
+            if drift > bound:
+                fail(f"control {name}: params drifted {drift} > {bound} "
+                     f"after {after} steps past the bf16-wire heal")
+        for r in run["results"]:
+            for k, n in r.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + n
+        row = {k: run.get(k) for k in (
+            "kill_to_first_commit_s", "takeover_s", "root_failover_s",
+            "first_commits_after_root_kill_s", "qid_before_root_kill",
+            "standby_root", "total_s") if k in run}
+        row["heal"] = {k: heal.get(k) for k in (
+            "path", "wire", "streams", "bytes", "fetch_s", "h2d_s")}
+        row["end"] = {"step": r0["step"], "bit_identical":
+                      r0["digest"] == r1["digest"], "max_abs_drift": drift}
+        rep = next((r for r in run["results"]
+                    if r["pid"] == run["replacement_pid"]), None)
+        if rep is not None:
+            # cold: the interpreter, imports and model build come after
+            # the kill; hot: only the gate's release does
+            row["replacement_imports_done_after_kill_s"] = round(
+                rep["t_start"] - run["t_kill"], 3)
+            row["replacement_gate_after_kill_s"] = round(
+                rep["t_gate"] - run["t_kill"], 3)
+        summary[name] = row
+    hot = res["hot"]
+    for key in ("takeover_s", "root_failover_s"):
+        if not _finite(hot.get(key, float("nan"))):
+            fail(f"control hot: no {key}")
+    if hot["standby_root"].get("active") is not True:
+        fail(f"control hot: the standby root is not active: "
+             f"{hot['standby_root']}")
+    summary["standbys"] = [
+        {k: s.get(k) for k in ("group", "pid", "warm_s", "warm_launches",
+                               "reserved_before_warm", "reserved_after_warm")}
+        for s in hot["standbys"]]
+    if not summary["standbys"]:
+        fail("control hot: no spare finished its warm-up")
+    if on_card:
+        for s in hot["standbys"]:
+            wl = s.get("warm_launches", {})
+            if wl.get("q8_absmax", 0) < 1 or wl.get("q8_quantize", 0) < 1:
+                fail(f"control hot: a spare's prewarm launched no pack: {s}")
+        for name in ("q8_absmax", "q8_quantize", "cast_bf16"):
+            if launches.get(name, 0) == 0:
+                fail(f"control dense: {name} never launched")
+    summary["context_bytes"] = res.get("context_bytes")
+    summary["launches"] = launches
+    return summary
+
+
+def chaos_plan(seed: int = CHAOS_SEED):
+    """The chaos flash plan: each of CHAOS_KINDS once, at attempted steps
+    1..6 in a seeded order, on a seeded member, delays of 50-199 ms."""
+    from torchft_tpu_torch.chaos import FaultEvent, FaultPlan, splitmix64
+
+    h = splitmix64(seed)
+    order = list(range(len(CHAOS_KINDS)))
+    for i in range(len(order) - 1, 0, -1):  # seeded Fisher-Yates
+        h = splitmix64(h ^ i)
+        j = h % (i + 1)
+        order[i], order[j] = order[j], order[i]
+    events = []
+    for step, k in enumerate(order, start=1):
+        seam, kind = CHAOS_KINDS[k]
+        h = splitmix64(h ^ step)
+        member = h % 2
+        h = splitmix64(h)
+        param = 50 + h % 150 if kind == "delay" else 0
+        events.append(FaultEvent(step, seam, kind, int(member), int(param)))
+    return FaultPlan(seed=seed, events=tuple(events))
+
+
+def chaos_worker(cfg: dict) -> None:
+    """One flash-LM group under the seeded plan: CRC on the ring, a sync
+    quorum, PipelinedDDP(q8) blocking steps; its native fault engine is
+    armed once per attempted step (rules fire on the member they name).
+    Group 0 serves its heals through a HealFaultProxy the parent arms
+    (``arm_heal``: one truncated stream range). Every transaction and
+    every window's fired faults go to ``progress_<group>.jsonl``."""
+    import urllib.parse
+    from datetime import timedelta
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch import _native, chaos
+    from torchft_tpu_torch import checkpointing as ck
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    plan = chaos.FaultPlan.from_json(cfg["plan"])
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    model = tt.TransformerLM(model_cfg, seed=0, device=device)
+    state = tft.FTTrainState(model.params(),
+                             tft.AdamW(1e-3, weight_decay=1e-4))
+    t_op = timedelta(seconds=CHAOS_OP_TIMEOUT_S)
+    transport = proxy = None
+    if g == 0:
+        box: dict = {}
+
+        class _Proxied(ck.CheckpointServer):
+            def metadata(self) -> str:
+                return box["proxy"].address() + "/checkpoint/"
+
+        transport = _Proxied(timeout=timedelta(seconds=60), device=device)
+        parts = urllib.parse.urlparse(transport.address())
+        proxy = box["proxy"] = chaos.HealFaultProxy(
+            f"{parts.scheme}://{parts.netloc}", only_paths=("/stream/",),
+            max_faults=1)
+    collectives = tft.HostCollectives(
+        timeout=t_op, connect_timeout=timedelta(seconds=CONTROL_CONNECT_S))
+    manager = tft.Manager(
+        collectives=collectives, load_state_dict=state.load_state_dict,
+        state_dict=state.state_dict, min_replica_size=1,
+        use_async_quorum=False, rank=0, world_size=1, timeout=t_op,
+        quorum_timeout=timedelta(seconds=60),
+        connect_timeout=timedelta(seconds=30),
+        lighthouse_addr=cfg["lighthouse"], replica_id=f"chaos{g}",
+        device=device, checkpoint_transport=transport)
+    ddp = tft.PipelinedDDP(manager, state, tt.make_grad_fn(model_cfg),
+                           compress="q8", transport="plan", device_pack=True)
+    injector = chaos.ChaosInjector(plan)
+    prog = open(os.path.join(workdir, f"progress_{g}.jsonl"), "a")
+
+    def emit(row: dict) -> None:
+        prog.write(json.dumps(row) + "\n")
+        prog.flush()
+
+    data = {"group": g, "lm": cfg["lm"], "batch": cfg["batch"],
+            "seq": cfg["seq"]}
+    qk.reset_launch_counts()
+    armed_for, prev_fired = -1, {}
+    heals = 0
+    try:
+        while True:
+            attempted = manager.current_step()
+            stop = _read_stop(workdir)
+            if stop is not None and attempted >= stop:
+                break
+            if (proxy is not None and proxy.mode is None
+                    and os.path.exists(os.path.join(workdir, "arm_heal"))):
+                proxy.mode = "truncate_body"
+            if attempted != armed_for:
+                # the faults fired since the last arm belong to the
+                # window just closed; a discarded step retries at the same
+                # attempted step without re-arming its one-shot rules
+                fired = _native.fault_stats().get("fired", {})
+                delta = {k: n - prev_fired.get(k, 0) for k, n in fired.items()
+                         if n > prev_fired.get(k, 0)}
+                if delta:
+                    emit({"window": armed_for, "fired": delta, "pid":
+                          os.getpid()})
+                prev_fired = dict(fired)
+                injector.begin_step(attempted, member=g)
+                armed_for = attempted
+            t0 = time.time()
+            err = None
+            try:
+                ddp.blocking_step(_tokens(data, attempted, device))
+                committed = bool(ddp.last_commit)
+                err = manager.errored()
+            except Exception as e:  # noqa: BLE001 - chaos surfaces here
+                err, committed = e, False
+                try:
+                    if manager.errored() is None:
+                        manager.report_error(e)
+                    manager.should_commit()
+                except Exception:  # noqa: BLE001
+                    pass
+            text = f"{type(err).__name__}: {err}" if err is not None else None
+            # the transaction's step: a sync-quorum heal moves a restarted
+            # member's clock inside the step
+            txn = manager.current_step() - 1 if committed else attempted
+            row = {"t0": t0, "t": time.time(), "pid": os.getpid(),
+                   "attempted": attempted, "txn": txn,
+                   "step": manager.current_step(),
+                   "qid": manager._quorum_id, "committed": committed,
+                   "err": text,
+                   "crc": isinstance(err, _native.WireCorruption)
+                   or "wire corruption" in str(err),
+                   "desync": "protocol desync" in str(err)}
+            fetch = getattr(manager.checkpoint_transport(),
+                            "last_fetch_stats", None)
+            n_heals = manager.metrics().snapshot()["counters"].get("heals", 0)
+            if fetch and n_heals > heals:
+                heals = n_heals
+                row["heal"] = fetch
+            emit(row)
+        stats = injector.finish()
+        if on_card:
+            torch.cuda.synchronize(device)
+        out = {"group": g, "pid": os.getpid(), "restart": cfg.get("restart",
+                                                                  False),
+               "digest": _digest(state.params), "step": manager.current_step(),
+               "launches": dict(qk.launch_counts), "fault_stats": stats,
+               "proxy_faults": proxy.faults_fired if proxy else None,
+               "proxy_requests": len(proxy.requests) if proxy else None}
+    finally:
+        prog.close()
+        manager.shutdown()
+        collectives.shutdown()
+        if proxy is not None:
+            proxy.shutdown()
+    with open(os.path.join(workdir, f"result_{g}_{os.getpid()}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def phase_chaos_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+                      batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+    """Two flash groups under the seeded plan with TORCHFT_WIRE_CRC=1,
+    then a SIGKILL of group 1 at CHAOS_KILL_STEP and its restart, which
+    heals through the donor's truncating proxy."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.chaos import kill_process
+
+    plan = chaos_plan()
+    # two members per quorum: the groups take every attempted step in
+    # lockstep (each arms that step's rules), and the survivor waits for
+    # the restarted group rather than commit alone
+    lighthouse = tft.Lighthouse(min_replicas=2, join_timeout_ms=10000,
+                                quorum_tick_ms=50,
+                                heartbeat_timeout_ms=CONTROL_LEASE_MS)
+    base = {"lighthouse": lighthouse.address(), "workdir": workdir,
+            "device": device, "lm": lm, "batch": batch, "seq": seq,
+            "role": "chaos", "plan": plan.to_json(),
+            "env": {"TORCHFT_WIRE_CRC": "1",
+                    "TORCHFT_LEASE_TTL_MS": str(CONTROL_LEASE_MS)}}
+    t0 = time.perf_counter()
+    procs = []
+    out = {"seed": plan.seed, "plan": plan.to_json()}
+    try:
+        procs = [_spawn({**base, "group": g}, workdir) for g in (0, 1)]
+
+        def gone() -> bool:
+            return any(p.poll() not in (None, 0) for p in procs)
+
+        _wait_progress(workdir, lambda logs: any(
+            r.get("committed") and r["step"] >= CHAOS_KILL_STEP
+            for r in logs[1]), 900, "group 1 at the kill step", gone)
+        open(os.path.join(workdir, "arm_heal"), "w").close()
+        victim = procs[1]
+        t_kill = time.time()
+        kill_process(victim.pid)
+        victim.wait(30)
+        procs[1] = _spawn({**base, "group": 1, "restart": True}, workdir)
+        first = _wait_progress(workdir, lambda logs: next(iter(
+            [r for r in logs[1] if r.get("committed")
+             and r["pid"] == procs[1].pid]), None), 300,
+            "the restarted group's first commit",
+            lambda: procs[0].poll() not in (None, 0)
+            or procs[1].poll() not in (None, 0))
+        out["kill_to_first_commit_s"] = first["t"] - t_kill
+        last = max(r.get("step", 0) for g in (0, 1)
+                   for r in _progress(workdir, g))
+        with open(os.path.join(workdir, "stop.tmp"), "w") as f:
+            f.write(str(last + CHAOS_TAIL_STEPS))
+        os.replace(os.path.join(workdir, "stop.tmp"),
+                   os.path.join(workdir, "stop"))
+        _join([procs[0], procs[1]], time.monotonic() + 300, workdir)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        lighthouse.shutdown()
+    out["total_s"] = time.perf_counter() - t0
+    out["logs"] = {g: _progress(workdir, g) for g in (0, 1)}
+    out["results"] = []
+    for name in sorted(os.listdir(workdir)):
+        if name.startswith("result_"):
+            with open(os.path.join(workdir, name)) as f:
+                out["results"].append(json.load(f))
+    return out
+
+
+def check_chaos_flash(res: dict, on_card: bool = True) -> dict:
+    """The four invariants: epoch purity, survivors bit-identical, every
+    corrupting fault detected and its step discarded, a clean commit
+    after the last fault and after the restart."""
+    plan = json.loads(res["plan"])
+    logs = res["logs"]
+    rows = {g: [r for r in logs[g] if "attempted" in r] for g in (0, 1)}
+    fired: dict = {}
+    for g in (0, 1):
+        for r in logs[g]:
+            if "window" in r:
+                for k, n in r["fired"].items():
+                    fired.setdefault(r["window"], {})
+                    fired[r["window"]][k] = fired[r["window"]].get(k, 0) + n
+    commits = {g: {} for g in (0, 1)}
+    for g in (0, 1):
+        for r in rows[g]:
+            if r["committed"]:
+                commits[g][r["txn"]] = r["qid"]
+    # 1. epoch purity
+    for g in (0, 1):
+        steps = sorted(commits[g])
+        for a, b in zip(steps, steps[1:]):
+            if commits[g][a] > commits[g][b]:
+                fail(f"chaos: group {g}'s quorum epoch went back between "
+                     f"steps {a} and {b} ({res['plan']})")
+    for step in set(commits[0]) & set(commits[1]):
+        if commits[0][step] != commits[1][step]:
+            near = any(commits[g].get(step - 1) != commits[g].get(step + 1)
+                       or step - 1 not in commits[g]
+                       or step + 1 not in commits[g] for g in (0, 1))
+            if not near:
+                fail(f"chaos: step {step} committed under epochs "
+                     f"{commits[0][step]} and {commits[1][step]} with no "
+                     f"quorum change near it ({res['plan']})")
+    # 2. survivors bit-identical
+    finals = [r for r in res["results"]]
+    if sorted(r["group"] for r in finals) != [0, 1]:
+        fail(f"chaos: final results of groups "
+             f"{[r['group'] for r in finals]}")
+    if len({r["digest"] for r in finals}) != 1 or len(
+            {r["step"] for r in finals}) != 1:
+        fail(f"chaos: the groups ended apart: "
+             f"{[(r['step'], r['digest'][:12]) for r in finals]}")
+    # 3. detection: a corrupting fault's window discards and is detected
+    discards = {g: {r["attempted"] for r in rows[g] if not r["committed"]}
+                for g in (0, 1)}
+    all_discards = discards[0] | discards[1]
+    detections = {w: [r for g in (0, 1) for r in rows[g]
+                      if r["attempted"] in (w - 1, w, w + 1)
+                      and (r["crc"] or r["desync"])] for w in fired}
+    injected = sum(n for by in fired.values() for n in by.values())
+    corrupting = []
+    for w, by in sorted(fired.items()):
+        if any(k.split(":")[1] in CORRUPTING_KINDS for k in by):
+            corrupting.append(w)
+            if not ({w - 1, w, w + 1} & all_discards):
+                fail(f"chaos: a corrupting fault in window {w} ({by}) "
+                     f"committed ({res['plan']})")
+            if not detections[w]:
+                fail(f"chaos: a corrupting fault in window {w} ({by}) was "
+                     f"not detected as WireCorruption ({res['plan']})")
+    if len(fired) < len(plan["events"]):
+        fail(f"chaos: {len(fired)} windows fired of "
+             f"{len(plan['events'])} planned: {fired}")
+    # 4. liveness: clean commits after the last fault and the restart
+    last_fault = max(e["step"] for e in plan["events"])
+    if not any(s > last_fault for g in (0, 1) for s in commits[g]):
+        fail("chaos: no commit after the last fault")
+    # recovery: from each discard to the member's next commit
+    recover = []
+    for g in (0, 1):
+        pending = None
+        for r in rows[g]:
+            if not r["committed"] and pending is None:
+                pending = r["t"]
+            elif r["committed"] and pending is not None:
+                recover.append(round(r["t"] - pending, 3))
+                pending = None
+    heals = [r["heal"] for g in (0, 1) for r in rows[g] if "heal" in r]
+    restart_heal = heals[-1] if heals else None
+    if not restart_heal or restart_heal.get("path") == "stream":
+        fail(f"chaos: the truncated stream range did not fall back: "
+             f"{restart_heal}")
+    donor = next(r for r in finals if r["group"] == 0)
+    if donor["proxy_faults"] != 1:
+        fail(f"chaos: the heal proxy faulted {donor['proxy_faults']} times")
+    launches: dict = {}
+    for r in finals:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    if on_card:
+        for name in ("q8_absmax", "q8_quantize", "flash_fwd", "flash_bwd"):
+            if launches.get(name, 0) == 0:
+                fail(f"chaos: {name} never launched")
+    return {
+        "seed": res["seed"], "plan": plan["events"],
+        "faults_injected": injected,
+        "faults_by_window": {str(w): by for w, by in sorted(fired.items())},
+        "corrupting_windows": corrupting,
+        "detected_wire_corruption": sum(r["crc"] for g in (0, 1)
+                                        for r in rows[g]),
+        "detected_desync": sum(r["desync"] for g in (0, 1) for r in rows[g]),
+        "steps_discarded": {g: sorted(discards[g]) for g in (0, 1)},
+        "recover_s": recover,
+        "kill_to_first_commit_s": round(res["kill_to_first_commit_s"], 3),
+        "restart_heal": {k: restart_heal.get(k) for k in (
+            "path", "wire", "streams", "bytes", "fetch_s", "h2d_s")},
+        "end_step": finals[0]["step"], "total_s": round(res["total_s"], 1),
+        "launches": launches,
+    }
+
+
+def policy_worker(cfg: dict) -> None:
+    """One flash-LM group under PolicyEngine on a sync-quorum manager:
+    ddp_plan (q8) against sharded diloco_q8 (windows of 4, outer
+    SGD(0.7, momentum 0.9, Nesterov)), a decision every 4 attempted
+    steps, the cost knobs of POLICY_KNOBS."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch import policy as tpol
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    model = tt.TransformerLM(model_cfg, seed=0, device=device)
+    state = tft.FTTrainState(model.params(),
+                             tft.AdamW(1e-3, weight_decay=1e-4))
+    box: dict = {}
+    collectives = tft.HostCollectives()
+    manager = tft.Manager(
+        collectives=collectives,
+        load_state_dict=lambda sd: box["p"].load_state_dict(sd),
+        state_dict=lambda: box["p"].state_dict(), min_replica_size=2,
+        use_async_quorum=False, rank=0, world_size=1,
+        lighthouse_addr=cfg["lighthouse"], replica_id=f"policy{g}",
+        device=device)
+    cands = [tpol.StrategySpec("ddp_plan", "ddp", transport="plan",
+                               wire="q8"),
+             tpol.StrategySpec("diloco_q8_h4", "diloco",
+                               sync_every=POLICY_SYNC_EVERY, wire="q8",
+                               sharded=True)]
+    policy = box["p"] = tpol.PolicyEngine(
+        manager, state, tt.make_grad_fn(model_cfg),
+        outer_tx=tft.SGD(0.7, momentum=0.9, nesterov=True),
+        candidates=cands, decide_every=POLICY_DECIDE_EVERY,
+        knobs=tpol.CostKnobs(**POLICY_KNOBS))
+    decide = policy._decide_and_maybe_switch
+    decide_s: list = []
+
+    def timed_decide() -> None:
+        t0 = time.perf_counter()
+        decide()
+        decide_s.append(time.perf_counter() - t0)
+
+    policy._decide_and_maybe_switch = timed_decide
+    data = {"group": g, "lm": cfg["lm"], "batch": cfg["batch"],
+            "seq": cfg["seq"]}
+    try:
+        qk.reset_launch_counts()
+        step_s, modes = [], []
+        for i in range(POLICY_STEPS):
+            t0 = time.perf_counter()
+            policy.step(_tokens(data, i, device))
+            if on_card:
+                torch.cuda.current_stream().synchronize()
+            step_s.append(time.perf_counter() - t0)
+            modes.append(policy.strategy.name)
+        policy.flush()
+        if on_card:
+            torch.cuda.synchronize(device)
+        out = {"group": g, "decisions": policy.decisions,
+               "decide_s": decide_s, "step_s": step_s, "modes": modes,
+               "digest": _digest(state.params),
+               "launches": dict(qk.launch_counts),
+               "step": manager.current_step()}
+        if on_card:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                device)
+    finally:
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_policy_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+                       batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+    return _run_groups(workdir, {"device": device, "role": "policy",
+                                 "lm": lm, "batch": batch, "seq": seq},
+                       [{}, {}])
+
+
+def check_policy_flash(res: dict, on_card: bool = True) -> dict:
+    a, b = res["results"]
+    if a["decisions"] != b["decisions"]:
+        fail(f"policy: the members' decisions differ:\n{a['decisions']}\n"
+             f"{b['decisions']}")
+    switches = [d for d in a["decisions"] if d["switched"]]
+    if not switches or not all(d["committed"] for d in a["decisions"]):
+        fail(f"policy: no committed switch: {a['decisions']}")
+    if a["digest"] != b["digest"] or a["step"] != b["step"]:
+        fail("policy: the members' params differ at the end")
+    launches: dict = {}
+    for r in (a, b):
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    if on_card:
+        for name in ("q8_absmax", "q8_quantize", "q8_dequantize",
+                     "flash_fwd", "flash_bwd"):
+            if launches.get(name, 0) == 0:
+                fail(f"policy: {name} never launched")
+    return {
+        "decisions": [{k: d[k] for k in ("epoch", "tick", "from", "to",
+                                         "committed", "switched", "costs")}
+                      for d in a["decisions"]],
+        "signals": [d["signals"] for d in a["decisions"]],
+        "switch_ticks": [d["tick"] for d in switches],
+        "decide_s": [[round(x, 4) for x in r["decide_s"]] for r in (a, b)],
+        "step_ms": [[round(1e3 * x, 1) for x in r["step_s"]] for r in (a, b)],
+        "modes": a["modes"], "launches": launches, "step": a["step"],
+        "knobs": POLICY_KNOBS,
+        "max_memory_allocated_gb": [round(r.get("max_memory_allocated", 0)
+                                          / 2**30, 2) for r in (a, b)],
+    }
+
+
+def _keep_logs(workdir: str, name: str) -> None:
+    """Copies a phase's progress logs and results (not its params) to
+    ``$CHIP_SMOKE_LOGDIR/<name>/`` when that variable is set."""
+    import shutil
+
+    dest_root = os.environ.get("CHIP_SMOKE_LOGDIR")
+    if not dest_root:
+        return
+    for root, _, files in os.walk(workdir):
+        for f in files:
+            if f.endswith((".jsonl", ".json", ".log")):
+                rel = os.path.relpath(os.path.join(root, f), workdir)
+                dest = os.path.join(dest_root, name, rel)
+                os.makedirs(os.path.dirname(dest), exist_ok=True)
+                shutil.copy(os.path.join(root, f), dest)
+
+
+def control_phases(by_phase: dict) -> None:
+    """The control dense, chaos flash and policy flash phases: each runs,
+    is checked and logged, and puts its launch counts into ``by_phase``."""
+    log("phase control dense")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_control_") as workdir:
+        try:
+            cres = phase_control_dense(workdir)
+            csum = check_control_dense(cres)
+        finally:
+            _keep_logs(workdir, "control_dense")
+    by_phase["control dense"] = csum["launches"]
+    log(f"  control dense {cres['total_s']:.1f} s (two dense groups launched "
+        f"with hot spares, two regions and a WAL'd root + standby root, "
+        f"then again cold): hot {json.dumps(csum['hot'])}; cold "
+        f"{json.dumps(csum['cold'])}")
+    log(f"  control dense spares (prewarm + warm on the card before the "
+        f"gate): {json.dumps(csum['standbys'])}; a CUDA context takes "
+        f"{csum['context_bytes']} B of the card per process")
+    log("phase chaos flash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as workdir:
+        try:
+            xres = phase_chaos_flash(workdir)
+            xsum = check_chaos_flash(xres)
+        finally:
+            _keep_logs(workdir, "chaos_flash")
+    by_phase["chaos flash"] = xsum.pop("launches")
+    log(f"  chaos flash: seed {xsum['seed']} plan {json.dumps(xsum['plan'])}")
+    log(f"  chaos flash: {json.dumps(xsum)}")
+    log("phase policy flash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_policy_") as workdir:
+        try:
+            pres = phase_policy_flash(workdir)
+            psum = check_policy_flash(pres)
+        finally:
+            _keep_logs(workdir, "policy_flash")
+    by_phase["policy flash"] = psum["launches"]
+    log(f"  policy flash {pres['total_s']:.1f} s: {json.dumps(psum)}")
+
+
 def legacy_turns(tree_a: str, tree_b: str) -> int:
     """The legacy and sharded flash phases of two checkouts in turns (a,
     b, b, a), each turn a process of that checkout's own chip_smoke (its
@@ -3897,6 +4986,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--heal-donor", help=argparse.SUPPRESS)
+    parser.add_argument("--control-worker", help=argparse.SUPPRESS)
     parser.add_argument("--flash-turns", action="store_true",
                         help="measure only: the flat q8 and the hier flash "
                         "phases in turns (flat, hier, hier, flat)")
@@ -3908,6 +4998,9 @@ def main() -> int:
     parser.add_argument("--serving-phases", action="store_true",
                         help="build, then run only the durable flash, "
                         "serving flash and parameter server phases")
+    parser.add_argument("--control-phases", action="store_true",
+                        help="build, then run only the control dense, "
+                        "chaos flash and policy flash phases")
     parser.add_argument("--legacy-turns", nargs=2, metavar=("TREE_A", "TREE_B"),
                         help="measure only: the legacy and sharded flash "
                         "phases of two checkouts in turns (a, b, b, a)")
@@ -3917,6 +5010,9 @@ def main() -> int:
         return 0
     if args.heal_donor:
         heal_donor(json.loads(args.heal_donor))
+        return 0
+    if args.control_worker:
+        control_worker(json.loads(args.control_worker))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3937,6 +5033,14 @@ def main() -> int:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         by_phase: dict = {}
         serving_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(_smi(), flush=True)
+        return 0
+    if args.control_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        control_phases(by_phase)
         log(f"  launches by phase: {json.dumps(by_phase)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(_smi(), flush=True)
@@ -4080,6 +5184,8 @@ def main() -> int:
     window_phases(by_phase)
     torch.cuda.empty_cache()
     serving_phases(by_phase)
+    torch.cuda.empty_cache()
+    control_phases(by_phase)
     # each kernel's launches over the main paths' runs (the counts each
     # worker, or phase, reset just before a path and read just after)
     for name in rows:
@@ -4113,7 +5219,12 @@ def main() -> int:
             ("serving flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
                                "cast_bf16")),
             ("parameter server", ("q8_absmax", "q8_quantize",
-                                  "q8_dequantize"))):
+                                  "q8_dequantize")),
+            ("control dense", ("q8_absmax", "q8_quantize", "cast_bf16")),
+            ("chaos flash", ("q8_absmax", "q8_quantize", "flash_fwd",
+                             "flash_bwd")),
+            ("policy flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
+                              "flash_fwd", "flash_bwd"))):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:
                 fail(f"{name} never launched on the {phase} path")

@@ -1103,3 +1103,34 @@ def test_durable_capture_on_card_holds_the_captured_step(cuda_device,
     b, e = staged._range
     assert staged.range_crc32c(b, e) == want.range_crc32c(b, e)
     assert bytes(staged._slice(b, e)) == bytes(want._slice(b, e))
+
+
+@pytest.mark.cuda
+def test_standby_warm_up_launches_on_the_card(cuda_device):
+    """A hot spare's warm-up runs on the card: prewarm's q8ef pack is one
+    K1a and one K1b launch over the gradient tree's shapes (no ring: the
+    collectives are not configured), and FTTrainState.warm runs one
+    AdamW update there on copies, the live state untouched."""
+    import torchft_tpu_torch as tft
+
+    params = {"w": torch.randn(512, 256, device=cuda_device),
+              "b": torch.randn(256, device=cuda_device)}
+    state = tft.FTTrainState(params, tft.AdamW(1e-3, weight_decay=1e-4))
+    before = {k: v.clone() for k, v in params.items()}
+    grads_like = {k: torch.empty_like(v) for k, v in params.items()}
+    col = tft.HostCollectives()
+    try:
+        tq.reset_launch_counts()
+        col.prewarm(grads_like, wire="q8ef")
+        assert tq.launch_counts["q8_absmax"] == 1
+        assert tq.launch_counts["q8_quantize"] == 1
+        (packer,) = col._dev_packers.values()
+        assert packer.staged and packer._carry.is_cuda
+        assert not torch.any(packer._carry)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        state.warm(grads_like)
+        assert torch.cuda.max_memory_allocated(cuda_device) > 0
+        for k in params:
+            assert torch.equal(params[k], before[k])
+    finally:
+        col.shutdown()

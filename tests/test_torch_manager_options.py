@@ -8,6 +8,11 @@
   fresh state under the sync quorum; in both packages the caller's
   transport carries the heal (A sends once, B receives once, at the same
   step) and B starts its first step from A's state.
+- ``world_size_mode=FIXED_WITH_SPARES``: a JAX group and a port group in
+  one cohort with ``min_replica_size=1``; the group ranked past it is a
+  spare (its contribution zeroed, the divisor fixed at 1), whichever
+  package it is, and both members' averages are the first group's
+  values, bit for bit.
 
 Every wait has its own timeout (the quorum's, the threads' joins).
 """
@@ -17,6 +22,7 @@ from datetime import timedelta
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import torch_one_thread  # noqa: F401
@@ -200,3 +206,71 @@ def test_caller_transport_carries_the_heal_as_in_the_jax_package():
     assert port == _heal_summary(_heal_scenario("jax"))
     assert port == {"a": "send", "b": "recv", "same_step": True,
                     "b_start_is_a_state": True}
+
+
+def _spares_member(pkg, name, lighthouse, out, errors):
+    try:
+        m, col_mod, kw = _pkg(pkg)
+        col = col_mod.HostCollectives(timeout=_T)
+        manager = m.Manager(
+            collectives=col, load_state_dict=lambda sd: None,
+            state_dict=lambda: {}, min_replica_size=1, rank=0, world_size=1,
+            world_size_mode=m.WorldSizeMode.FIXED_WITH_SPARES,
+            use_async_quorum=False, timeout=_T, quorum_timeout=_T,
+            connect_timeout=_T, lighthouse_addr=lighthouse,
+            replica_id=name, **kw)
+        try:
+            rows = []
+            while manager.current_step() < 3:
+                manager.start_quorum()
+                x = _spare_values(name, manager.current_step())
+                avg = manager.allreduce(
+                    {"w": x if pkg == "jax" else torch.from_numpy(x)}).wait()
+                rows.append((manager.should_commit(),
+                             manager.is_participating(),
+                             manager.num_participants(),
+                             np.asarray(avg["w"]).tobytes()))
+            out[name] = rows
+        finally:
+            manager.shutdown()
+            col.shutdown()
+    except Exception as e:  # noqa: BLE001 - surfaced by the caller
+        errors.append(e)
+
+
+def _spare_values(name, step):
+    seed = 10 * (name == "g1") + step
+    return np.random.default_rng(seed).standard_normal(129).astype(np.float32)
+
+
+def _spares_cohort(spare_pkg):
+    other = "port" if spare_pkg == "jax" else "jax"
+    # the lighthouse waits for both: the spare is in every quorum
+    lighthouse = jft.Lighthouse(min_replicas=2, join_timeout_ms=5000,
+                                quorum_tick_ms=50)
+    out, errors = {}, []
+    ts = [threading.Thread(target=_spares_member,
+                           args=(pkg, name, lighthouse.address(), out, errors))
+          for pkg, name in ((other, "g0"), (spare_pkg, "g1"))]
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+    finally:
+        lighthouse.shutdown()
+    assert not errors, errors
+    return out
+
+
+@pytest.mark.parametrize("spare_pkg", ["jax", "port"])
+def test_fixed_with_spares_mixed_cohort_is_bit_identical(spare_pkg):
+    out = _spares_cohort(spare_pkg)
+    g0, g1 = out["g0"], out["g1"]
+    assert len(g0) == len(g1) == 3
+    for step, (a, b) in enumerate(zip(g0, g1)):
+        assert a[0] and b[0]  # committed
+        assert a[1] and not b[1]  # g1 ranks past min_replica_size: spare
+        assert a[2] == b[2] == 1  # the fixed divisor
+        # the spare's contribution is zeroed: the average is g0's values
+        assert a[3] == b[3] == _spare_values("g0", step).tobytes()

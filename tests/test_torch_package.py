@@ -44,6 +44,13 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
         "torchft_tpu_torch.parameter_server\n"
         "from torchft_tpu_torch import (DurableCheckpointer, ParameterServer, "
         "StaleWeightsError, WeightPublisher, WeightRelay, WeightSubscriber)\n"
+        "import torchft_tpu_torch.platform, torchft_tpu_torch.launcher, "
+        "torchft_tpu_torch.chaos, torchft_tpu_torch.policy\n"
+        "from torchft_tpu_torch import (ChaosInjector, CostKnobs, FaultPlan, "
+        "LeaseClient, PolicyEngine, RegionLighthouse, StrategySpec, "
+        "WorldSizeMode)\n"
+        "from torchft_tpu_torch._native import (WalLog, wal_recover, "
+        "fault_arm, quorum_step, lighthouse_heartbeat)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'optax', 'ml_dtypes', 'torchft_tpu'))\n"
         "assert not bad, bad\n"

@@ -10,7 +10,11 @@ sync's wire encoding runs on the card through hand-written CUDA kernels
 (``ops``). Around the step: the durable checkpoint tier
 (``DurableCheckpointer``), the weight-serving plane (``WeightPublisher``
 / ``WeightRelay`` / ``WeightSubscriber``) and the parameter server on
-it. Imports neither JAX nor ``torchft_tpu``.
+it; the durable control plane (WAL-backed roots with warm standbys, the
+region tier), the launcher with hot spares (``launcher``,
+``platform.standby_gate``), the seeded chaos plane (``chaos``) and the
+runtime strategy policy (``PolicyEngine``). Imports neither JAX nor
+``torchft_tpu``.
 
 Entry points run on the card unless given ``device="cpu"``.
 """
@@ -33,9 +37,11 @@ from .durable import (
 )
 from .ddp import AdaptiveDDP, DistributedDataParallel, PipelinedDDP, ShardedDDP
 from .local_sgd import AsyncDiLoCo, DiLoCo, LocalSGD
-from .manager import Manager
+from .chaos import ChaosInjector, FaultEvent, FaultPlan
+from .manager import Manager, WorldSizeMode
 from .metrics import Metrics
 from .optim import OptimizerWrapper, ShardedOptimizerWrapper
+from .policy import CostKnobs, PolicyEngine, StrategySpec
 from .parameter_server import ParameterServer
 from .profiling import Profiler, span
 from .serving import (
@@ -45,23 +51,37 @@ from .serving import (
     WeightSubscriber,
 )
 from .train_state import SGD, AdamW, FTTrainState
-from ._native import Lighthouse, ManagerClient, Store, StoreClient
+from ._native import (
+    LeaseClient,
+    Lighthouse,
+    ManagerClient,
+    QuorumResult,
+    RegionLighthouse,
+    Store,
+    StoreClient,
+    WireCorruption,
+)
 
 __all__ = [
     "AdamW",
     "AdaptiveDDP",
     "AsyncDiLoCo",
+    "ChaosInjector",
     "CheckpointServer",
-    "CheckpointTransport",
     "CheckpointStore",
+    "CheckpointTransport",
     "Collectives",
+    "CostKnobs",
     "DiLoCo",
     "DistributedDataParallel",
     "DistributedSampler",
     "DummyCollectives",
     "DurableCheckpointer",
     "FTTrainState",
+    "FaultEvent",
+    "FaultPlan",
     "HostCollectives",
+    "LeaseClient",
     "Lighthouse",
     "LocalDirStore",
     "LocalSGD",
@@ -72,8 +92,11 @@ __all__ = [
     "OptimizerWrapper",
     "ParameterServer",
     "PipelinedDDP",
+    "PolicyEngine",
     "Profiler",
+    "QuorumResult",
     "ReduceOp",
+    "RegionLighthouse",
     "SGD",
     "ShardedDDP",
     "ShardedOptimizerWrapper",
@@ -81,10 +104,13 @@ __all__ = [
     "StatefulDataLoader",
     "Store",
     "StoreClient",
+    "StrategySpec",
     "TreeShard",
     "WeightPublisher",
     "WeightRelay",
     "WeightSubscriber",
+    "WireCorruption",
     "Work",
+    "WorldSizeMode",
     "span",
 ]

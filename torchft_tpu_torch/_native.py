@@ -1,14 +1,15 @@
-"""ctypes binding of the native control plane, cut to what the port's
-training path calls.
+"""ctypes binding of the native control plane.
 
 The library is the same C++ the JAX package binds (``native/``), built by
 this package into its own ``_build/`` directory at first use
 (:mod:`torchft_tpu_torch._build`), so the two packages speak one wire
-protocol and can share a quorum and a ring. Exposes the lighthouse, the
+protocol and can share a quorum and a ring. Exposes the lighthouse (flat,
+durable root, standby, region tier), the lease client, the
 per-replica-group manager server and its client, the rendezvous store,
-and the ring, two-tier and CommPlan entry points :mod:`.collectives`
-drives, with their per-op and per-bucket stats, and the CRC32C the
-heal stream's ranges carry.
+the ring, two-tier and CommPlan entry points :mod:`.collectives` drives
+with their per-op and per-bucket stats, the CRC32C the heal stream's
+ranges carry, the quorum and lease protocol's pure entry points, the
+write-ahead quorum log and the seeded fault engine.
 
 Timeouts surface as ``TimeoutError``, a failed frame checksum as
 :class:`WireCorruption`, other native failures as
@@ -46,6 +47,34 @@ _SIGNATURES = {
     "tft_lighthouse_address": (_vp, [_vp]),
     "tft_lighthouse_shutdown": (None, [_vp]),
     "tft_lighthouse_destroy": (None, [_vp]),
+    "tft_lighthouse_active": (_int, [_vp]),
+    "tft_lighthouse_root_epoch": (_i64, [_vp]),
+    "tft_lighthouse_status_json": (_int, [_vp, ctypes.POINTER(_vp)]),
+    # one-shot heartbeat: addr, replica id, timeout ms
+    "tft_lighthouse_heartbeat": (_int, [_cp, _cp, _i64]),
+    # The region lighthouse (the hierarchical tier's middle layer).
+    "tft_region_create": (_vp, [
+        _cp,   # bind
+        _cp,   # root addr
+        _cp,   # region id
+        _i64,  # digest interval ms
+        _i64,  # heartbeat timeout ms (the root's)
+        _i64,  # connect timeout ms
+    ]),
+    "tft_region_address": (_vp, [_vp]),
+    "tft_region_shutdown": (None, [_vp]),
+    "tft_region_destroy": (None, [_vp]),
+    "tft_region_status_json": (_int, [_vp, ctypes.POINTER(_vp)]),
+    "tft_region_quorum_json": (_int, [_vp, ctypes.POINTER(_vp)]),
+    # A persistent lighthouse-protocol client: batched lease renewal,
+    # heartbeat and depart over one connection.
+    "tft_lease_client_create": (_vp, [_cp, _i64]),
+    "tft_lease_client_destroy": (None, [_vp]),
+    "tft_lease_client_renew": (_int, [
+        _vp, _cp, _i64, ctypes.POINTER(_i64),  # entries JSON, quorum_id out
+    ]),
+    "tft_lease_client_heartbeat": (_int, [_vp, _cp, _i64]),
+    "tft_lease_client_depart": (_int, [_vp, _cp, _i64]),
     "tft_manager_create": (_vp, [
         _cp, _cp, _cp, _cp, _cp,  # replica id, lighthouse, host, bind, store
         ctypes.c_uint64,          # world size
@@ -56,6 +85,8 @@ _SIGNATURES = {
         _i64,                     # region re-probe bound
     ]),
     "tft_manager_address": (_vp, [_vp]),
+    "tft_manager_using_root": (_int, [_vp]),
+    "tft_manager_probe_given_up": (_int, [_vp]),
     # member-health digest (JSON) riding every later lease renewal
     "tft_manager_set_status": (_int, [_vp, _cp]),
     "tft_manager_shutdown": (None, [_vp]),
@@ -71,8 +102,10 @@ _SIGNATURES = {
     "tft_client_should_commit": (_int, [
         _vp, _i64, _i64, _int, _i64, ctypes.POINTER(_int),
     ]),
+    "tft_client_kill": (_int, [_vp, _cp]),
     "tft_store_create": (_vp, [_cp]),
     "tft_store_address": (_vp, [_vp]),
+    "tft_store_port": (_int, [_vp]),
     "tft_store_shutdown": (None, [_vp]),
     "tft_store_destroy": (None, [_vp]),
     "tft_store_client_create": (_vp, [_cp, _i64]),
@@ -81,6 +114,35 @@ _SIGNATURES = {
     "tft_store_client_get": (_int, [
         _vp, _cp, _i64, ctypes.POINTER(_vp), ctypes.POINTER(ctypes.c_size_t),
     ]),
+    "tft_store_client_add": (_int, [
+        _vp, _cp, _i64, _i64, ctypes.POINTER(_i64),  # key, delta, timeout, out
+    ]),
+    # The control plane's pure entry points (the quorum tick, the lease
+    # and digest protocol) as JSON in, JSON out.
+    "tft_quorum_compute": (_int, [_i64, _cp, _cp, ctypes.POINTER(_vp)]),
+    "tft_compute_quorum_results": (_int, [
+        _cp, _i64, _cp, ctypes.POINTER(_vp),
+    ]),
+    "tft_quorum_step": (_int, [_i64, _i64, _cp, _cp, ctypes.POINTER(_vp)]),
+    "tft_lease_apply": (_int, [_cp, _cp, _i64, ctypes.POINTER(_vp)]),
+    "tft_depart_apply": (_int, [_cp, _cp, ctypes.POINTER(_vp)]),
+    "tft_digest_make": (_int, [_cp, _i64, _cp, ctypes.POINTER(_vp)]),
+    "tft_digest_apply": (_int, [_cp, _cp, _i64, ctypes.POINTER(_vp)]),
+    # The root's write-ahead quorum log.
+    "tft_wal_open": (_vp, [_cp, _i64]),
+    "tft_wal_close": (None, [_vp]),
+    "tft_wal_log_lease": (_int, [_vp, _cp, _i64]),  # slices JSON, unix ms
+    "tft_wal_log_depart": (_int, [_vp, _cp]),
+    "tft_wal_log_quorum": (_int, [_vp, _cp, _i64, _i64]),  # gen, epoch
+    "tft_wal_log_epoch": (_int, [_vp, _i64]),
+    "tft_wal_snapshot": (_int, [
+        _vp, _cp,
+        _i64, _i64,  # quorum gen, root epoch
+        _i64, _i64,  # mono now, unix now
+    ]),
+    "tft_wal_recover": (_int, [_cp, _i64, _i64, ctypes.POINTER(_vp)]),
+    "tft_backoff_ms": (_i64, [_int, _i64, _i64, ctypes.c_uint64]),
+    "tft_jittered_interval_ms": (_i64, [_i64, ctypes.c_uint64, ctypes.c_uint64]),
     # Host ring collectives.
     "tft_hc_create": (_vp, []),
     "tft_hc_destroy": (None, [_vp]),
@@ -144,6 +206,12 @@ _SIGNATURES = {
     "tft_hc_last_stripe_ns": (_i64, [_vp, ctypes.POINTER(_i64), _i64]),
     # live shared-memory segment handles in this library (the leak oracle)
     "tft_shm_live_count": (_i64, []),
+    "tft_shm_unlink": (_int, [_cp]),
+    # The chaos plane: this library's process-global seeded fault engine.
+    "tft_fault_arm": (_int, [_cp]),  # plan JSON
+    "tft_fault_disarm": (None, []),
+    "tft_fault_armed": (_int, []),
+    "tft_fault_stats_json": (_int, [ctypes.POINTER(_vp)]),
     # Persistent comm plans.
     "tft_plan_build": (_i64, [
         _vp, ctypes.POINTER(_i64), ctypes.POINTER(ctypes.c_int32), _i64, _int,
@@ -321,7 +389,14 @@ class QuorumResult:
 
 
 class Lighthouse:
-    """In-process global quorum server (flat role, no durability)."""
+    """In-process global quorum server.
+
+    The durable knobs are optional: ``wal_dir`` turns on the
+    write-ahead quorum log and its snapshot, so a restarted root replays
+    to its pre-crash ``quorum_id``; ``peers`` lists the other roots of
+    this root's failover set (comma-separated); ``standby=True`` starts
+    passive, tailing the active peer, and takes over after
+    ``takeover_ms`` without a sync."""
 
     def __init__(
         self,
@@ -330,10 +405,16 @@ class Lighthouse:
         join_timeout_ms: int = 100,
         quorum_tick_ms: int = 100,
         heartbeat_timeout_ms: int = 5000,
+        wal_dir: str = "",
+        snapshot_every: int = 0,
+        peers: str = "",
+        standby: bool = False,
+        takeover_ms: int = 0,
     ) -> None:
         self._handle = _lib.tft_lighthouse_create(
             bind.encode(), min_replicas, join_timeout_ms, quorum_tick_ms,
-            heartbeat_timeout_ms, b"", 0, b"", 0, 0,
+            heartbeat_timeout_ms, wal_dir.encode(), snapshot_every,
+            peers.encode(), 1 if standby else 0, takeover_ms,
         )
         if not self._handle:
             _check(2)
@@ -341,6 +422,26 @@ class Lighthouse:
 
     def address(self) -> str:
         return _take_string(_lib.tft_lighthouse_address(self._handle))
+
+    def active(self) -> bool:
+        """True while this root serves; a passive standby rejects the
+        protocol so clients rotate to the next endpoint."""
+        return bool(_lib.tft_lighthouse_active(self._handle))
+
+    def root_epoch(self) -> int:
+        """The root epoch: bumped at every active claim (startup or
+        takeover) and fenced through the WAL when there is one. 0 =
+        never active."""
+        return int(_lib.tft_lighthouse_root_epoch(self._handle))
+
+    def status_json(self) -> dict:
+        """Members and lease deadlines, the last quorum, the tier role
+        (``flat``/``root``/``standby``), tick counters, region digests
+        and the durability stamps (``root_epoch``, ``wal_replayed``,
+        ``wal``); served over HTTP as ``GET /status.json``."""
+        out = ctypes.c_void_p()
+        _check(_lib.tft_lighthouse_status_json(self._handle, ctypes.byref(out)))
+        return json.loads(_take_string(out))
 
     def shutdown(self) -> None:
         if self._handle:
@@ -350,6 +451,116 @@ class Lighthouse:
         handle, self._handle = getattr(self, "_handle", None), None
         if handle and getattr(_lib, "_cdll", None) is not None:
             _lib.tft_lighthouse_destroy(handle)
+
+    def __enter__(self) -> "Lighthouse":
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self.shutdown()
+
+
+class RegionLighthouse:
+    """In-process region lighthouse, the middle tier of the quorum
+    service: it serves the manager-facing lighthouse protocol locally,
+    pushes membership digests to the root and long-polls the global
+    quorum back out."""
+
+    def __init__(
+        self,
+        root_addr: str,
+        region_id: str,
+        bind: str = "[::]:0",
+        digest_interval_ms: int = 100,
+        heartbeat_timeout_ms: int = 5000,
+        connect_timeout_ms: int = 10000,
+    ) -> None:
+        self._handle = _lib.tft_region_create(
+            bind.encode(), root_addr.encode(), region_id.encode(),
+            digest_interval_ms, heartbeat_timeout_ms, connect_timeout_ms,
+        )
+        if not self._handle:
+            _check(2)
+        _live_servers.add(self)
+
+    def address(self) -> str:
+        return _take_string(_lib.tft_region_address(self._handle))
+
+    def status_json(self) -> dict:
+        out = ctypes.c_void_p()
+        _check(_lib.tft_region_status_json(self._handle, ctypes.byref(out)))
+        return json.loads(_take_string(out))
+
+    def quorum_json(self) -> dict:
+        """The region's cache of the last global quorum with its
+        refresh ``age_ms`` (also ``GET /quorum.json``); it keeps serving,
+        with a growing age, while the root is down."""
+        out = ctypes.c_void_p()
+        _check(_lib.tft_region_quorum_json(self._handle, ctypes.byref(out)))
+        return json.loads(_take_string(out))
+
+    def shutdown(self) -> None:
+        if self._handle:
+            _lib.tft_region_shutdown(self._handle)
+
+    def __del__(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle and getattr(_lib, "_cdll", None) is not None:
+            _lib.tft_region_destroy(handle)
+
+    def __enter__(self) -> "RegionLighthouse":
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self.shutdown()
+
+
+class LeaseClient:
+    """Persistent lighthouse-protocol client: batched lease renewals,
+    heartbeats and departs over one connection (simulated groups and
+    host-level renewal batchers; real managers renew through their
+    native server)."""
+
+    def __init__(
+        self, addr: str, connect_timeout: timedelta = timedelta(seconds=10)
+    ) -> None:
+        self._handle = _lib.tft_lease_client_create(
+            addr.encode(), _ms(connect_timeout))
+
+    def renew(
+        self, entries: List[dict], timeout: timedelta = timedelta(seconds=10)
+    ) -> int:
+        """Renews a batch of leases, each ``{replica_id, ttl_ms,
+        participating, member}``; returns the service's quorum_id."""
+        out = ctypes.c_int64()
+        _check(_lib.tft_lease_client_renew(
+            self._handle, json.dumps(entries).encode(), _ms(timeout),
+            ctypes.byref(out)))
+        return out.value
+
+    def heartbeat(
+        self, replica_id: str, timeout: timedelta = timedelta(seconds=10)
+    ) -> None:
+        _check(_lib.tft_lease_client_heartbeat(
+            self._handle, replica_id.encode(), _ms(timeout)))
+
+    def depart(
+        self, replica_id: str, timeout: timedelta = timedelta(seconds=10)
+    ) -> None:
+        _check(_lib.tft_lease_client_depart(
+            self._handle, replica_id.encode(), _ms(timeout)))
+
+    def __del__(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle and getattr(_lib, "_cdll", None) is not None:
+            _lib.tft_lease_client_destroy(handle)
+
+
+def lighthouse_heartbeat(
+    addr: str, replica_id: str, timeout: timedelta = timedelta(seconds=5)
+) -> None:
+    """One heartbeat for ``replica_id``: a live non-participant."""
+    _check(_lib.tft_lighthouse_heartbeat(
+        addr.encode(), replica_id.encode(), _ms(timeout)))
 
 
 class Manager:
@@ -365,22 +576,46 @@ class Manager:
         world_size: int,
         heartbeat_interval: timedelta = timedelta(milliseconds=100),
         connect_timeout: timedelta = timedelta(seconds=60),
+        root_addr: str = "",
+        lease_ttl: Optional[timedelta] = None,
         region: str = "",
         host: str = "",
+        region_probe_max: int = 0,
     ) -> None:
-        """``region`` and ``host`` ("" = unlabeled) ride the quorum
-        request into every member's quorum result, whose region and host
-        maps the data plane compiles into the two-tier schedule and the
-        shared-memory intra-host tier."""
+        """``lighthouse_addr`` is the group's lighthouse: the flat or
+        root service, or a region lighthouse under a hierarchical tier.
+        ``root_addr`` ("" = none) is the root fallback a dead region
+        demotes the group to. Either may be a comma-separated failover
+        set (active root and warm standbys); a failed renewal rotates to
+        the next endpoint on a jittered backoff. ``lease_ttl`` (None =
+        the lighthouse's default) is how long the group stays live
+        without a renewal. ``region_probe_max`` bounds a demoted
+        manager's region re-probes (0 = forever). ``region`` and
+        ``host`` ("" = unlabeled) ride the quorum request into every
+        member's quorum result, whose region and host maps the data
+        plane compiles into the two-tier schedule and the shared-memory
+        intra-host tier."""
         self._handle = _lib.tft_manager_create(
             replica_id.encode(), lighthouse_addr.encode(), hostname.encode(),
             bind.encode(), store_addr.encode(), world_size,
             _ms(heartbeat_interval), _ms(connect_timeout),
-            b"", 0, region.encode(), host.encode(), 0,
+            root_addr.encode(),
+            _ms(lease_ttl) if lease_ttl is not None else 0,
+            region.encode(), host.encode(), region_probe_max,
         )
         if not self._handle:
             _check(2)
         _live_servers.add(self)
+
+    def using_root_fallback(self) -> bool:
+        """True while region failover has this group registered directly
+        at the root (always False without a ``root_addr``)."""
+        return bool(_lib.tft_manager_using_root(self._handle))
+
+    def region_probe_given_up(self) -> bool:
+        """True once ``region_probe_max`` consecutive region re-probes
+        failed: the manager stays on the root and probes no more."""
+        return bool(_lib.tft_manager_probe_given_up(self._handle))
 
     def address(self) -> str:
         return _take_string(_lib.tft_manager_address(self._handle))
@@ -457,6 +692,11 @@ class ManagerClient:
         )
         return bool(out.value)
 
+    def kill(self, msg: str = "") -> None:
+        """Asks the manager server to exit its process (``_exit(1)`` in
+        whatever process hosts it)."""
+        _check(_lib.tft_client_kill(self._handle, msg.encode()))
+
     def __del__(self) -> None:
         handle, self._handle = getattr(self, "_handle", None), None
         if handle and getattr(_lib, "_cdll", None) is not None:
@@ -474,6 +714,10 @@ class Store:
 
     def address(self) -> str:
         return _take_string(_lib.tft_store_address(self._handle))
+
+    @property
+    def port(self) -> int:
+        return _lib.tft_store_port(self._handle)
 
     def shutdown(self) -> None:
         if self._handle:
@@ -520,6 +764,15 @@ class StoreClient:
         finally:
             _lib.tft_string_free(out)
 
+    def add(
+        self, key: str, delta: int, timeout: timedelta = timedelta(seconds=60)
+    ) -> int:
+        """Adds ``delta`` to the integer at ``key`` and returns the sum."""
+        out = ctypes.c_int64()
+        _check(_lib.tft_store_client_add(
+            self._handle, key.encode(), delta, _ms(timeout), ctypes.byref(out)))
+        return out.value
+
     def __del__(self) -> None:
         handle, self._handle = getattr(self, "_handle", None), None
         if handle and getattr(_lib, "_cdll", None) is not None:
@@ -562,3 +815,149 @@ def crc32c_combine(parts: List[Union[bytes, bytearray, memoryview]]) -> int:
     for part in parts:
         state = crc32c_update(state, part)
     return state ^ 0xFFFFFFFF
+
+
+def _json_call(fn: Any, *args: Any) -> Any:
+    out = ctypes.c_void_p()
+    _check(fn(*args, ctypes.byref(out)))
+    return json.loads(_take_string(out))
+
+
+def _dumps(obj: Any) -> bytes:
+    return json.dumps(obj).encode()
+
+
+def quorum_compute(now_ms: int, state: dict, opt: dict) -> dict:
+    """The native quorum_compute as a pure function: ``{"quorum":
+    [members] | None, "reason": str}``."""
+    return _json_call(_lib.tft_quorum_compute, now_ms, _dumps(state), _dumps(opt))
+
+
+def compute_quorum_results(replica_id: str, rank: int, quorum: dict) -> QuorumResult:
+    """The native compute_quorum_results as a pure function."""
+    out = ctypes.c_void_p()
+    _check(_lib.tft_compute_quorum_results(
+        replica_id.encode(), rank, _dumps(quorum), ctypes.byref(out)))
+    return QuorumResult._from_json(_take_string(out))
+
+
+def quorum_step(now_ms: int, unix_now_ms: int, state: dict, opt: dict) -> dict:
+    """One quorum tick as a pure state transition, the function both
+    the flat lighthouse and the hierarchical root run: ``{"state",
+    "quorum", "changed", "reason"}``."""
+    return _json_call(_lib.tft_quorum_step, now_ms, unix_now_ms,
+                      _dumps(state), _dumps(opt))
+
+
+def lease_apply(state: dict, entries: list, now_ms: int) -> dict:
+    """Applies a batched lease renewal to a lighthouse state."""
+    return _json_call(_lib.tft_lease_apply, _dumps(state), _dumps(entries), now_ms)
+
+
+def depart_apply(state: dict, replica_id: str) -> dict:
+    """Applies an explicit depart to a lighthouse state."""
+    return _json_call(_lib.tft_depart_apply, _dumps(state), replica_id.encode())
+
+
+def digest_make(state: dict, now_ms: int, opt: dict) -> list:
+    """The region side of the digest protocol: age-relative entries."""
+    return _json_call(_lib.tft_digest_make, _dumps(state), now_ms, _dumps(opt))
+
+
+def digest_apply(state: dict, digest: list, now_ms: int) -> dict:
+    """The root side of the digest protocol: merges entries into a state."""
+    return _json_call(_lib.tft_digest_apply, _dumps(state), _dumps(digest), now_ms)
+
+
+class WalLog:
+    """A handle on a root's write-ahead quorum log, the same native
+    class the live lighthouse writes through. Scripted clocks pass one
+    ``t`` as both mono and unix time, so the replay's rebase is the
+    identity."""
+
+    def __init__(self, dir: str, snapshot_every: int = 0) -> None:
+        self._handle = _lib.tft_wal_open(dir.encode(), snapshot_every)
+        if not self._handle:
+            _check(2)
+
+    def log_lease(self, entries: List[dict], unix_ms: int) -> None:
+        """Appends post-apply member slices, each ``{replica_id, age_ms,
+        ttl_ms, participating, joined_age_ms, member}``, ages relative
+        to ``unix_ms``."""
+        _check(_lib.tft_wal_log_lease(self._handle, _dumps(entries), unix_ms))
+
+    def log_depart(self, replica_id: str) -> None:
+        _check(_lib.tft_wal_log_depart(self._handle, replica_id.encode()))
+
+    def log_quorum(self, quorum: dict, quorum_gen: int, root_epoch: int) -> None:
+        _check(_lib.tft_wal_log_quorum(
+            self._handle, _dumps(quorum), quorum_gen, root_epoch))
+
+    def log_epoch(self, epoch: int) -> None:
+        _check(_lib.tft_wal_log_epoch(self._handle, epoch))
+
+    def snapshot(self, state: dict, quorum_gen: int, root_epoch: int,
+                 mono_now: int, unix_now: int) -> None:
+        """Writes ``snapshot.json`` atomically and truncates the log."""
+        _check(_lib.tft_wal_snapshot(
+            self._handle, _dumps(state), quorum_gen, root_epoch, mono_now,
+            unix_now))
+
+    def close(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle and getattr(_lib, "_cdll", None) is not None:
+            _lib.tft_wal_close(handle)
+
+    def __del__(self) -> None:
+        self.close()
+
+
+def wal_recover(dir: str, mono_now: int, unix_now: int) -> dict:
+    """Replays a WAL directory (snapshot and log) into ``{"state",
+    "quorum_gen", "root_epoch", "replayed", "records_replayed",
+    "dropped_tail_bytes"}``, times rebased onto ``mono_now``. A torn
+    tail record fails its length or CRC and is dropped whole."""
+    return _json_call(_lib.tft_wal_recover, dir.encode(), mono_now, unix_now)
+
+
+def backoff_ms(failures: int, base_ms: int, max_ms: int, seed: int) -> int:
+    """The renewal loop's deterministic jittered exponential backoff."""
+    return _lib.tft_backoff_ms(failures, base_ms, max_ms, seed)
+
+
+def jittered_interval_ms(interval_ms: int, seed: int, tick: int) -> int:
+    """The deterministic jittered renewal interval."""
+    return _lib.tft_jittered_interval_ms(interval_ms, seed, tick)
+
+
+def shm_unlink(name: str) -> None:
+    """Removes a shared-memory segment name (idempotent; mappings stay
+    valid): the cleanup a respawn runs before it creates again."""
+    _check(_lib.tft_shm_unlink(name.encode()))
+
+
+def fault_arm(plan: dict) -> None:
+    """Arms (replaces) this library's process-global seeded fault plan
+    (:mod:`torchft_tpu_torch.chaos` builds them). Stats persist across
+    re-arms; :func:`fault_disarm` resets everything. A process that
+    loads two builds of the native library has two engines: arm the one
+    whose ring sends the frame."""
+    _check(_lib.tft_fault_arm(_dumps(plan)))
+
+
+def fault_disarm() -> None:
+    """Disarms injection and clears the plan and stats; disarmed, every
+    injection point costs one relaxed atomic load."""
+    _lib.tft_fault_disarm()
+
+
+def fault_armed() -> bool:
+    return bool(_lib.tft_fault_armed())
+
+
+def fault_stats() -> dict:
+    """Cumulative injections: ``{"armed", "fired_total", "fired":
+    {"seam:kind": n}}``."""
+    out = ctypes.c_void_p()
+    _check(_lib.tft_fault_stats_json(ctypes.byref(out)))
+    return json.loads(_take_string(out))

@@ -1085,6 +1085,43 @@ class HostCollectives(OpStatsMixin, Collectives):
     def abort(self) -> None:
         _lib.tft_hc_abort(self._handle)
 
+    def prewarm(self, tree: Any = None, wire: Optional[str] = "q8ef") -> None:
+        """Warm-up for a hot-spare standby: starts the op thread and, given
+        a tree shaped like the payload the promoted worker will sync (its
+        gradient tree), runs the device pack for ``wire`` (the plan wire
+        of ``plan_allreduce``; ``"q8ef"`` is ``PipelinedDDP``'s q8) once
+        on zeros of those shapes. The kernels load (K1a and K1b on
+        ``q8ef``, K3 on ``bf16``), the packer's device buffers and pinned
+        staging are allocated, and the first ``plan_allreduce`` after the
+        promotion reuses that packer, its carry zeroed. No ring is
+        touched (the ring exists only after ``configure``), so a parked
+        standby stays invisible to the quorum. CPU leaves run the
+        kernels' plain versions."""
+        ready: Any = None
+        zeros: List[torch.Tensor] = []
+        treedef: Any = None
+        if tree is not None:
+            leaves, treedef = _flatten(tree)
+            if not all(isinstance(l, torch.Tensor) for l in leaves):
+                raise ValueError("prewarm takes a tree of tensors")
+            zeros = [torch.zeros_like(l) for l in leaves]
+            if zeros and zeros[0].is_cuda:
+                ready = torch.cuda.current_stream(
+                    zeros[0].device).record_event()
+
+        def warm() -> None:
+            if not zeros:
+                return
+            key = (wire, treedef, _signature(zeros), zeros[0].device)
+            packer = self._dev_packers.get(key)
+            if packer is None:
+                packer = self._dev_packers[key] = _DeviceWirePacker(
+                    zeros, wire)
+            packer.pack_step(zeros, ready)
+            packer.reset_feedback()
+
+        self._submit(warm).wait()
+
     def shutdown(self) -> None:
         if self._shutdown:
             return

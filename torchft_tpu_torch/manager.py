@@ -49,6 +49,7 @@ import time
 import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 from datetime import timedelta
+from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, TypeVar, Union, cast
 
 import torch
@@ -68,6 +69,16 @@ logger: logging.Logger = logging.getLogger(__name__)
 MANAGER_ADDR_KEY: str = "manager_addr"
 REPLICA_ID_KEY: str = "replica_id"
 T = TypeVar("T")
+
+
+class WorldSizeMode(Enum):
+    """How the effective world size behaves under faults: ``DYNAMIC``
+    averages over whoever takes part; ``FIXED_WITH_SPARES`` keeps the
+    divisor at ``min_replica_size``, and the groups ranked past it join
+    the collectives as spares with zeroed gradients."""
+
+    DYNAMIC = 0
+    FIXED_WITH_SPARES = 1
 
 
 def _zero_leaf(leaf: Any) -> Any:
@@ -93,10 +104,15 @@ class Manager:
         connect_timeout: timedelta = timedelta(seconds=20),
         rank: Optional[int] = None,
         world_size: Optional[int] = None,
+        world_size_mode: WorldSizeMode = WorldSizeMode.DYNAMIC,
         store_addr: Optional[str] = None,
         lighthouse_addr: Optional[str] = None,
+        lighthouse_root_addr: Optional[str] = None,
+        region_probe_max: Optional[int] = None,
+        lease_ttl: Optional[timedelta] = None,
         replica_id: Optional[str] = None,
         hostname: str = socket.gethostname(),
+        heartbeat_interval: timedelta = timedelta(milliseconds=100),
         region: Optional[str] = None,
         host_label: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
@@ -115,12 +131,29 @@ class Manager:
             min_replica_size: minimum replica groups for a committable step.
             rank / world_size: this rank within the replica group (env
                 ``RANK``/``WORLD_SIZE`` when None).
+            world_size_mode: ``FIXED_WITH_SPARES`` fixes the divisor at
+                ``min_replica_size`` (clamped down, so a short cohort
+                still fails the vote) and zeroes the gradients of the
+                groups ranked past it (the launcher's hot spares).
             store_addr: ``host:port`` of the group's rendezvous Store (env
                 ``MASTER_ADDR``+``MASTER_PORT``; with neither and
                 world_size == 1, an in-process Store is created).
-            lighthouse_addr: the lighthouse (env ``TORCHFT_LIGHTHOUSE``).
+            lighthouse_addr: the group's lighthouse (env
+                ``TORCHFT_LIGHTHOUSE``): the flat or root service, or the
+                group's region lighthouse under a hierarchical tier.
+            lighthouse_root_addr: the root fallback (env
+                ``TORCHFT_LIGHTHOUSE_ROOT``): a dead region demotes the
+                group to the root until it returns. Either address may
+                be a comma-separated failover set (the active root and
+                its warm standbys); renewals rotate on failure.
+            region_probe_max: how many failed region re-probes a demoted
+                manager makes before it stays on the root (env
+                ``TORCHFT_REGION_PROBE_MAX``, default 20; 0 = forever).
+            lease_ttl: the membership lease (env ``TORCHFT_LEASE_TTL_MS``;
+                None = the lighthouse's heartbeat timeout).
             replica_id: replica group name; group rank 0 appends a uuid.
             hostname: the name peers reach this group's manager by.
+            heartbeat_interval: the native manager's renewal interval.
             region: this group's region label (env ``TORCHFT_REGION``,
                 else unlabeled).
             host_label: this group's host label (env ``TORCHFT_HOST``,
@@ -155,6 +188,7 @@ class Manager:
         self._use_async_quorum = use_async_quorum
         self._quorum_timeout = quorum_timeout
         self._connect_timeout = connect_timeout
+        self._world_size_mode = world_size_mode
 
         self._rank: int = rank if rank is not None else int(os.environ.get("RANK", 0))
         self._world_size: int = (
@@ -229,6 +263,15 @@ class Manager:
         self._replica_hosts: List[str] = []
 
         lighthouse_addr = lighthouse_addr or os.environ.get("TORCHFT_LIGHTHOUSE")
+        lighthouse_root_addr = lighthouse_root_addr or os.environ.get(
+            "TORCHFT_LIGHTHOUSE_ROOT", "")
+        if region_probe_max is None:
+            region_probe_max = int(os.environ.get("TORCHFT_REGION_PROBE_MAX", "20"))
+        self._region_probe_max = region_probe_max
+        if lease_ttl is None:
+            env_ttl = os.environ.get("TORCHFT_LEASE_TTL_MS")
+            if env_ttl:
+                lease_ttl = timedelta(milliseconds=int(env_ttl))
         replica_id = replica_id if replica_id is not None else ""
         self._manager: Optional[_native.Manager] = None
         if self._rank == 0:
@@ -249,9 +292,13 @@ class Manager:
                 bind=bind,
                 store_addr=store_addr,
                 world_size=self._world_size,
+                heartbeat_interval=heartbeat_interval,
                 connect_timeout=connect_timeout,
+                root_addr=lighthouse_root_addr,
+                lease_ttl=lease_ttl,
                 region=region,
                 host=host_label,
+                region_probe_max=region_probe_max,
             )
             self._store.set(MANAGER_ADDR_KEY, self._manager.address().encode())
             self._store.set(REPLICA_ID_KEY, replica_id.encode())
@@ -361,6 +408,16 @@ class Manager:
             # part.
             self._participating_rank = result.replica_rank
             self._participating_world_size = result.replica_world_size
+
+        if self._world_size_mode == WorldSizeMode.FIXED_WITH_SPARES:
+            # Spares take part with zeroed gradients and the divisor
+            # stays fixed, so numerics never change under churn; min()
+            # keeps a cohort below min_replica_size failing the vote.
+            if (self._participating_rank is not None
+                    and self._participating_rank >= self._min_replica_size):
+                self._participating_rank = None
+            self._participating_world_size = min(
+                self._participating_world_size, self._min_replica_size)
 
         if self._durable_restore is not None and not self._durable_consulted:
             # One-shot donor/durable arbitration at the first quorum: a

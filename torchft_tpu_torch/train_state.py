@@ -174,6 +174,29 @@ class FTTrainState:
             return
         _load_opt_state(self.opt_state, sd_opt)
 
+    @torch.no_grad()
+    def warm(self, grads_like: Any) -> None:
+        """Warm-up for a hot-spare standby: runs one optimizer update on
+        copies of the state with zero gradients shaped like
+        ``grads_like``, so the first real ``apply_gradients`` after a
+        promotion finds the update's device code loaded and its
+        allocator pools sized. Copies, because even a zero-gradient
+        AdamW step moves params (weight decay, bias correction): the live
+        state stays untouched. On the card the update runs there; the
+        call returns once it has finished."""
+        params = tree_map(torch.clone, self.params)
+        opt_state = tree_map(
+            lambda l: l.clone() if isinstance(l, torch.Tensor) else l,
+            self.opt_state)
+        zeros = tree_map(
+            lambda g: torch.zeros_like(g) if isinstance(g, torch.Tensor)
+            else g, grads_like)
+        self.tx.update_(params, opt_state, zeros)
+        devices = {l.device for l in flatten(params)[0]
+                   if isinstance(l, torch.Tensor) and l.is_cuda}
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+
     def apply_gradients(self, grads: Any) -> None:
         """One optimizer update, in place."""
         self.tx.update_(self.params, self.opt_state, grads)
