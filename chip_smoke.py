@@ -160,11 +160,12 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            SIGKILLed at step CONTROL_KILL_STEP: its spare is promoted and
            heals over the stream on the bf16 wire (K3 in the donor); then
            the active root is SIGKILLed and the fleet fails over to the
-           standby root. The same two groups then run cold (restart only,
-           the raw heal wire) with the same kill. Prints kill-to-first-
-           commit seconds (promoted, cold), the heals' fetch_s / h2d_s,
-           the takeover and failover seconds, and each spare's warm-up
-           seconds, launches and memory;
+           standby root. Group 0 is never killed. The same two groups then
+           run cold (restart only, the raw heal wire) with the same kill.
+           Prints
+           kill-to-first-commit seconds (promoted, cold), the heals'
+           fetch_s / h2d_s, the takeover and failover seconds, and each
+           spare's warm-up seconds, launches and memory;
 22. chaos flash  two flash groups on PipelinedDDP(q8) blocking steps with
            TORCHFT_WIRE_CRC=1 under a seeded FaultPlan (ring_send
            bit_flip, duplicate, drop, delay, truncate and ring_hdr
@@ -225,19 +226,20 @@ the serving flash phase, K1a/K1b/K2 in the parameter server phase,
 with exact counts; K1a/K1b/K3 in the control dense phase, K1a/K1b/K4/K5
 in the chaos flash phase and K1a/K1b/K2/K4/K5 in the policy flash
 phase). The control dense phase checks that quorum ids only go up,
-that every replacement healed over the stream to a state the donor
-served (bit for bit), that the cold run ends bit-identical and the hot
-run (whose bf16 heal wire rounds the AdamW moments) within the AdamW
-step bound, that the standby root took over and that each spare's
-prewarm launched the q8 pack. The chaos flash phase checks the four
-invariants: quorum epochs never go back, the groups end bit-identical,
-every corrupting fault's step is discarded and detected as
-WireCorruption, and commits follow the last fault and the restart (whose
-heal must fall back off the stream path). The policy flash phase checks
-that both members took identical decisions, at least one a committed
-switch, and end bit-identical. The card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``. Any failed phase
-exits non-zero.
+that every heal took the stream path to a state the other group served
+(bit for bit), that the cold run ends bit-identical and the hot run
+(whose bf16 heal wire rounds the AdamW moments) within the drift that
+rounding allows (_bf16_heal_drift_bound), that the standby root took
+over, and that each spare's prewarm launched the q8 pack. The chaos
+flash phase checks the four invariants: quorum epochs never go back, the
+groups' params agree at every step both commit and at the end, every
+corrupting fault's attempt commits on neither member and its receiver
+raises WireCorruption there, and commits follow the last fault and the
+restart (whose heal must fall back off the stream path). The policy
+flash phase checks that both members took identical decisions, at least
+one a committed switch, and end bit-identical. The card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Any failed phase exits non-zero.
 
 Usage: ``python3 chip_smoke.py`` (needs one CUDA device; the workers are
 this script re-run with ``--worker``, the heal donor with
@@ -3934,6 +3936,14 @@ CONTROL_CONNECT_S = 3
 # R1) while its peer waits in the ring (a dense step's ring is ~60 ms)
 CONTROL_QUORUM_TIMEOUT_S = 10
 CONTROL_OP_TIMEOUT_S = 10
+# through the region tier a failed member's forced registration is
+# forwarded again with every digest while the member heartbeats, so the
+# root forms a new quorum id each poll (ROADMAP Queue 3, R1): two members
+# that retry a moment apart configure for different ids and time out,
+# round after round. After a second failed step in a row a worker retries
+# on this shared clock tick, longer than a failed attempt's configure
+# bound, so both members' requests reach their regions together
+CONTROL_RETRY_TICK_S = 4.0
 # chaos flash: the plan's faults land at attempted steps 1..6, one each;
 # the SIGKILL of group 1 at CHAOS_KILL_STEP; CHAOS_TAIL_STEPS clean steps
 # after the restarted group's first commit
@@ -4014,12 +4024,46 @@ def _read_stop(workdir: str) -> "int | None":
         return None
 
 
+def _write_stop(workdir: str, step: int) -> None:
+    """Tells the launched groups to stop once they reach ``step``."""
+    with open(os.path.join(workdir, "stop.tmp"), "w") as f:
+        f.write(str(step))
+    os.replace(os.path.join(workdir, "stop.tmp"),
+               os.path.join(workdir, "stop"))
+
+
 def _progress(workdir: str, g: int) -> list:
     try:
         with open(os.path.join(workdir, f"progress_{g}.jsonl")) as f:
             return [json.loads(l) for l in f if l.strip()]
     except OSError:
         return []
+
+
+def _guarded_step(ddp, manager, tokens) -> tuple:
+    """One blocking step. A step that raises (a peer died mid-quorum, a
+    fault surfaced) is reported to the manager and voted down, and the
+    worker retries. Returns (committed, the step's error or None)."""
+    try:
+        ddp.blocking_step(tokens)
+        return bool(ddp.last_commit), manager.errored()
+    except Exception as e:  # noqa: BLE001 - the worker retries
+        try:
+            if manager.errored() is None:
+                manager.report_error(e)
+            manager.should_commit()
+        except Exception:  # noqa: BLE001
+            pass
+        return False, e
+
+
+def _txn_row(manager, t0: float, committed: bool, err) -> dict:
+    """One transaction's progress row. ``qid`` is the quorum's id as
+    configured: ``quorum_id()`` would re-raise a failed quorum."""
+    return {"t0": t0, "t": time.time(), "pid": os.getpid(),
+            "step": manager.current_step(), "qid": manager._quorum_id,
+            "committed": committed,
+            "err": f"{type(err).__name__}: {err}" if err is not None else None}
 
 
 def control_worker(cfg: dict) -> None:
@@ -4072,13 +4116,17 @@ def control_worker(cfg: dict) -> None:
             json.dump(info, f)
     tplat.standby_gate()
     info["t_gate"] = time.time()
-    served: list = []
     healed: list = []
     box: dict = {}
+    # every state this group serves, as it serves it (a donor may die
+    # before its result is written)
+    served = open(os.path.join(workdir, f"served_{g}.jsonl"), "a")
 
     def state_dict():
-        served.append({"step": box["m"].current_step(),
-                       "checksum": _checksum(state.params)})
+        served.write(json.dumps({"pid": os.getpid(),
+                                 "step": box["m"].current_step(),
+                                 "checksum": _checksum(state.params)}) + "\n")
+        served.flush()
         return state.state_dict()
 
     def load_state_dict(sd):
@@ -4098,34 +4146,23 @@ def control_worker(cfg: dict) -> None:
     prog = open(os.path.join(workdir, f"progress_{g}.jsonl"), "a")
     data = {"group": g, "lm": cfg["lm"], "batch": cfg["batch"],
             "seq": cfg["seq"]}
-    heals_seen = 0
+    heals_seen, first_row, failed = 0, True, 0
     try:
         while True:
             stop = _read_stop(workdir)
             if stop is not None and manager.current_step() >= stop:
                 break
-            tokens = _tokens(data, manager.current_step(), device)
+            if failed >= 2:
+                time.sleep(CONTROL_RETRY_TICK_S
+                           - time.time() % CONTROL_RETRY_TICK_S)
             t0 = time.time()
-            err = None
-            try:
-                ddp.blocking_step(tokens)
-                committed = bool(ddp.last_commit)
-            except Exception as e:  # noqa: BLE001 - a peer died mid-quorum
-                err = repr(e)
-                committed = False
-                try:
-                    if manager.errored() is None:
-                        manager.report_error(e)
-                    manager.should_commit()
-                except Exception:  # noqa: BLE001
-                    pass
-            # (the quorum's id as configured: quorum_id() would re-raise a
-            # failed quorum)
-            row = {"t0": t0, "t": time.time(), "pid": os.getpid(),
-                   "step": manager.current_step(),
-                   "qid": manager._quorum_id, "committed": committed,
-                   "err": err or (repr(manager.errored())
-                                  if manager.errored() else None)}
+            committed, err = _guarded_step(
+                ddp, manager, _tokens(data, manager.current_step(), device))
+            failed = failed + 1 if err is not None else 0
+            row = _txn_row(manager, t0, committed, err)
+            if first_row:  # when this process started and left the gate
+                first_row = False
+                row.update({k: info[k] for k in ("t_start", "t_gate")})
             if len(healed) > heals_seen:
                 heals_seen = len(healed)
                 row["heal"] = {
@@ -4136,7 +4173,7 @@ def control_worker(cfg: dict) -> None:
         if on_card:
             torch.cuda.synchronize(device)
         info.update({
-            "launches": dict(qk.launch_counts), "served": served,
+            "launches": dict(qk.launch_counts),
             "step": manager.current_step(), "digest": _digest(state.params),
             "heals": manager.metrics().snapshot()["counters"].get("heals", 0),
         })
@@ -4148,6 +4185,7 @@ def control_worker(cfg: dict) -> None:
                 device)
     finally:
         prog.close()
+        served.close()
         manager.shutdown()
         collectives.shutdown()
     with open(os.path.join(workdir, f"result_{tag}.json"), "w") as f:
@@ -4155,10 +4193,10 @@ def control_worker(cfg: dict) -> None:
 
 
 def _wait_progress(workdir: str, pred, timeout_s: float, what: str,
-                   watch=None) -> dict:
+                   watch=None, detail=None) -> dict:
     """Polls the groups' progress logs until ``pred(logs)`` returns a
-    truthy value; fails after ``timeout_s`` or when ``watch()`` says the
-    run is gone."""
+    truthy value; fails after ``timeout_s`` (with ``detail()`` in the
+    message) or when ``watch()`` says the run is gone."""
     deadline = time.monotonic() + timeout_s
     while True:
         logs = {g: _progress(workdir, g) for g in (0, 1)}
@@ -4169,7 +4207,8 @@ def _wait_progress(workdir: str, pred, timeout_s: float, what: str,
             fail(f"control run ended while waiting for {what}")
         if time.monotonic() > deadline:
             fail(f"timed out waiting for {what}: "
-                 f"{ {g: l[-3:] for g, l in logs.items()} }")
+                 f"{ {g: l[-3:] for g, l in logs.items()} }"
+                 + (f"; {detail()}" if detail is not None else ""))
         time.sleep(0.05)
 
 
@@ -4182,8 +4221,10 @@ def _control_run(workdir: str, lighthouse_addr: str, hot: bool, base: dict,
                  roots=None) -> dict:
     """One launched run of two dense groups: ``hot`` with a spare per
     group, two in-process regions and the root failover set (``roots``:
-    the active and the standby RootProcess, killed in turn); cold with
-    restarts only. Group 1's primary dies at CONTROL_KILL_STEP."""
+    the active and the standby RootProcess). Group 1's process dies at
+    CONTROL_KILL_STEP; in the hot run the active root dies next. Group 0
+    never dies: the reference the promoted group is held to. Cold:
+    restarts only."""
     from torchft_tpu_torch import launcher
     from torchft_tpu_torch.chaos import kill_process
 
@@ -4206,77 +4247,74 @@ def _control_run(workdir: str, lighthouse_addr: str, hot: bool, base: dict,
     th.start()
     gone = lambda: not th.is_alive()  # noqa: E731
     out: dict = {"hot": hot}
-    _wait_progress(workdir, lambda logs: all(
-        len(_committed(logs[g])) >= CONTROL_KILL_STEP for g in (0, 1)),
-        300, "both groups' first steps", gone)
-    if hot:  # promote a spare that finished its warm-up
-        def warm_spare(_):
-            return [f for f in os.listdir(workdir)
-                    if f.startswith("standby_1_")]
-        _wait_progress(workdir, warm_spare, 300, "group 1's warm spare", gone)
-    victim = _progress(workdir, 1)[-1]["pid"]
-    t_kill = out["t_kill"] = time.time()
-    kill_process(victim)
-    first = _wait_progress(
-        workdir, lambda logs: next(iter(
-            [r for r in _committed(logs[1], t_kill) if r["pid"] != victim]),
-            None), 300, "the replacement's first commit", gone)
-    out["kill_to_first_commit_s"] = first["t"] - t_kill
-    out["replacement_pid"] = first["pid"]
-    heal = _wait_progress(workdir, lambda logs: next(iter(
-        [r["heal"] for r in logs[1] if r["pid"] == first["pid"]
-         and "heal" in r]), None), 60, "the replacement's heal", gone)
-    out["heal"] = heal
-    if hot:
-        _wait_progress(workdir, lambda logs: len(_committed(
-            logs[1], t_kill, first["pid"])) >= CONTROL_ROOT_KILL_AFTER,
-            120, "commits after the promotion", gone)
-        active, standby = roots
-        t_root = time.time()
-        active.kill()
-        while not (standby.status(timeout=0.5) or {}).get("active"):
-            if time.time() - t_root > 60:
-                fail("the standby root never took over")
-            time.sleep(0.02)
-        out["takeover_s"] = time.time() - t_root
-        # failed over: both groups' leases are live at the new active root
-        # again (their regions' digests, or a demoted manager's own
-        # renewal); the leases it mirrored from the dead root lapsed
-        # before the takeover (CONTROL_LEASE_MS < CONTROL_TAKEOVER_MS)
-        def both_at_standby() -> bool:
-            st = standby.status(timeout=0.5) or {}
-            ids = {m["replica_id"].split(":")[0]
-                   for m in st.get("members", [])
-                   if m.get("lease_remaining_ms", 0) > 0}
-            return {"g0", "g1"} <= ids
-        while not both_at_standby():
-            if time.time() - t_root > 60:
-                fail(f"the fleet never registered at the standby root: "
-                     f"{standby.status()}")
-            time.sleep(0.02)
-        out["root_failover_s"] = time.time() - t_root
-        after = _wait_progress(workdir, lambda logs: all(
-            _committed(logs[g], t_root) for g in (0, 1)) and logs, 120,
-            "commits after the root failover", gone)
-        out["first_commits_after_root_kill_s"] = [round(
-            _committed(after[g], t_root)[0]["t"] - t_root, 3)
-            for g in (0, 1)]
-        # a commit under a quorum the new root formed: the cohort's
-        # membership is re-agreed there (a quorum id past the last one
-        # committed before the kill)
-        qid_before = max(r["qid"] for g in (0, 1) for r in after[g]
-                         if r["committed"] and r["t"] <= t_root)
-        st = standby.status() or {}
-        out["standby_root"] = {k: st.get(k) for k in (
-            "role", "active", "root_epoch", "quorum_id", "wal_replayed")}
-        out["standby_root"]["regions"] = sorted(
-            r.get("region_id") for r in st.get("regions", []))
-        out["qid_before_root_kill"] = qid_before
-    last = max(r["step"] for g in (0, 1) for r in _progress(workdir, g))
-    with open(os.path.join(workdir, "stop.tmp"), "w") as f:
-        f.write(str(last + CONTROL_TAIL_STEPS))
-    os.replace(os.path.join(workdir, "stop.tmp"),
-               os.path.join(workdir, "stop"))
+    try:
+        _wait_progress(workdir, lambda logs: all(
+            len(_committed(logs[g])) >= CONTROL_KILL_STEP for g in (0, 1)),
+            300, "both groups' first steps", gone)
+        if hot:  # promote a spare that finished its warm-up
+            _wait_progress(workdir, lambda _: [
+                f for f in os.listdir(workdir) if f.startswith("standby_1_")],
+                300, "group 1's warm spare", gone)
+        victim = _progress(workdir, 1)[-1]["pid"]
+        t_kill = time.time()
+        kill_process(victim)
+        first = _wait_progress(
+            workdir, lambda logs: next(iter(
+                [r for r in _committed(logs[1], t_kill)
+                 if r["pid"] != victim]), None), 300,
+            "the replacement's first commit", gone,
+            lambda: {r.address(): r.status(timeout=0.5) for r in roots or []})
+        heal = _wait_progress(workdir, lambda logs: next(iter(
+            [r["heal"] for r in logs[1] if r["pid"] == first["pid"]
+             and "heal" in r]), None), 60, "the replacement's heal", gone)
+        out["replacement"] = {"t_kill": t_kill, "pid": first["pid"],
+                              "kill_to_first_commit_s": first["t"] - t_kill,
+                              "heal": heal}
+        if hot:
+            _wait_progress(workdir, lambda logs: len(_committed(
+                logs[1], t_kill, first["pid"])) >= CONTROL_ROOT_KILL_AFTER,
+                120, "commits after the promotion", gone)
+            active, standby = roots
+            t_root = time.time()
+            active.kill()
+            while not (standby.status(timeout=0.5) or {}).get("active"):
+                if time.time() - t_root > 60:
+                    fail("the standby root never took over")
+                time.sleep(0.02)
+            out["takeover_s"] = time.time() - t_root
+            # failed over: both groups' leases are live at the new active root
+            # again (their regions' digests, or a demoted manager's own
+            # renewal); the leases it mirrored from the dead root lapsed
+            # before the takeover (CONTROL_LEASE_MS < CONTROL_TAKEOVER_MS)
+            def both_at_standby() -> bool:
+                st = standby.status(timeout=0.5) or {}
+                ids = {m["replica_id"].split(":")[0]
+                       for m in st.get("members", [])
+                       if m.get("lease_remaining_ms", 0) > 0}
+                return {"g0", "g1"} <= ids
+            while not both_at_standby():
+                if time.time() - t_root > 60:
+                    fail(f"the fleet never registered at the standby root: "
+                         f"{standby.status()}")
+                time.sleep(0.02)
+            out["root_failover_s"] = time.time() - t_root
+            after = _wait_progress(workdir, lambda logs: all(
+                _committed(logs[g], t_root) for g in (0, 1)) and logs, 120,
+                "commits after the root failover", gone)
+            out["first_commits_after_root_kill_s"] = [round(
+                _committed(after[g], t_root)[0]["t"] - t_root, 3)
+                for g in (0, 1)]
+            st = standby.status() or {}
+            out["standby_root"] = {k: st.get(k) for k in (
+                "role", "active", "root_epoch", "quorum_id", "wal_replayed")}
+            out["standby_root"]["regions"] = sorted(
+                r.get("region_id") for r in st.get("regions", []))
+        last = max(r["step"] for g in (0, 1) for r in _progress(workdir, g))
+        _write_stop(workdir, last + CONTROL_TAIL_STEPS)
+    except BaseException:
+        _write_stop(workdir, 0)  # the groups leave at their next step
+        th.join(120)
+        raise
     th.join(300)
     if th.is_alive() or result.get("rc") != 0:
         fail(f"the launched groups did not exit cleanly: {result}")
@@ -4284,6 +4322,7 @@ def _control_run(workdir: str, lighthouse_addr: str, hot: bool, base: dict,
     out["logs"] = {g: _progress(workdir, g) for g in (0, 1)}
     out["results"] = []
     out["standbys"] = []
+    out["served"] = {}
     for name in sorted(os.listdir(workdir)):
         path = os.path.join(workdir, name)
         if name.startswith("result_"):
@@ -4295,6 +4334,10 @@ def _control_run(workdir: str, lighthouse_addr: str, hot: bool, base: dict,
         elif name.startswith("standby_"):
             with open(path) as f:
                 out["standbys"].append(json.load(f))
+        elif name.startswith("served_"):
+            with open(path) as f:
+                out["served"][int(name[len("served_"):-6])] = [
+                    json.loads(l) for l in f if l.strip()]
     return out
 
 
@@ -4344,6 +4387,23 @@ def _param_drift(a: str, b: str) -> float:
                zip(torch.load(a), torch.load(b)))
 
 
+def _bf16_heal_drift_bound(steps: int, lr: float = CONTROL_LR,
+                           b1: float = 0.9, b2: float = 0.999) -> float:
+    """How far two AdamW trajectories can part in ``steps`` steps after a
+    bf16-wire heal, which hands the healer the donor's params bit for bit
+    and its moments rounded to bf16 (relative error at most 2^-8). Both
+    groups apply the same averaged gradient, so only the rounding parts
+    them: it changes the ratio mu / sqrt(nu) by at most 2^-8 + 2^-9 of
+    its size and decays after, and that ratio is at most
+    (1 - b1) / sqrt((1 - b2) (1 - b1^2 / b2)) for moments built from any
+    gradients (Cauchy-Schwarz), the bias corrections only shrinking it.
+    2^-7 in place of 2^-8 + 2^-9 leaves room for the f32 roundings. A
+    skipped update or another gradient moves a param by about lr a step,
+    some 17 times this bound's step."""
+    ratio = (1 - b1) / ((1 - b2) * (1 - b1 * b1 / b2)) ** 0.5
+    return steps * lr * ratio * 2.0 ** -7
+
+
 def check_control_dense(res: dict, on_card: bool = True) -> dict:
     launches: dict = {}
     summary: dict = {}
@@ -4354,10 +4414,18 @@ def check_control_dense(res: dict, on_card: bool = True) -> dict:
             qids = [r["qid"] for r in rows if r["committed"]]
             if qids != sorted(qids):
                 fail(f"control {name}: group {g}'s quorum_id went back: {qids}")
-        heal = run["heal"]
-        if heal.get("path") != "stream":
-            fail(f"control {name}: the replacement healed off the stream "
-                 f"path: {heal}")
+        # every heal (the replacement's, and any a quorum round forced)
+        # took the stream path and landed a state the other group served
+        for g, rows in run["logs"].items():
+            served = {x["checksum"] for x in run["served"].get(1 - g, [])}
+            for heal in (r["heal"] for r in rows if "heal" in r):
+                if heal.get("path") != "stream":
+                    fail(f"control {name}: group {g} healed off the stream "
+                         f"path: {heal}")
+                if heal["checksum"] not in served:
+                    fail(f"control {name}: group {g}'s healed params "
+                         f"{heal['checksum']} are not a state the donor "
+                         f"served {sorted(served)}")
         # each group's last process (a crashed replacement is replaced)
         by_group = {}
         for r in sorted(run["results"], key=lambda r: r["t_gate"]):
@@ -4368,25 +4436,23 @@ def check_control_dense(res: dict, on_card: bool = True) -> dict:
         if r0["step"] != r1["step"]:
             fail(f"control {name}: groups ended at steps {r0['step']}, "
                  f"{r1['step']}")
-        served = {s["checksum"] for s in r0["served"]}
-        if heal["checksum"] not in served:
-            fail(f"control {name}: the healed params {heal['checksum']} are "
-                 f"not a state the donor served {sorted(served)}")
-        if name == "cold" or heal.get("wire") != "bf16":
+        # the last heal of either group made the params equal; its
+        # healer's commits since count the steps the rounded moments had
+        # to part them
+        t_heal, g_heal, pid_heal = max(
+            (r["t"], g, r["pid"]) for g, rows in run["logs"].items()
+            for r in rows if "heal" in r)
+        last = next(r["heal"] for r in run["logs"][g_heal]
+                    if r["t"] == t_heal and "heal" in r)
+        drift = bound = 0.0
+        if name == "cold" or last.get("wire") != "bf16":
             if r0["digest"] != r1["digest"]:
                 fail(f"control {name}: the groups do not end bit-identical")
-            drift = 0.0
         else:
-            # the bf16 heal wire rounds the AdamW moments (its contract):
-            # the params arrive bit for bit (the checksum above), then the
-            # groups' moments differ, and an AdamW step moves a param by
-            # at most lr (1 - b1) / sqrt(1 - b2) plus the decay, so two
-            # trajectories part by at most twice that per step
-            after = sum(1 for r in run["logs"][1]
-                        if r["pid"] == run["replacement_pid"]
-                        and r["committed"])
+            after = sum(1 for r in run["logs"][g_heal] if r["pid"] == pid_heal
+                        and r["committed"] and r["t"] >= t_heal)
             drift = _param_drift(r0["params_file"], r1["params_file"])
-            bound = 2 * after * CONTROL_LR * (0.1 / 0.001 ** 0.5 + 1e-4)
+            bound = _bf16_heal_drift_bound(after)
             if drift > bound:
                 fail(f"control {name}: params drifted {drift} > {bound} "
                      f"after {after} steps past the bf16-wire heal")
@@ -4394,22 +4460,25 @@ def check_control_dense(res: dict, on_card: bool = True) -> dict:
             for k, n in r.get("launches", {}).items():
                 launches[k] = launches.get(k, 0) + n
         row = {k: run.get(k) for k in (
-            "kill_to_first_commit_s", "takeover_s", "root_failover_s",
-            "first_commits_after_root_kill_s", "qid_before_root_kill",
-            "standby_root", "total_s") if k in run}
-        row["heal"] = {k: heal.get(k) for k in (
-            "path", "wire", "streams", "bytes", "fetch_s", "h2d_s")}
-        row["end"] = {"step": r0["step"], "bit_identical":
-                      r0["digest"] == r1["digest"], "max_abs_drift": drift}
-        rep = next((r for r in run["results"]
-                    if r["pid"] == run["replacement_pid"]), None)
-        if rep is not None:
+            "takeover_s", "root_failover_s",
+            "first_commits_after_root_kill_s", "standby_root",
+            "total_s") if k in run}
+        rep = run["replacement"]
+        proc = next(r for r in run["logs"][1] if r["pid"] == rep["pid"])
+        row.update({
+            "kill_to_first_commit_s": rep["kill_to_first_commit_s"],
+            "heal": {k: rep["heal"].get(k) for k in (
+                "path", "wire", "streams", "bytes", "fetch_s", "h2d_s")},
             # cold: the interpreter, imports and model build come after
             # the kill; hot: only the gate's release does
-            row["replacement_imports_done_after_kill_s"] = round(
-                rep["t_start"] - run["t_kill"], 3)
-            row["replacement_gate_after_kill_s"] = round(
-                rep["t_gate"] - run["t_kill"], 3)
+            "replacement_imports_done_after_kill_s": round(
+                proc["t_start"] - rep["t_kill"], 3),
+            "replacement_gate_after_kill_s": round(
+                proc["t_gate"] - rep["t_kill"], 3),
+        })
+        row["end"] = {"step": r0["step"], "bit_identical":
+                      r0["digest"] == r1["digest"], "max_abs_drift": drift,
+                      "drift_bound": bound}
         summary[name] = row
     hot = res["hot"]
     for key in ("takeover_s", "root_failover_s"):
@@ -4464,8 +4533,9 @@ def chaos_worker(cfg: dict) -> None:
     quorum, PipelinedDDP(q8) blocking steps; its native fault engine is
     armed once per attempted step (rules fire on the member they name).
     Group 0 serves its heals through a HealFaultProxy the parent arms
-    (``arm_heal``: one truncated stream range). Every transaction and
-    every window's fired faults go to ``progress_<group>.jsonl``."""
+    (``arm_heal``: one truncated stream range). Every transaction, with
+    the faults this process fired in it and, when it commits, the
+    params' checksum, goes to ``progress_<group>.jsonl``."""
     import urllib.parse
     from datetime import timedelta
 
@@ -4519,8 +4589,17 @@ def chaos_worker(cfg: dict) -> None:
     data = {"group": g, "lm": cfg["lm"], "batch": cfg["batch"],
             "seq": cfg["seq"]}
     qk.reset_launch_counts()
-    armed_for, prev_fired = -1, {}
-    heals = 0
+    armed_for, heals = -1, 0
+    seen: dict = {}
+
+    def fired_since() -> dict:
+        """The faults this process fired since the last call."""
+        fired = _native.fault_stats().get("fired", {})
+        delta = {k: n - seen.get(k, 0) for k, n in fired.items()
+                 if n > seen.get(k, 0)}
+        seen.update(fired)
+        return delta
+
     try:
         while True:
             attempted = manager.current_step()
@@ -4531,44 +4610,23 @@ def chaos_worker(cfg: dict) -> None:
                     and os.path.exists(os.path.join(workdir, "arm_heal"))):
                 proxy.mode = "truncate_body"
             if attempted != armed_for:
-                # the faults fired since the last arm belong to the
-                # window just closed; a discarded step retries at the same
-                # attempted step without re-arming its one-shot rules
-                fired = _native.fault_stats().get("fired", {})
-                delta = {k: n - prev_fired.get(k, 0) for k, n in fired.items()
-                         if n > prev_fired.get(k, 0)}
-                if delta:
-                    emit({"window": armed_for, "fired": delta, "pid":
-                          os.getpid()})
-                prev_fired = dict(fired)
+                # a discarded step retries at the same attempted step
+                # without re-arming its one-shot rules
                 injector.begin_step(attempted, member=g)
                 armed_for = attempted
             t0 = time.time()
-            err = None
-            try:
-                ddp.blocking_step(_tokens(data, attempted, device))
-                committed = bool(ddp.last_commit)
-                err = manager.errored()
-            except Exception as e:  # noqa: BLE001 - chaos surfaces here
-                err, committed = e, False
-                try:
-                    if manager.errored() is None:
-                        manager.report_error(e)
-                    manager.should_commit()
-                except Exception:  # noqa: BLE001
-                    pass
-            text = f"{type(err).__name__}: {err}" if err is not None else None
+            committed, err = _guarded_step(
+                ddp, manager, _tokens(data, attempted, device))
+            row = _txn_row(manager, t0, committed, err)
             # the transaction's step: a sync-quorum heal moves a restarted
             # member's clock inside the step
-            txn = manager.current_step() - 1 if committed else attempted
-            row = {"t0": t0, "t": time.time(), "pid": os.getpid(),
-                   "attempted": attempted, "txn": txn,
-                   "step": manager.current_step(),
-                   "qid": manager._quorum_id, "committed": committed,
-                   "err": text,
-                   "crc": isinstance(err, _native.WireCorruption)
-                   or "wire corruption" in str(err),
-                   "desync": "protocol desync" in str(err)}
+            row.update({
+                "attempted": attempted,
+                "txn": row["step"] - 1 if committed else attempted,
+                "crc": isinstance(err, _native.WireCorruption),
+                "fired": fired_since()})
+            if committed:  # the groups' params at every step both commit
+                row["checksum"] = _checksum(state.params)
             fetch = getattr(manager.checkpoint_transport(),
                             "last_fetch_stats", None)
             n_heals = manager.metrics().snapshot()["counters"].get("heals", 0)
@@ -4643,10 +4701,7 @@ def phase_chaos_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
         out["kill_to_first_commit_s"] = first["t"] - t_kill
         last = max(r.get("step", 0) for g in (0, 1)
                    for r in _progress(workdir, g))
-        with open(os.path.join(workdir, "stop.tmp"), "w") as f:
-            f.write(str(last + CHAOS_TAIL_STEPS))
-        os.replace(os.path.join(workdir, "stop.tmp"),
-                   os.path.join(workdir, "stop"))
+        _write_stop(workdir, last + CHAOS_TAIL_STEPS)
         _join([procs[0], procs[1]], time.monotonic() + 300, workdir)
     finally:
         for p in procs:
@@ -4670,35 +4725,35 @@ def check_chaos_flash(res: dict, on_card: bool = True) -> dict:
     plan = json.loads(res["plan"])
     logs = res["logs"]
     rows = {g: [r for r in logs[g] if "attempted" in r] for g in (0, 1)}
-    fired: dict = {}
-    for g in (0, 1):
-        for r in logs[g]:
-            if "window" in r:
-                for k, n in r["fired"].items():
-                    fired.setdefault(r["window"], {})
-                    fired[r["window"]][k] = fired[r["window"]].get(k, 0) + n
     commits = {g: {} for g in (0, 1)}
     for g in (0, 1):
         for r in rows[g]:
             if r["committed"]:
-                commits[g][r["txn"]] = r["qid"]
+                commits[g][r["txn"]] = r
     # 1. epoch purity
     for g in (0, 1):
         steps = sorted(commits[g])
         for a, b in zip(steps, steps[1:]):
-            if commits[g][a] > commits[g][b]:
+            if commits[g][a]["qid"] > commits[g][b]["qid"]:
                 fail(f"chaos: group {g}'s quorum epoch went back between "
                      f"steps {a} and {b} ({res['plan']})")
     for step in set(commits[0]) & set(commits[1]):
-        if commits[0][step] != commits[1][step]:
-            near = any(commits[g].get(step - 1) != commits[g].get(step + 1)
+        q0, q1 = commits[0][step]["qid"], commits[1][step]["qid"]
+        if q0 != q1:
+            near = any(commits[g].get(step - 1, {}).get("qid")
+                       != commits[g].get(step + 1, {}).get("qid")
                        or step - 1 not in commits[g]
                        or step + 1 not in commits[g] for g in (0, 1))
             if not near:
-                fail(f"chaos: step {step} committed under epochs "
-                     f"{commits[0][step]} and {commits[1][step]} with no "
-                     f"quorum change near it ({res['plan']})")
-    # 2. survivors bit-identical
+                fail(f"chaos: step {step} committed under epochs {q0} and "
+                     f"{q1} with no quorum change near it ({res['plan']})")
+    # 2. survivors bit-identical: at every step both groups committed
+    # (before the kill too, which a heal from the survivor would hide)
+    # and at the end
+    for step in sorted(set(commits[0]) & set(commits[1])):
+        if commits[0][step]["checksum"] != commits[1][step]["checksum"]:
+            fail(f"chaos: the groups' params differ after step {step} "
+                 f"({res['plan']})")
     finals = [r for r in res["results"]]
     if sorted(r["group"] for r in finals) != [0, 1]:
         fail(f"chaos: final results of groups "
@@ -4707,27 +4762,46 @@ def check_chaos_flash(res: dict, on_card: bool = True) -> dict:
             {r["step"] for r in finals}) != 1:
         fail(f"chaos: the groups ended apart: "
              f"{[(r['step'], r['digest'][:12]) for r in finals]}")
-    # 3. detection: a corrupting fault's window discards and is detected
+    # 3. detection, per fault: the attempt in which the sender's
+    # corrupting rule fired commits on neither member, and the receiver's
+    # row of that attempt (same attempted step, same quorum) is its first
+    # there and ends in WireCorruption
+    fired: dict = {}
+    faults = []
+    for g in (0, 1):
+        for r in rows[g]:
+            for k, n in r["fired"].items():
+                by = fired.setdefault(r["attempted"], {})
+                by[k] = by.get(k, 0) + n
+                if k.split(":")[1] not in CORRUPTING_KINDS:
+                    continue
+                mine = [x for x in rows[1 - g]
+                        if (x["attempted"], x["qid"]) == (r["attempted"],
+                                                          r["qid"])]
+                fault = {"fault": k, "attempted": r["attempted"],
+                         "qid": r["qid"], "sender": g,
+                         "sender_committed": r["committed"],
+                         "receiver_committed": any(x["committed"]
+                                                   for x in mine),
+                         "receiver_crc": bool(mine) and mine[0]["crc"],
+                         "receiver_err": mine[0]["err"] if mine else None}
+                faults.append(fault)
+                if fault["sender_committed"] or fault["receiver_committed"]:
+                    fail(f"chaos: a corrupting fault committed: {fault} "
+                         f"({res['plan']})")
+                if not fault["receiver_crc"]:
+                    fail(f"chaos: a corrupting fault was not detected as "
+                         f"WireCorruption: {fault} ({res['plan']})")
+    injected = sum(n for by in fired.values() for n in by.values())
+    if injected < len(plan["events"]) or len(fired) < len(plan["events"]):
+        fail(f"chaos: {injected} faults fired in {len(fired)} steps of "
+             f"{len(plan['events'])} planned: {fired}")
+    planned = sum(e["kind"] in CORRUPTING_KINDS for e in plan["events"])
+    if len(faults) != planned:
+        fail(f"chaos: {len(faults)} corrupting faults fired of {planned} "
+             f"planned: {faults}")
     discards = {g: {r["attempted"] for r in rows[g] if not r["committed"]}
                 for g in (0, 1)}
-    all_discards = discards[0] | discards[1]
-    detections = {w: [r for g in (0, 1) for r in rows[g]
-                      if r["attempted"] in (w - 1, w, w + 1)
-                      and (r["crc"] or r["desync"])] for w in fired}
-    injected = sum(n for by in fired.values() for n in by.values())
-    corrupting = []
-    for w, by in sorted(fired.items()):
-        if any(k.split(":")[1] in CORRUPTING_KINDS for k in by):
-            corrupting.append(w)
-            if not ({w - 1, w, w + 1} & all_discards):
-                fail(f"chaos: a corrupting fault in window {w} ({by}) "
-                     f"committed ({res['plan']})")
-            if not detections[w]:
-                fail(f"chaos: a corrupting fault in window {w} ({by}) was "
-                     f"not detected as WireCorruption ({res['plan']})")
-    if len(fired) < len(plan["events"]):
-        fail(f"chaos: {len(fired)} windows fired of "
-             f"{len(plan['events'])} planned: {fired}")
     # 4. liveness: clean commits after the last fault and the restart
     last_fault = max(e["step"] for e in plan["events"])
     if not any(s > last_fault for g in (0, 1) for s in commits[g]):
@@ -4761,11 +4835,11 @@ def check_chaos_flash(res: dict, on_card: bool = True) -> dict:
     return {
         "seed": res["seed"], "plan": plan["events"],
         "faults_injected": injected,
-        "faults_by_window": {str(w): by for w, by in sorted(fired.items())},
-        "corrupting_windows": corrupting,
-        "detected_wire_corruption": sum(r["crc"] for g in (0, 1)
-                                        for r in rows[g]),
-        "detected_desync": sum(r["desync"] for g in (0, 1) for r in rows[g]),
+        "faults_by_step": {str(w): by for w, by in sorted(fired.items())},
+        "corrupting_faults": faults,
+        "detected_wire_corruption": sum(f["receiver_crc"] for f in faults),
+        "steps_both_committed_same_params": len(set(commits[0])
+                                                & set(commits[1])),
         "steps_discarded": {g: sorted(discards[g]) for g in (0, 1)},
         "recover_s": recover,
         "kill_to_first_commit_s": round(res["kill_to_first_commit_s"], 3),

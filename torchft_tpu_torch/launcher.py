@@ -41,15 +41,6 @@ def replica_group_spec(
         "TORCHFT_LIGHTHOUSE": lighthouse_addr,
         "REPLICA_GROUP_ID": str(replica_group),
         "NUM_REPLICA_GROUPS": str(num_replica_groups),
-        # The isolated data plane's knobs ride the spec explicitly, so an
-        # external scheduler (which does not inherit this supervisor's
-        # environment) deploys every group with the same child-respawn
-        # settings.
-        **{
-            knob: os.environ[knob]
-            for knob in ("TORCHFT_ISO_ZYGOTE", "TORCHFT_ISO_LIVENESS_MS")
-            if knob in os.environ
-        },
         **(env or {}),
     }
     return {
