@@ -7,8 +7,10 @@ two-tier schedule, on the legacy transport and as per-step ZeRO, the
 window strategies (AsyncDiLoCo, sharded DiLoCo) and AdaptiveDDP, the
 durable checkpoint tier, the weight-serving plane and the parameter
 server, the durable control plane with the launcher's hot spares, the
-chaos plane and the policy engine — through the entry points a user
-calls, at full width (random weights from a seed):
+chaos plane and the policy engine, and the second data plane (a torch
+process group per quorum, in the trainer or in a disposable child) —
+through the entry points a user calls, at full width (random weights
+from a seed):
 the transformer LM the repository benchmarks by default (vocab 8192,
 d_model 512, 8 heads, 6 layers, d_ff 2048, sequence 512, batch 16: 39 f32
 leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
@@ -180,7 +182,29 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            (outer SGD(0.7, 0.9, Nesterov)), a decision every 4 steps,
            CostKnobs(sync_fixed_s=0.5); prints each decision's costs and
            signals, the switch tick and each decision transaction's
-           seconds.
+           seconds;
+24. nccl probe  two processes build one XLACollectives(backend="nccl")
+           group over the one card; prints the verdict or the refusal's
+           text (the next phase runs on NCCL only if it was accepted);
+25. xla dense  two dense groups with the in-process XLACollectives
+           (gloo) as the Manager's plane on PipelinedDDP(transport=
+           "legacy", compress="q8") blocking steps, its allreduce,
+           allgather and broadcast on card tensors, whether the gloo
+           group takes a card tensor itself, then a third group joins
+           and heals; every configure leaves the params' bits as they
+           were;
+26. iso flash  two flash groups with Manager(iso_collectives=
+           IsolatedXLACollectives) on PipelinedDDP(transport="iso",
+           compress="q8") blocking steps: 1 warm-up, 3 timed, then group
+           1's child SIGKILLed mid-op (both groups discard, the next
+           quorum respawns it, 2 steps), then SIGSTOPped (the stall
+           verdict, 1 step); prints the op split (pack, d2h, ring,
+           child_s, h2d, bytes), kill -> ChildDiedError, kill -> next
+           commit, dispatch -> ChildStalledError and each configure's
+           split; every op must take the psum path;
+27. adaptive dense  two dense groups on AdaptiveDDP(compress="q8") with
+           an isolated plane: blocking, plan, plan_devpack, pipelined and
+           xla_iso race, 2 probe steps each, 2 locked.
 
 The train, flash train and hier phases drain Manager.observe_op_stats()
 around their timed steps and print, per cell, the native per-bucket
@@ -225,7 +249,9 @@ adaptive flash phase; K3 in the durable flash phase, K1a/K1b/K2/K3 in
 the serving flash phase, K1a/K1b/K2 in the parameter server phase,
 with exact counts; K1a/K1b/K3 in the control dense phase, K1a/K1b/K4/K5
 in the chaos flash phase and K1a/K1b/K2/K4/K5 in the policy flash
-phase). The control dense phase checks that quorum ids only go up,
+phase; K1a/K1b/K2 in the xla dense and adaptive dense phases,
+K1a/K1b/K2/K4/K5 in the iso flash phase). The control dense phase
+checks that quorum ids only go up,
 that every heal took the stream path to a state the other group served
 (bit for bit), that the cold run ends bit-identical and the hot run
 (whose bf16 heal wire rounds the AdamW moments) within the drift that
@@ -250,7 +276,7 @@ checks only that the machine's /dev/shm takes the shm host tier;
 ``--window-phases`` builds and runs only phases 14-17,
 ``--serving-phases`` only phases 18-20, ``--control-phases`` only
 phases 21-23 (the launched workers are this script re-run with
-``--control-worker``); ``--legacy-turns A B`` runs the
+``--control-worker``), ``--iso-phases`` only phases 24-27; ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
 a), each from its own chip_smoke.py and build.
 """
@@ -596,6 +622,18 @@ def worker(cfg: dict) -> None:
         return
     if cfg["role"] == "policy":
         policy_worker(cfg)
+        return
+    if cfg["role"] == "iso_flash":
+        iso_worker(cfg)
+        return
+    if cfg["role"] in ("xla_dense", "xla_dense_late"):
+        xla_worker(cfg)
+        return
+    if cfg["role"] == "nccl_probe":
+        nccl_probe_worker(cfg)
+        return
+    if cfg["role"] == "adaptive_iso":
+        adaptive_iso_worker(cfg)
         return
     import torchft_tpu_torch as tft
     from torchft_tpu_torch.models import transformer as tt
@@ -5022,6 +5060,688 @@ def control_phases(by_phase: dict) -> None:
     log(f"  policy flash {pres['total_s']:.1f} s: {json.dumps(psum)}")
 
 
+# -- the accelerator-native data plane --------------------------------------------
+
+# iso flash: ISO_WARM_STEPS untimed, ISO_STEPS timed fault-free steps; then
+# group 1 SIGKILLs its child mid-op (both members discard, the next quorum
+# respawns, ISO_KILL_TAIL steps commit), then SIGSTOPs it (the stall
+# verdict; ISO_STALL_TAIL steps commit after it).
+ISO_WARM_STEPS = 1
+ISO_STEPS = 3
+ISO_KILL_TAIL = 2
+ISO_STALL_TAIL = 1
+ISO_OP_TIMEOUT_S = 30
+ISO_STALL_MS = 1000    # TORCHFT_ISO_STALL_MS: the stall verdict's grace
+# the stall verdict lands within the grace plus the op's staging (the d2h
+# of the payload) and a liveness tick; this much is allowed on top
+ISO_STALL_SLACK_S = 3.0
+XLA_DENSE_STEPS = 2    # timed xla dense steps after one warm-up
+XLA_HEAL_STEPS = 2     # steps all three take after the join
+ADAPTIVE_ISO_PROBE_STEPS = 2
+ADAPTIVE_ISO_LOCKED_STEPS = 2
+ADAPTIVE_ISO_CANDIDATES = ["blocking", "plan", "plan_devpack", "pipelined",
+                           "xla_iso"]
+
+
+def _n_params(params) -> int:
+    from torchft_tpu_torch._tree import flatten
+
+    return sum(p.numel() for p in flatten(params)[0])
+
+
+def _step_recorder(ddp, manager, state, cfg: dict, device: torch.device):
+    """``(rows, step)``: ``step(label)`` runs one guarded blocking step
+    and logs its outcome and, on a commit, the params' checksum."""
+    rows: list = []
+    box = {"i": 0}
+
+    def step(label: str) -> None:
+        t0 = time.time()
+        committed, err = _guarded_step(ddp, manager,
+                                       _tokens(cfg, box["i"], device))
+        box["i"] += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        rows.append({
+            "label": label, "t0": t0, "t1": time.time(),
+            "committed": committed, "qid": manager._quorum_id,
+            "err": None if err is None
+            else f"{type(err).__name__}: {str(err)[:200]}",
+            "checksum": _checksum(state.params) if committed else None})
+
+    return rows, step
+
+
+def _lm_worker_state(cfg: dict, device: torch.device):
+    """The worker's model config, FTTrainState (AdamW) and counted
+    gradient function."""
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.models import transformer as tt
+
+    model_cfg = tt.TransformerConfig(**cfg["lm"])
+    model = tt.TransformerLM(model_cfg, seed=0, device=device)
+    state = tft.FTTrainState(model.params(), tft.AdamW(1e-3, weight_decay=1e-4))
+    model_grad_fn = tt.make_grad_fn(model_cfg)
+    calls = [0]
+
+    def grad_fn(params, tokens):
+        calls[0] += 1
+        return model_grad_fn(params, tokens)
+
+    return model_cfg, state, grad_fn, calls
+
+
+def iso_worker(cfg: dict) -> None:
+    """The iso flash role: the flash LM on Manager(iso_collectives=
+    IsolatedXLACollectives) + PipelinedDDP(transport="iso",
+    compress="q8") blocking steps (K1a/K1b quantize, K2 decodes the dq
+    payload the child's gloo group sums on the host). Group 1 SIGKILLs
+    its child mid-op once, then SIGSTOPs it once; a wrapper of the
+    plane's allreduce logs every iso op's outcome and times."""
+    import signal
+    from datetime import timedelta
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    model_cfg, state, grad_fn, grad_calls = _lm_worker_state(cfg, device)
+    iso = tft.IsolatedXLACollectives(
+        timeout=timedelta(seconds=ISO_OP_TIMEOUT_S),
+        connect_timeout=timedelta(seconds=60))
+    collectives = tft.HostCollectives()
+    manager = tft.Manager(
+        collectives=collectives, iso_collectives=iso,
+        load_state_dict=state.load_state_dict, state_dict=state.state_dict,
+        min_replica_size=2, rank=0, world_size=1,
+        lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}", device=device,
+        use_async_quorum=False)
+    ddp = tft.PipelinedDDP(manager, state, grad_fn, compress="q8",
+                           transport="iso")
+    ops: list = []
+    faults: dict = {}
+    dispatch = iso.allreduce
+
+    def kill_child() -> None:
+        pid = iso.child_pid()
+        faults["killed"] = {"pid": pid, "t": time.time()}
+        if pid is not None:
+            os.kill(pid, signal.SIGKILL)
+
+    def traced(*args, **kw):
+        work = dispatch(*args, **kw)
+        t_dispatch = time.time()
+        delay = faults.pop("kill_after", None)
+        if delay is not None:
+            threading.Timer(delay, kill_child).start()
+
+        def done(f) -> None:
+            exc = f.exception()
+            ops.append({"t_dispatch": t_dispatch, "t_done": time.time(),
+                        "error": None if exc is None else type(exc).__name__,
+                        "msg": None if exc is None else str(exc)[:300]})
+
+        work.add_done_callback(done)
+        return work
+
+    iso.allreduce = traced
+    rows, step = _step_recorder(ddp, manager, state, cfg, device)
+    out: dict = {"group": g, "n_layers": model_cfg.n_layers,
+                 "n_params": _n_params(state.params)}
+    try:
+        qk.reset_launch_counts()
+        for _ in range(ISO_WARM_STEPS):
+            step("warm")
+        out["warm_stats"] = iso.pop_op_stats()
+        for _ in range(ISO_STEPS):
+            step("timed")
+        out["timed_stats"] = timed = iso.pop_op_stats()
+        out["status"] = iso.child_status().wait()
+        if g == 1:
+            # fire once the parent has staged the payload and the child is
+            # reducing it
+            ar = [s for s in timed if s["op"] == "allreduce"]
+            faults["kill_after"] = (
+                _median([s["pack"] + s["d2h"] for s in ar])
+                + 0.25 * _median([s["child_s"] for s in ar]))
+        step("kill")
+        for _ in range(ISO_KILL_TAIL):
+            step("after kill")
+        if g == 1:
+            pid = iso.child_pid()
+            faults["stopped"] = {"pid": pid, "t": time.time()}
+            os.kill(pid, signal.SIGSTOP)
+        step("stall")
+        for _ in range(ISO_STALL_TAIL):
+            step("after stall")
+        out["fault_stats"] = iso.pop_op_stats()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                device)
+        out.update(rows=rows, ops=ops, faults=faults,
+                   launches=dict(qk.launch_counts), grad_passes=grad_calls[0],
+                   digest=_digest(state.params), step=manager.current_step())
+    finally:
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def xla_worker(cfg: dict) -> None:
+    """The xla dense roles: the dense LM with the in-process
+    XLACollectives (``cfg["backend"]``) as the Manager's data plane,
+    PipelinedDDP(transport="legacy", compress="q8") blocking steps on card
+    tensors. A founder then runs allreduce / allgather / broadcast on the
+    live plane, offers a card tensor to the gloo group itself (does this
+    torch build's gloo take one?), and trains on until a late third
+    member has joined; every configure logs the params' checksum before
+    and after it, which must not change."""
+    from datetime import timedelta
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    model_cfg, state, grad_fn, grad_calls = _lm_worker_state(cfg, device)
+    plane = tft.XLACollectives(timeout=timedelta(seconds=30),
+                               connect_timeout=timedelta(seconds=60),
+                               backend=cfg["backend"])
+    plane.register_state(state)
+    configures: list = []
+    configure = plane.configure
+
+    def logged_configure(store_addr, rank, world_size, **kw):
+        before = _checksum(state.params)
+        t0 = time.perf_counter()
+        configure(store_addr, rank, world_size, **kw)
+        configures.append({"world": world_size, "before": before,
+                           "after": _checksum(state.params),
+                           "s": time.perf_counter() - t0})
+
+    plane.configure = logged_configure
+    manager = tft.Manager(
+        collectives=plane, load_state_dict=state.load_state_dict,
+        state_dict=state.state_dict, min_replica_size=2, rank=0,
+        world_size=1, lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}",
+        device=device, use_async_quorum=False)
+    ddp = tft.PipelinedDDP(manager, state, grad_fn, compress="q8",
+                           transport="legacy")
+    rows, step = _step_recorder(ddp, manager, state, cfg, device)
+    out: dict = {"group": g, "role": cfg["role"], "backend": plane.backend}
+    try:
+        qk.reset_launch_counts()
+        if cfg["role"] == "xla_dense_late":
+            # heartbeating from construction: the next quorum waits for us
+            open(os.path.join(workdir, "late_up"), "w").close()
+        else:
+            step("warm")
+            plane.pop_op_stats()
+            for _ in range(XLA_DENSE_STEPS):
+                step("timed")
+            out["op_split"] = _op_split(plane.pop_op_stats())
+            out["plane_ops"] = _xla_plane_ops(plane, g, device)
+            open(os.path.join(workdir, f"ready_{g}"), "w").close()
+            _wait_for(os.path.join(workdir, "late_up"), 300)
+        joined = None
+        while joined is None or manager.current_step() < joined + XLA_HEAL_STEPS:
+            step("join" if joined is None else "after join")
+            if joined is None and plane.size() == 3 and rows[-1]["committed"]:
+                joined = manager.current_step() - 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out.update(rows=rows, configures=configures,
+                   launches=dict(qk.launch_counts), grad_passes=grad_calls[0],
+                   digest=_digest(state.params), step=manager.current_step(),
+                   heals=manager.metrics().snapshot()["counters"].get(
+                       "heals", 0))
+    finally:
+        manager.shutdown()
+        plane.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _xla_plane_ops(plane, g: int, device: torch.device) -> dict:
+    """allreduce (AVG), allgather and broadcast on the live XLACollectives
+    over card tensors, and a card tensor handed to its gloo group
+    directly: whether this torch build's gloo takes one."""
+    from torchft_tpu_torch.collectives import ReduceOp
+
+    x = {"x": torch.full((4096,), float(g + 1), device=device),
+         "i": torch.arange(8, dtype=torch.int32, device=device) * (g + 1)}
+    avg = plane.allreduce(x, ReduceOp.AVG).wait()
+    gathered = plane.allgather(x).wait()
+    bcast = plane.broadcast(x, root=1).wait()
+    plane.barrier().wait()
+    leaves = [avg["x"], avg["i"], bcast["x"]] + [m["x"] for m in gathered]
+    out = {"avg": float(avg["x"][0]), "avg_i": avg["i"].tolist(),
+           "gathered": [float(m["x"][0]) for m in gathered],
+           "broadcast": float(bcast["x"][0]),
+           "on_device": all(l.device.type == device.type for l in leaves)}
+    gloo_card = None
+    if device.type == "cuda" and plane.backend == "gloo":
+        t = torch.full((1024,), float(g + 1), device=device)
+        try:
+            plane.global_mesh().allreduce([t]).wait()
+            torch.cuda.synchronize(device)
+            gloo_card = {"accepted": True, "sum": float(t[0])}
+        except Exception as e:  # noqa: BLE001 - the verdict is the finding
+            gloo_card = {"accepted": False,
+                         "error": f"{type(e).__name__}: {str(e)[:300]}"}
+    out["gloo_takes_card_tensors"] = gloo_card
+    return out
+
+
+def nccl_probe_worker(cfg: dict) -> None:
+    """One of two processes on the one card: an XLACollectives(backend=
+    "nccl") configure (a ProcessGroupNCCL, initialised eagerly) and one
+    allreduce. Writes the verdict, or the refusal's text."""
+    from datetime import timedelta
+
+    import torchft_tpu_torch as tft
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    out: dict = {"group": g}
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.set_device(0)
+        plane = tft.XLACollectives(timeout=timedelta(seconds=20),
+                                   connect_timeout=timedelta(seconds=30),
+                                   backend="nccl")
+        plane.configure(cfg["store"] + "/nccl", g, 2)
+        y = plane.allreduce(torch.full((1024,), float(g + 1),
+                                       device="cuda")).wait()
+        out.update(accepted=True, sum=float(y[0]))
+        plane.shutdown()
+    except Exception as e:  # noqa: BLE001 - the refusal is the finding
+        out.update(accepted=False, error=f"{type(e).__name__}: {e}"[:1200])
+    out["s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def adaptive_iso_worker(cfg: dict) -> None:
+    """AdaptiveDDP(compress="q8") on the dense LM with an isolated plane
+    on the Manager: five candidates (blocking, plan on the host pack,
+    plan_devpack, pipelined, xla_iso), ADAPTIVE_ISO_PROBE_STEPS each after
+    the anchor, then ADAPTIVE_ISO_LOCKED_STEPS locked."""
+    from datetime import timedelta
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, workdir = cfg["group"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    model_cfg, state, grad_fn, grad_calls = _lm_worker_state(cfg, device)
+    iso = tft.IsolatedXLACollectives(
+        timeout=timedelta(seconds=ISO_OP_TIMEOUT_S),
+        connect_timeout=timedelta(seconds=60))
+    collectives = tft.HostCollectives()
+    manager = tft.Manager(
+        collectives=collectives, iso_collectives=iso,
+        load_state_dict=state.load_state_dict, state_dict=state.state_dict,
+        min_replica_size=2, rank=0, world_size=1,
+        lighthouse_addr=cfg["lighthouse"], replica_id=f"g{g}", device=device,
+        use_async_quorum=False)
+    ddp = tft.AdaptiveDDP(manager, state, grad_fn, compress="q8",
+                          probe_steps=ADAPTIVE_ISO_PROBE_STEPS)
+    out: dict = {"group": g, "n_layers": model_cfg.n_layers,
+                 "candidates": list(ddp._candidates)}
+    try:
+        qk.reset_launch_counts()
+        steps = (1 + ADAPTIVE_ISO_PROBE_STEPS * len(ddp._candidates)
+                 + ADAPTIVE_ISO_LOCKED_STEPS)
+        step_s, losses = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(ddp.step(_tokens(cfg, i, device))))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            step_s.append(time.perf_counter() - t0)
+        out["flush"] = ddp.flush()
+        out.update(launches=dict(qk.launch_counts), grad_passes=grad_calls[0],
+                   decision=ddp.decision, mode=ddp.mode, step_s=step_s,
+                   losses=losses, digest=_digest(state.params), steps=steps,
+                   committed=manager.current_step(),
+                   iso_paths=sorted({s.get("path") for s in
+                                     iso.pop_op_stats()}))
+    finally:
+        manager.shutdown()
+        collectives.shutdown()
+    with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_nccl_probe(workdir: str) -> dict:
+    """Two processes ask NCCL for one communicator over the one card.
+    Returns both verdicts; a process that hangs is killed at the bound
+    and counts as a refusal."""
+    import torchft_tpu_torch as tft
+
+    store = tft.Store()
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs = [_spawn({"role": "nccl_probe", "group": g, "workdir": workdir,
+                         "store": store.address()}, workdir) for g in (0, 1)]
+        deadline = time.monotonic() + 120
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.shutdown()
+    results = []
+    for g in (0, 1):
+        try:
+            with open(os.path.join(workdir, f"result_{g}.json")) as f:
+                results.append(json.load(f))
+        except OSError:
+            with open(os.path.join(workdir, f"worker_{g}.log")) as f:
+                tail = f.read()[-600:]
+            results.append({"group": g, "accepted": False,
+                            "error": f"no verdict (exit "
+                                     f"{procs[g].returncode}): {tail}"})
+    accepted = all(r["accepted"] and r.get("sum") == 3.0 for r in results)
+    return {"accepted": accepted, "results": results,
+            "total_s": time.perf_counter() - t0}
+
+
+def phase_xla_dense(workdir: str, device: str = "cuda", lm: dict = LM,
+                    batch: int = BATCH, seq: int = SEQ,
+                    backend: str = "gloo") -> dict:
+    """Two dense groups on the in-process XLACollectives, then a third
+    joins and heals."""
+    import torchft_tpu_torch as tft
+
+    lighthouse = tft.Lighthouse(min_replicas=2, join_timeout_ms=10000,
+                                quorum_tick_ms=50, heartbeat_timeout_ms=10000)
+    base = {"lighthouse": lighthouse.address(), "workdir": workdir,
+            "device": device, "lm": lm, "batch": batch, "seq": seq,
+            "backend": backend}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs = [_spawn({**base, "group": g, "role": "xla_dense"}, workdir)
+                 for g in (0, 1)]
+        deadline = time.monotonic() + 300
+        for g in (0, 1):
+            path = os.path.join(workdir, f"ready_{g}")
+            while not os.path.exists(path):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    _join(procs, deadline, workdir)
+                if time.monotonic() > deadline:
+                    fail("xla dense founders never finished their steps")
+                time.sleep(0.1)
+        procs.append(_spawn({**base, "group": 2, "role": "xla_dense_late"},
+                            workdir))
+        _join(procs, deadline, workdir)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        lighthouse.shutdown()
+    results = []
+    for g in (0, 1, 2):
+        with open(os.path.join(workdir, f"result_{g}.json")) as f:
+            results.append(json.load(f))
+    return {"results": results, "total_s": time.perf_counter() - t0}
+
+
+def check_xla_dense(res: dict, on_card: bool = True) -> dict:
+    """Every step commits; each configure (2, then 3 members) leaves the
+    params' bits as they were; the plane's ops give the exact results on
+    the leaves' devices; the three groups end bit-identical; K1a/K1b/K2
+    launch once per step (the legacy q8 payload)."""
+    results = res["results"]
+    launches: dict = {}
+    for r in results:
+        g = r["group"]
+        if not all(row["committed"] for row in r["rows"]):
+            fail(f"xla dense group {g}: a step was discarded: {r['rows']}")
+        for c in r["configures"]:
+            if c["before"] != c["after"]:
+                fail(f"xla dense group {g}: a configure changed the state: {c}")
+        worlds = [c["world"] for c in r["configures"]]
+        if 3 not in worlds:
+            fail(f"xla dense group {g}: never configured at 3: {worlds}")
+        steps = len(r["rows"])
+        want = dict.fromkeys(r["launches"], 0)
+        if on_card:
+            want.update({k: steps for k in ("q8_absmax", "q8_quantize",
+                                            "q8_dequantize")})
+        if r["launches"] != want:
+            fail(f"xla dense group {g}: launches {r['launches']} != {want}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        ops = r.get("plane_ops")
+        if ops is not None:
+            if (ops["avg"] != 1.5 or ops["avg_i"] != [i * 3 // 2 for i in
+                                                      range(8)]
+                    or ops["gathered"] != [1.0, 2.0] or ops["broadcast"] != 2.0
+                    or not ops["on_device"]):
+                fail(f"xla dense group {g}: plane ops {ops}")
+    if len({r["digest"] for r in results}) != 1:
+        fail("xla dense groups' params differ at the end")
+    if results[2]["heals"] < 1:
+        fail("the xla dense joiner never healed")
+    return {"launches": launches, "backend": results[0]["backend"],
+            "configure_s": [[round(c["s"], 3) for c in r["configures"]]
+                            for r in results],
+            "step_ms": [[round(1e3 * (row["t1"] - row["t0"]), 1)
+                         for row in r["rows"]] for r in results],
+            "op_split": results[0].get("op_split"),
+            "plane_ops": results[0]["plane_ops"],
+            "gloo_takes_card_tensors": [r.get("plane_ops", {}).get(
+                "gloo_takes_card_tensors") for r in results[:2]]}
+
+
+def phase_iso_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+                    batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
+    """Two flash groups on the isolated data plane (a flat lighthouse)."""
+    base = {"device": device, "role": "iso_flash", "lm": lm, "batch": batch,
+            "seq": seq, "env": {"TORCHFT_ISO_STALL_MS": str(ISO_STALL_MS)}}
+    return _run_groups(workdir, base, [{}, {}])
+
+
+def check_iso_flash(res: dict, on_card: bool = True, lm: dict = BIG_LM) -> dict:
+    """Every op stamps path "psum"; the fault-free steps commit on both
+    groups with equal params after each; group 1's child SIGKILLed mid-op
+    is a ChildDiedError there, both groups discard that step and commit
+    the next ones equal again; its SIGSTOPped child is a
+    ChildStalledError within the stall grace (plus the op's staging),
+    again discarded on both; the child held no JAX and no CUDA context;
+    K1a/K1b/K2 launch once per step, K4/K5 once per gradient pass."""
+    results = res["results"]
+    launches: dict = {}
+    for r in results:
+        g = r["group"]
+        stats = r["warm_stats"] + r["timed_stats"] + r["fault_stats"]
+        paths = {s["path"] for s in stats}
+        if paths != {"psum"}:
+            fail(f"iso flash group {g}: op paths {sorted(paths)} (want psum)")
+        labels = [row["label"] for row in r["rows"]]
+        for row in r["rows"]:
+            want = row["label"] not in ("kill", "stall")
+            if row["committed"] is not want:
+                fail(f"iso flash group {g}: step {row['label']} committed "
+                     f"{row['committed']}: {row['err']}")
+        ar = [s for s in r["timed_stats"] if s["op"] == "allreduce"]
+        if len(ar) != ISO_STEPS or any(s["bytes"] != 4 * r["n_params"]
+                                       for s in ar):
+            fail(f"iso flash group {g}: timed ops {ar}")
+        if r["status"]["foreign_modules"] or r["status"]["cuda_initialized"]:
+            fail(f"iso flash group {g}: the child {r['status']}")
+        steps = len(labels)
+        want = dict.fromkeys(r["launches"], 0)
+        want.update(_flash_want(r, r["grad_passes"], on_card, lm))
+        if on_card:
+            want.update({k: steps for k in ("q8_absmax", "q8_quantize",
+                                            "q8_dequantize")})
+        if r["launches"] != want:
+            fail(f"iso flash group {g}: launches {r['launches']} != {want}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    a, b = results
+    for ra, rb in zip(a["rows"], b["rows"]):
+        if ra["committed"] and rb["committed"] and ra["checksum"] != rb["checksum"]:
+            fail(f"iso flash: params differ after step {ra['label']}")
+    if a["digest"] != b["digest"]:
+        fail("iso flash groups' params differ at the end")
+    # the faults, on group 1 (the ops in order: warm, timed, kill, ...)
+    killed, stopped = b["faults"]["killed"], b["faults"]["stopped"]
+    kill_op = b["ops"][ISO_WARM_STEPS + ISO_STEPS]
+    if kill_op["error"] != "ChildDiedError":
+        fail(f"iso flash: the killed child's op ended {kill_op}")
+    if a["ops"][ISO_WARM_STEPS + ISO_STEPS]["error"] is None:
+        fail("iso flash: the survivor's op of the kill step succeeded")
+    stall_op = b["ops"][ISO_WARM_STEPS + ISO_STEPS + 1 + ISO_KILL_TAIL]
+    if stall_op["error"] != "ChildStalledError":
+        fail(f"iso flash: the stopped child's op ended {stall_op}")
+    stall_s = stall_op["t_done"] - stall_op["t_dispatch"]
+    if stall_s > ISO_STALL_MS / 1e3 + ISO_STALL_SLACK_S:
+        fail(f"iso flash: the stall verdict took {stall_s:.2f} s")
+    after_kill = [row for row in b["rows"] if row["label"] == "after kill"]
+    respawns = [s for s in b["fault_stats"] if s["op"] == "configure"]
+    timed_rows = [row for r in results for row in r["rows"]
+                  if row["label"] == "timed"]
+    split = {}
+    for key in ("pack", "d2h", "ring", "child_s", "h2d"):
+        split[f"{key}_ms"] = round(1e3 * _median(
+            [s[key] for s in a["timed_stats"] if s["op"] == "allreduce"]), 3)
+    a_ar = [s for s in a["timed_stats"] if s["op"] == "allreduce"]
+    split["bytes"] = a_ar[0]["bytes"]
+    split["d2h_bytes"] = a_ar[0]["d2h_bytes"]
+    return {
+        "launches": launches,
+        "step_ms_p50": _p50([row["t1"] - row["t0"] for row in timed_rows]),
+        "step_ms_all": [round(1e3 * (row["t1"] - row["t0"]), 1)
+                        for row in timed_rows],
+        "split": split,
+        "kill_to_error_s": round(kill_op["t_done"] - killed["t"], 4),
+        "kill_in_op_s": round(killed["t"] - kill_op["t_dispatch"], 4),
+        "kill_error": kill_op["msg"],
+        "survivor_error": a["ops"][ISO_WARM_STEPS + ISO_STEPS]["msg"],
+        "kill_to_commit_s": round(after_kill[0]["t1"] - killed["t"], 3),
+        "stop_to_stall_s": round(stall_op["t_done"] - stopped["t"], 3),
+        "dispatch_to_stall_s": round(stall_s, 3),
+        "respawns": [{k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in s.items()} for s in respawns],
+        "first_configure": {k: (round(v, 4) if isinstance(v, float) else v)
+                            for k, v in b["warm_stats"][0].items()},
+        "child": b["status"],
+        "max_memory_allocated_gb": [
+            round(r.get("max_memory_allocated", 0) / 2**30, 2)
+            for r in results],
+    }
+
+
+def phase_adaptive_iso(workdir: str, device: str = "cuda", lm: dict = LM,
+                       batch: int = BATCH, seq: int = SEQ) -> dict:
+    """Two dense groups on AdaptiveDDP with an isolated plane."""
+    base = {"device": device, "role": "adaptive_iso", "lm": lm,
+            "batch": batch, "seq": seq,
+            "env": {"TORCHFT_DEVICE_PACK": "auto"}}
+    return _run_groups(workdir, base, [{}, {}])
+
+
+def check_adaptive_iso(res: dict, on_card: bool = True) -> dict:
+    """Both groups race the same five candidates, xla_iso among them
+    with a clean probe (no failure sentinel), lock the same mode on the
+    same decision and end bit-identical; every transaction committed and
+    every iso op took the psum path."""
+    results = res["results"]
+    launches: dict = {}
+    for r in results:
+        g = r["group"]
+        if r["candidates"] != ADAPTIVE_ISO_CANDIDATES:
+            fail(f"adaptive dense group {g}: candidates {r['candidates']}")
+        probe = (r["decision"] or {}).get("probe_s") or {}
+        if set(probe) != set(ADAPTIVE_ISO_CANDIDATES) or any(
+                v >= 1e9 for v in probe.values()):
+            fail(f"adaptive dense group {g}: a candidate failed: "
+                 f"{r['decision']}")
+        if r["committed"] != r["steps"]:
+            fail(f"adaptive dense group {g}: {r['committed']} of "
+                 f"{r['steps']} transactions committed")
+        if r["iso_paths"] != ["psum"]:
+            fail(f"adaptive dense group {g}: iso paths {r['iso_paths']}")
+        if not all(map(_finite, r["losses"])):
+            fail(f"adaptive dense group {g}: non-finite loss {r['losses']}")
+        if on_card:
+            for k in ("q8_absmax", "q8_quantize", "q8_dequantize"):
+                if r["launches"].get(k, 0) < 1:
+                    fail(f"adaptive dense group {g}: {k} never launched")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    d0, d1 = results[0]["decision"], results[1]["decision"]
+    if d0 != d1 or results[0]["mode"] != results[1]["mode"]:
+        fail(f"adaptive dense groups locked differently: {d0} vs {d1}")
+    if results[0]["digest"] != results[1]["digest"]:
+        fail("adaptive dense groups' params differ after the flush")
+    return {"launches": launches, "decision": d0, "mode": results[0]["mode"],
+            "step_ms": [[round(1e3 * x, 1) for x in r["step_s"]]
+                        for r in results]}
+
+
+def _shm_df() -> str:
+    try:
+        return subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                              text=True, timeout=20).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"df failed: {e}"
+
+
+def iso_phases(by_phase: dict, flash_step_ms: "float | None" = None) -> None:
+    """The NCCL probe, xla dense, iso flash and adaptive dense phases:
+    each runs, is checked and logged, and puts its launch counts into
+    ``by_phase``. ``flash_step_ms``: the plan-q8 flash step p50 of the
+    same call, printed beside the iso flash step."""
+    log("phase nccl probe")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as workdir:
+        nres = phase_nccl_probe(workdir)
+    log(f"  nccl probe {nres['total_s']:.1f} s: two ProcessGroupNCCL ranks on "
+        f"one card {'ACCEPTED' if nres['accepted'] else 'REFUSED'}: "
+        f"{json.dumps(nres['results'])}")
+    backend = "nccl" if nres["accepted"] else "gloo"
+    log("phase xla dense")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xla_") as workdir:
+        xres = phase_xla_dense(workdir, backend=backend)
+        xsum = check_xla_dense(xres)
+    by_phase["xla dense"] = xsum.pop("launches")
+    log(f"  xla dense {xres['total_s']:.1f} s (XLACollectives backend "
+        f"{xsum['backend']}, two dense groups then a third joining): "
+        f"{json.dumps(xsum)}")
+    log("phase iso flash")
+    log(f"  /dev/shm before: {_shm_df()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_iso_") as workdir:
+        ires = phase_iso_flash(workdir)
+        isum = check_iso_flash(ires)
+    by_phase["iso flash"] = isum.pop("launches")
+    log(f"  iso flash {ires['total_s']:.1f} s: step p50 "
+        f"{isum['step_ms_p50']:.3f} ms (all: {isum['step_ms_all']}) against "
+        f"the plan-q8 flash step p50 "
+        f"{'not run' if flash_step_ms is None else f'{flash_step_ms:.3f} ms'};"
+        f" group 0's op split (medians over the timed steps) "
+        f"{json.dumps(isum['split'])}")
+    log(f"  iso flash faults: {json.dumps({k: v for k, v in isum.items() if k not in ('split', 'step_ms_all', 'step_ms_p50')})}")
+    log("phase adaptive dense")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_adiso_") as workdir:
+        ares = phase_adaptive_iso(workdir)
+        asum = check_adaptive_iso(ares)
+    by_phase["adaptive dense"] = asum.pop("launches")
+    log(f"  adaptive dense {ares['total_s']:.1f} s: {json.dumps(asum)}")
+
+
 def legacy_turns(tree_a: str, tree_b: str) -> int:
     """The legacy and sharded flash phases of two checkouts in turns (a,
     b, b, a), each turn a process of that checkout's own chip_smoke (its
@@ -5075,6 +5795,9 @@ def main() -> int:
     parser.add_argument("--control-phases", action="store_true",
                         help="build, then run only the control dense, "
                         "chaos flash and policy flash phases")
+    parser.add_argument("--iso-phases", action="store_true",
+                        help="build, then run only the NCCL probe, xla "
+                        "dense, iso flash and adaptive dense phases")
     parser.add_argument("--legacy-turns", nargs=2, metavar=("TREE_A", "TREE_B"),
                         help="measure only: the legacy and sharded flash "
                         "phases of two checkouts in turns (a, b, b, a)")
@@ -5115,6 +5838,14 @@ def main() -> int:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         by_phase = {}
         control_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(_smi(), flush=True)
+        return 0
+    if args.iso_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        iso_phases(by_phase)
         log(f"  launches by phase: {json.dumps(by_phase)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(_smi(), flush=True)
@@ -5260,6 +5991,8 @@ def main() -> int:
     serving_phases(by_phase)
     torch.cuda.empty_cache()
     control_phases(by_phase)
+    torch.cuda.empty_cache()
+    iso_phases(by_phase, flash_step_ms=fsum["step_ms_p50"])
     # each kernel's launches over the main paths' runs (the counts each
     # worker, or phase, reset just before a path and read just after)
     for name in rows:
@@ -5298,7 +6031,12 @@ def main() -> int:
             ("chaos flash", ("q8_absmax", "q8_quantize", "flash_fwd",
                              "flash_bwd")),
             ("policy flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
-                              "flash_fwd", "flash_bwd"))):
+                              "flash_fwd", "flash_bwd")),
+            ("xla dense", ("q8_absmax", "q8_quantize", "q8_dequantize")),
+            ("iso flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
+                           "flash_fwd", "flash_bwd")),
+            ("adaptive dense", ("q8_absmax", "q8_quantize",
+                                "q8_dequantize"))):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:
                 fail(f"{name} never launched on the {phase} path")

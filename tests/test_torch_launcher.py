@@ -1,7 +1,7 @@
 """The port's launcher, standby gate and lighthouse command line.
 
 - ``replica_group_spec`` is the JAX package's spec without its JAX
-  compilation-cache entry and the isolated data plane's knobs;
+  compilation-cache entry (the isolated data plane's knobs ride both);
   ``_can_lift_priority`` gives the JAX package's
   verdicts on the same inputs.
 - ``launch`` restarts a failed group, promotes a hot spare parked at the
@@ -33,21 +33,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.parametrize("iso_env", [False, True])
 def test_spec_is_the_jax_spec_without_its_cache_key(monkeypatch, iso_env):
-    # the JAX spec also forwards the isolated data plane's knobs; the port
-    # has no such plane yet, so its spec leaves them out
-    iso_knobs = ("TORCHFT_ISO_ZYGOTE", "TORCHFT_ISO_LIVENESS_MS")
-    if iso_env:
-        monkeypatch.setenv("TORCHFT_ISO_ZYGOTE", "1")
-        monkeypatch.setenv("TORCHFT_ISO_LIVENESS_MS", "500")
+    # the isolated data plane's knobs ride both specs when set; only the
+    # JAX compilation cache's entry has no counterpart in the port
+    iso_knobs = {"TORCHFT_ISO_ZYGOTE": "1", "TORCHFT_ISO_LIVENESS_MS": "500"}
+    for knob, value in iso_knobs.items():
+        if iso_env:
+            monkeypatch.setenv(knob, value)
+        else:
+            monkeypatch.delenv(knob, raising=False)
     args = (["python", "x.py"], 1, 4, "http://lh:1")
     kw = {"env": {"EXTRA": "1"}, "max_restarts": 3}
     port = launcher.replica_group_spec(*args, **kw)
     ref = jlauncher.replica_group_spec(*args, **kw)
     ref["env"].pop("TORCHFT_COMPILE_CACHE")
-    for knob in iso_knobs:
-        assert (knob in ref["env"]) is iso_env
-        ref["env"].pop(knob, None)
     assert port == ref
+    for knob, value in iso_knobs.items():
+        assert port["env"].get(knob) == (value if iso_env else None)
     assert port["env"]["REPLICA_GROUP_ID"] == "1"
 
 

@@ -50,7 +50,12 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
         "LeaseClient, PolicyEngine, RegionLighthouse, StrategySpec, "
         "WorldSizeMode)\n"
         "from torchft_tpu_torch._native import (WalLog, wal_recover, "
-        "fault_arm, quorum_step, lighthouse_heartbeat)\n"
+        "fault_arm, quorum_step, lighthouse_heartbeat, ShmSegment, "
+        "shm_layout)\n"
+        "import torchft_tpu_torch.xla_collectives, "
+        "torchft_tpu_torch.isolated_xla\n"
+        "from torchft_tpu_torch import (ChildDiedError, ChildStalledError, "
+        "IsolatedXLACollectives, XLACollectives)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'optax', 'ml_dtypes', 'torchft_tpu'))\n"
         "assert not bad, bad\n"

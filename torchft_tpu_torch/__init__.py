@@ -13,8 +13,10 @@ sync's wire encoding runs on the card through hand-written CUDA kernels
 it; the durable control plane (WAL-backed roots with warm standbys, the
 region tier), the launcher with hot spares (``launcher``,
 ``platform.standby_gate``), the seeded chaos plane (``chaos``) and the
-runtime strategy policy (``PolicyEngine``). Imports neither JAX nor
-``torchft_tpu``.
+runtime strategy policy (``PolicyEngine``); the second data plane, a
+torch process group rebuilt per quorum (``XLACollectives``), and its
+disposable-child form (``IsolatedXLACollectives``). Imports neither JAX
+nor ``torchft_tpu``.
 
 Entry points run on the card unless given ``device="cpu"``.
 """
@@ -29,6 +31,11 @@ from .collectives import (
     Work,
 )
 from .data import DistributedSampler, StatefulDataLoader
+from .isolated_xla import (
+    ChildDiedError,
+    ChildStalledError,
+    IsolatedXLACollectives,
+)
 from .durable import (
     CheckpointStore,
     DurableCheckpointer,
@@ -51,6 +58,7 @@ from .serving import (
     WeightSubscriber,
 )
 from .train_state import SGD, AdamW, FTTrainState
+from .xla_collectives import XLACollectives
 from ._native import (
     LeaseClient,
     Lighthouse,
@@ -70,6 +78,8 @@ __all__ = [
     "CheckpointServer",
     "CheckpointStore",
     "CheckpointTransport",
+    "ChildDiedError",
+    "ChildStalledError",
     "Collectives",
     "CostKnobs",
     "DiLoCo",
@@ -81,6 +91,7 @@ __all__ = [
     "FaultEvent",
     "FaultPlan",
     "HostCollectives",
+    "IsolatedXLACollectives",
     "LeaseClient",
     "Lighthouse",
     "LocalDirStore",
@@ -112,5 +123,6 @@ __all__ = [
     "WireCorruption",
     "Work",
     "WorldSizeMode",
+    "XLACollectives",
     "span",
 ]

@@ -7,7 +7,8 @@ protocol and can share a quorum and a ring. Exposes the lighthouse (flat,
 durable root, standby, region tier), the lease client, the
 per-replica-group manager server and its client, the rendezvous store,
 the ring, two-tier and CommPlan entry points :mod:`.collectives` drives
-with their per-op and per-bucket stats, the CRC32C the heal stream's
+with their per-op and per-bucket stats, the shared-memory segments and
+their layout authority (the isolated data plane's staging), the CRC32C the heal stream's
 ranges carry, the quorum and lease protocol's pure entry points, the
 write-ahead quorum log and the seeded fault engine.
 
@@ -204,9 +205,22 @@ _SIGNATURES = {
     "tft_hc_last_hier_json": (_int, [_vp, ctypes.POINTER(_vp)]),
     # per-stripe wall times (ns) of the last bulk ring op
     "tft_hc_last_stripe_ns": (_i64, [_vp, ctypes.POINTER(_i64), _i64]),
+    # POSIX shared-memory segments: the isolated data plane's staging
+    # (name, bytes); the creator unlinks the name at close
+    "tft_shm_create": (_vp, [_cp, _i64]),
+    "tft_shm_attach": (_vp, [_cp, _i64]),
+    "tft_shm_data": (_vp, [_vp]),
+    "tft_shm_size": (_i64, [_vp]),
+    "tft_shm_close": (None, [_vp]),
     # live shared-memory segment handles in this library (the leak oracle)
     "tft_shm_live_count": (_i64, []),
     "tft_shm_unlink": (_int, [_cp]),
+    # the CommPlan leaf -> offset layout of a signature (JSON): counts,
+    # dtype codes, n leaves, wire
+    "tft_shm_layout_json": (_int, [
+        ctypes.POINTER(_i64), ctypes.POINTER(ctypes.c_int32), _i64, _int,
+        ctypes.POINTER(_vp),
+    ]),
     # The chaos plane: this library's process-global seeded fault engine.
     "tft_fault_arm": (_int, [_cp]),  # plan JSON
     "tft_fault_disarm": (None, []),
@@ -930,10 +944,81 @@ def jittered_interval_ms(interval_ms: int, seed: int, tick: int) -> int:
     return _lib.tft_jittered_interval_ms(interval_ms, seed, tick)
 
 
+class ShmSegment:
+    """A mapped POSIX shared-memory segment (``native/src/shm.h``): the
+    staging the isolated data plane feeds its disposable child through.
+    The CREATOR owns the name and unlinks it at close; attachments never
+    unlink. ``buffer()`` is the mapped bytes as a writable memoryview:
+    ``torch.frombuffer`` views of it are zero-copy, and a process
+    attached to the same name reads the same pages."""
+
+    def __init__(self, name: str, nbytes: int, create: bool) -> None:
+        fn = _lib.tft_shm_create if create else _lib.tft_shm_attach
+        self._handle = fn(name.encode(), nbytes)
+        if not self._handle:
+            _check(2)
+        self._nbytes = nbytes
+        self.name = name
+
+    @classmethod
+    def create(cls, name: str, nbytes: int) -> "ShmSegment":
+        return cls(name, nbytes, create=True)
+
+    @classmethod
+    def attach(cls, name: str, nbytes: int) -> "ShmSegment":
+        return cls(name, nbytes, create=False)
+
+    def buffer(self) -> memoryview:
+        """Writable view of the mapped pages, valid until ``close``: drop
+        every tensor made from it first, the pages are unmapped under
+        them."""
+        assert self._handle, "segment closed"
+        ptr = _lib.tft_shm_data(self._handle)
+        return memoryview(
+            (ctypes.c_char * self._nbytes).from_address(ptr)).cast("B")
+
+    @property
+    def nbytes(self) -> int:
+        return self._nbytes
+
+    def size(self) -> int:
+        """The mapped size the native handle reports."""
+        assert self._handle, "segment closed"
+        return int(_lib.tft_shm_size(self._handle))
+
+    def close(self) -> None:
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle and getattr(_lib, "_cdll", None) is not None:
+            _lib.tft_shm_close(handle)
+
+    def __del__(self) -> None:
+        self.close()
+
+
 def shm_unlink(name: str) -> None:
     """Removes a shared-memory segment name (idempotent; mappings stay
     valid): the cleanup a respawn runs before it creates again."""
     _check(_lib.tft_shm_unlink(name.encode()))
+
+
+def shm_live_count() -> int:
+    """Live :class:`ShmSegment` handles (and ring segments) in this
+    library: the leak oracle."""
+    return int(_lib.tft_shm_live_count())
+
+
+def shm_layout(counts: List[int], dtype_codes: List[int], wire: int = 0) -> dict:
+    """The CommPlan leaf -> offset layout of a flat-packed signature, the
+    native authority both sides of the shm boundary lay payloads out with
+    (first-appearance grouping, 64-byte-aligned group bases): ``{
+    "total_bytes", "groups": [{dtype, offset, count}], "leaves": [{group,
+    off, count}]}``. ``wire``: 0 native dtypes, 1 bf16, 2 q8, 3 q8ef."""
+    n = len(counts)
+    out = ctypes.c_void_p()
+    _check(_lib.tft_shm_layout_json(
+        (_i64 * n)(*counts), (ctypes.c_int32 * n)(*dtype_codes), n, wire,
+        ctypes.byref(out)))
+    return json.loads(_take_string(out))
 
 
 def fault_arm(plan: dict) -> None:

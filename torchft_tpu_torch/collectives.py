@@ -924,6 +924,19 @@ class OpStatsMixin:
         return out
 
 
+def _caller_event(tree: Any) -> Optional[Tuple[Any, Any]]:
+    """(stream, event) marking a tree's card leaves as written on the
+    caller's stream, or None for CPU leaves: an op's copies wait on this
+    event, not on whatever the caller queues later."""
+    leaves, _ = _flatten(tree)
+    if not any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves):
+        return None
+    stream = torch.cuda.current_stream(next(
+        l for l in leaves if isinstance(l, torch.Tensor) and l.is_cuda
+    ).device)
+    return stream, stream.record_event()
+
+
 class HostCollectives(OpStatsMixin, Collectives):
     """Deterministic TCP ring collectives (native C++), the Gloo role,
     with the two-tier schedule over the quorum's region and host maps."""
@@ -1183,18 +1196,7 @@ class HostCollectives(OpStatsMixin, Collectives):
                                          wire, caller)
         )
 
-    @staticmethod
-    def _caller_event(tree: Any) -> Optional[Tuple[Any, Any]]:
-        """(stream, event) marking a tree's card leaves as written on the
-        caller's stream, or None for CPU leaves: an op's copies wait on
-        this event, not on whatever the caller queues later."""
-        leaves, _ = _flatten(tree)
-        if not any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves):
-            return None
-        stream = torch.cuda.current_stream(next(
-            l for l in leaves if isinstance(l, torch.Tensor) and l.is_cuda
-        ).device)
-        return stream, stream.record_event()
+    _caller_event = staticmethod(_caller_event)
 
     def _packer_for(self, leaves: Sequence[torch.Tensor], treedef: Any,
                     mode: str) -> _LegacyPacker:

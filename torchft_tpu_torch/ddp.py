@@ -9,10 +9,10 @@ Intra-replica-group parallelism stays in user code; these wrappers only
 average across groups. ``PipelinedDDP`` runs its sync over the comm plan
 (the port's default) or the legacy managed ops; ``hier=True`` runs the
 plan over the two-tier schedule (the quorum's region and host maps).
-``ShardedDDP`` is per-step ZeRO over the sharded comm plan.
-``AdaptiveDDP`` probes the schedules on the cohort's own hardware and
-locks the cohort-agreed fastest. The JAX package's isolated transport
-is not ported.
+``transport="iso"`` runs the legacy payload through the manager's
+isolated data plane (:mod:`.isolated_xla`). ``ShardedDDP`` is per-step
+ZeRO over the sharded comm plan. ``AdaptiveDDP`` probes the schedules on
+the cohort's own hardware and locks the cohort-agreed fastest.
 """
 
 from __future__ import annotations
@@ -108,6 +108,13 @@ class PipelinedDDP:
     buffers on the device: a step reads one and writes the other, and
     the commit flips them, so a discarded step rolls back exactly.
 
+    ``transport="iso"`` encodes the payload as the legacy transport does
+    (so ``"q8"`` runs K1a/K1b and K2 through
+    :func:`.quantize.quantize_with_feedback`) and averages it through
+    ``Manager.iso_allreduce``, the isolated data plane, which serves every
+    wire losslessly; it needs ``Manager(iso_collectives=...)`` and has no
+    ``"int8"`` form.
+
     Usage::
 
         ddp = PipelinedDDP(manager, state, grad_fn, compress="q8")
@@ -132,14 +139,17 @@ class PipelinedDDP:
         raises at once."""
         if compress not in (None, "bf16", "q8", "int8"):
             raise ValueError(f"unsupported compress: {compress!r}")
-        if transport not in ("legacy", "plan"):
+        if transport not in ("legacy", "plan", "iso"):
+            raise ValueError(f"unsupported transport: {transport!r}")
+        if transport in ("plan", "iso") and compress == "int8":
             raise ValueError(
-                f"unsupported transport: {transport!r} (the port has the "
-                "plan and legacy transports)")
-        if transport == "plan" and compress == "int8":
+                "compress='int8' rides a managed allgather; the plan and "
+                "isolated transports have no allgather form (use "
+                "compress='q8')")
+        if transport == "iso" and not getattr(
+                manager, "has_iso_plane", lambda: False)():
             raise ValueError(
-                "compress='int8' rides a managed allgather; the plan "
-                "transport has no allgather form (use compress='q8')")
+                "transport='iso' needs Manager(iso_collectives=...)")
         if hier and transport != "plan":
             raise ValueError("hier=True rides the plan transport (the "
                              "two-tier schedule is a comm-plan form)")
@@ -214,6 +224,11 @@ class PipelinedDDP:
                 device_pack=self._device_pack, hier=self._hier,
             )
         payload = self._compress(grads)
+        if self._transport == "iso":
+            # the legacy payload through the isolated plane (lossless on
+            # every wire)
+            return self._manager.iso_allreduce(
+                payload, wire="q8" if self._compress_mode == "q8" else None)
         if self._compress_mode == "int8":
             return self._manager.allgather(payload)
         if self._compress_mode == "q8":
@@ -538,7 +553,11 @@ class AdaptiveDDP:
       step latches and records the failure sentinel);
     - ``pipelined``: the one-step-stale overlap, legacy transport;
     - ``ddp_sharded``: per-step ZeRO (``TORCHFT_DDP_SHARDED=1``, f32
-      masters, not ``int8``).
+      masters, not ``int8``);
+    - ``xla_iso``: settle every step through the isolated data plane
+      (when the manager carries one, not ``int8``). Membership follows
+      the manager's construction, never the child's health: a child that
+      cannot spawn records the failure sentinel and never wins.
 
     ``blocking`` comes first and ties resolve to it, so the locked mode
     is never slower than blocking as measured on this cohort.
@@ -708,8 +727,12 @@ class AdaptiveDDP:
                 # a fresh pipeline only dispatches: no outcome yet
                 d.last_commit = None
             return d.step(*batch)
-        d._transport = ("plan" if mode in ("plan", "plan_devpack",
-                                           "plan_hier") else "legacy")
+        if mode in ("plan", "plan_devpack", "plan_hier"):
+            d._transport = "plan"
+        elif mode == "xla_iso":
+            d._transport = "iso"
+        else:
+            d._transport = "legacy"
         # the two-tier schedule is plan_hier's alone (host pack only)
         d._hier = mode == "plan_hier"
         if mode == "plan_devpack":

@@ -36,11 +36,16 @@ def replica_group_spec(
     max_restarts: int = 10,
 ) -> Dict[str, object]:
     """Process spec for one replica group: command, env, and restart
-    budget."""
+    budget. The isolated data plane's knobs ride the spec when set, so an
+    external scheduler (which does not inherit this environment) deploys
+    every group with the same child-respawn discipline."""
     spec_env = {
         "TORCHFT_LIGHTHOUSE": lighthouse_addr,
         "REPLICA_GROUP_ID": str(replica_group),
         "NUM_REPLICA_GROUPS": str(num_replica_groups),
+        **{knob: os.environ[knob]
+           for knob in ("TORCHFT_ISO_ZYGOTE", "TORCHFT_ISO_LIVENESS_MS")
+           if knob in os.environ},
         **(env or {}),
     }
     return {

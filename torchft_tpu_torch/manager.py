@@ -34,8 +34,11 @@ A "replica group" is one GPU (or one host's GPUs); intra-group
 parallelism is invisible to this class. Commit hooks
 (:meth:`Manager.add_commit_hook`) observe every vote, which is where the
 durable tier captures and the serving plane publishes; a cold fleet's
-first quorum consults the durable tier (``durable_restore``). The
-isolated data plane of the JAX Manager is not ported.
+first quorum consults the durable tier (``durable_restore``). A second,
+isolated data plane (``iso_collectives``, an
+:class:`~.isolated_xla.IsolatedXLACollectives`) reconfigures beside the
+primary at every quorum and runs :meth:`Manager.iso_allreduce` under the
+same discipline.
 """
 
 from __future__ import annotations
@@ -120,6 +123,7 @@ class Manager:
         checkpoint_transport: Optional[CheckpointTransport[Dict[str, T]]] = None,
         profiler: Optional[Profiler] = None,
         durable_restore: Optional[Callable[[], Optional[int]]] = None,
+        iso_collectives: Optional[Collectives] = None,
     ) -> None:
         """
         Args:
@@ -180,6 +184,13 @@ class Manager:
                 member has committed a step (``max_step == 0``) and this
                 one is at step 0: a live donor always wins over the
                 durable tier.
+            iso_collectives: an optional SECONDARY data plane (an
+                :class:`~.isolated_xla.IsolatedXLACollectives`),
+                reconfigured beside the primary at every quorum on the
+                ``{prefix}/iso`` store sub-prefix, so the two planes never
+                cross-talk, and dispatched through :meth:`iso_allreduce`.
+                ``AdaptiveDDP``'s ``xla_iso`` candidate and the policy
+                engine's ``transport="iso"`` specs run on it.
         """
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
@@ -214,6 +225,8 @@ class Manager:
         self._store = StoreClient(store_addr, connect_timeout=connect_timeout)
 
         self._collectives = collectives
+        self._iso_collectives = iso_collectives
+        self._iso_ok = False
         self._device = resolve_device(device)
         # the training thread's stream at start_quorum: what a publish to
         # a healing peer waits for (card state)
@@ -318,6 +331,8 @@ class Manager:
             self._manager.shutdown()
         if self._owned_store is not None:
             self._owned_store.shutdown()
+        if self._iso_collectives is not None:
+            self._iso_collectives.shutdown()
 
     # -- step lifecycle --
 
@@ -467,6 +482,25 @@ class Manager:
                     prefix, result.replica_rank, result.replica_world_size,
                     **cfg_kwargs,
                 )
+            if self._iso_collectives is not None:
+                # The isolated plane reconfigures on its own sub-prefix:
+                # same quorum, disjoint store keys. Its failure (a child
+                # that cannot spawn) never takes the primary plane down:
+                # the plane is marked unusable this quorum, iso dispatches
+                # latch, and AdaptiveDDP's probe records its failure
+                # sentinel.
+                with self._metrics.timed("reconfigure_iso"):
+                    try:
+                        self._iso_collectives.configure(
+                            f"{prefix}/iso", result.replica_rank,
+                            result.replica_world_size)
+                        self._iso_ok = True
+                    except Exception as e:  # noqa: BLE001
+                        self._iso_ok = False
+                        self._metrics.incr("iso_configure_failures")
+                        logger.exception(
+                            f"isolated data plane configure failed (primary "
+                            f"plane unaffected): {e}")
             self._metrics.incr("reconfigures")
             self._quorum_id = result.quorum_id
 
@@ -736,6 +770,44 @@ class Manager:
         num_participants = self.num_participants()
         assert num_participants >= 1
         return float(num_participants)
+
+    def has_iso_plane(self) -> bool:
+        """Whether an isolated data plane was attached at construction
+        (not whether its child is healthy: a sick plane still exists, and
+        its failures are what AdaptiveDDP's probe measures)."""
+        return self._iso_collectives is not None
+
+    def iso_collectives(self) -> Optional[Collectives]:
+        """The attached isolated data plane (None without one)."""
+        return self._iso_collectives
+
+    def iso_allreduce(self, tree: Any, op: ReduceOp = ReduceOp.AVG,
+                      wire: Optional[str] = None) -> Work:
+        """Fault-tolerantly averages a gradient tree through the isolated
+        data plane, under :meth:`allreduce`'s discipline but with the
+        failure default ``None``: a child that died mid-op leaves no
+        meaningful result (its staging may hold a partial one), so the
+        Work resolves to ``None``, the error latches and ``should_commit``
+        discards the step; the forced reconfigure then respawns the child
+        at the next quorum. Raises at once when no plane was attached."""
+        if self._iso_collectives is None:
+            raise ValueError(
+                "no isolated data plane: construct the Manager with "
+                "iso_collectives=IsolatedXLACollectives(...)")
+        if op not in (ReduceOp.AVG, ReduceOp.SUM):
+            raise ValueError(f"unsupported managed iso_allreduce op: {op}")
+        iso = self._iso_collectives
+
+        def dispatch(zeroed_tree: Any) -> Work:
+            if not self._iso_ok:
+                raise RuntimeError(
+                    "isolated data plane unusable this quorum (its configure "
+                    "failed; primary plane unaffected)")
+            return iso.allreduce(zeroed_tree, ReduceOp.SUM,
+                                 divisor=self._divisor(op), wire=wire)
+
+        return self._managed_dispatch("iso_allreduce", tree, dispatch,
+                                      lambda t: None)
 
     def reset_plan_feedback(self) -> None:
         """Zeroes the error-feedback carry of every cached ``q8ef`` plan,

@@ -5,7 +5,7 @@ The fault-tolerance *strategy*, not only its schedule, is chosen at
 runtime from observed conditions: churn rate and effective bandwidth
 swing by orders of magnitude over a long run, and no fixed strategy is
 right for all of it. The port has every strategy (per-step DDP over the
-legacy and plan transports, per-step ZeRO, LocalSGD, DiLoCo with a
+legacy, plan and isolated transports, per-step ZeRO, LocalSGD, DiLoCo with a
 sharded outer sync, q8/bf16 wires) and every signal
 (``Manager.signals()``: rolling churn from quorum-id bumps, effective
 wire bandwidth from the op stats, heal costs). :class:`PolicyEngine`
@@ -102,7 +102,8 @@ class StrategySpec:
     (``None`` f32 | ``"bf16"`` | ``"q8"``). ``transport`` (ddp only)
     selects the data path: ``"legacy"`` managed ring, ``"plan"``
     persistent native comm plan, ``"iso"`` the isolated data plane
-    (structurally unavailable until the Manager has one).
+    (structurally available when the Manager carries one:
+    ``Manager(iso_collectives=...)``).
     ``sharded``: for diloco, the weight-update-sharded outer sync
     (requires f32 masters and an elementwise outer optimizer); for ddp,
     the per-step ZeRO engine (:class:`~torchft_tpu_torch.ddp.ShardedDDP`:

@@ -174,6 +174,25 @@ class FTTrainState:
             return
         _load_opt_state(self.opt_state, sd_opt)
 
+    def snapshot(self) -> Dict[str, Any]:
+        """A host copy of the whole state in fresh buffers: CPU tensors
+        for tensor leaves, other leaves (the step count) as they are.
+        Unlike :meth:`state_dict` it aliases nothing live, so later
+        updates do not reach it."""
+        return tree_map(
+            lambda l: l.detach().to("cpu", copy=True)
+            if isinstance(l, torch.Tensor) else l,
+            {"params": self.params, "opt_state": self.opt_state})
+
+    @torch.no_grad()
+    def restore(self, snapshot: Dict[str, Any]) -> None:
+        """Copies a :meth:`snapshot` back in place, onto the state's own
+        devices (:meth:`load_state_dict`). The JAX package needs this
+        round trip around a data-plane rebuild that orphans its arrays;
+        a torch process group's rebuild orphans nothing, so here it is a
+        plain host checkpoint."""
+        self.load_state_dict(snapshot)
+
     @torch.no_grad()
     def warm(self, grads_like: Any) -> None:
         """Warm-up for a hot-spare standby: runs one optimizer update on
