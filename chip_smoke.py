@@ -113,7 +113,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            and its ratio to the bare inner step (no manager) timed in the
            same workers;
 15. sharded diloco  the same two groups on DiLoCo(sharded=True,
-           shard_wire="q8", param_wire="bf16"), 2 windows of 4: each
+           shard_wire="q8", param_wire="bf16"), 1 window of 4: each
            sync's ms and its reduce_scatter / allgather_into split, the
            outer momentum (222,332,928 B per group at W = 2);
 16. diloco reshard  two dense groups on sharded DiLoCo (sync_every 2),
@@ -125,7 +125,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            TORCHFT_HOST and TORCHFT_DDP_SHARDED=1: six candidates
            (blocking, plan on the host pack of the card leaves,
            plan_devpack, plan_hier over the shm tier, pipelined,
-           ddp_sharded), 12 probe steps after the anchor, 2 locked;
+           ddp_sharded), 12 probe steps after the anchor, 1 locked;
            prints decision["probe_s"] and the locked mode;
 18. durable flash  two groups on the big LM (PipelinedDDP(q8) blocking
            steps) with DurableCheckpointer(mode="async", wire="bf16",
@@ -139,7 +139,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            the saved ones; prints each capture's stall_s, write_s,
            commit_s and bytes, and the restore's seconds;
 19. serving flash  a training group (this process) publishes its params
-           through publish_on_commit, 5 versions per wire (q8, bf16,
+           through publish_on_commit, 4 versions per wire (q8, bf16,
            f32; snapshot_every 4): the encode on the card (K1a/K1b, K3)
            and the q8 decode (K2) of the served tree; a WeightRelay and
            two subscribers behind it, a third on the publisher, all
@@ -204,7 +204,23 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            split; every op must take the psum path;
 27. adaptive dense  two dense groups on AdaptiveDDP(compress="q8") with
            an isolated plane: blocking, plan, plan_devpack, pipelined and
-           xla_iso race, 2 probe steps each, 2 locked.
+           xla_iso race, 2 probe steps each, 1 locked;
+28. parallel  one launch of four rank processes (two replica groups of
+           two ranks, gloo meshes on the one card; each rank a
+           Manager(rank=r, world_size=2) and PipelinedDDP(compress="q8")
+           blocking steps over parallel.build_grad_step) runs the model-
+           parallel sub-phases at full width: cnn (CNNConfig(), groups of
+           one rank), cp ulysses and cp ring (the big LM over {"seq": 2}),
+           pp flash ({"pipe": 2}, 4 microbatches), ep moe (MoEConfig()
+           over {"expert": 2}) and tp flash ({"model": 2}), whose group 1
+           is SIGKILLed after its timed steps and restarted from other
+           weights, each rank healing its shard from group 0's; each
+           sub-phase holds its step-0 loss within 3e-3 of the unsharded
+           loss, commits every step with the groups' params equal rank
+           for rank, and launches its kernels; prints step times, the
+           intra-group collectives' ms and MB, each rank's ring, peak
+           memory, kill -> first commit, and which gloo ops take a card
+           tensor handed to them (probed in throwaway processes).
 
 The train, flash train and hier phases drain Manager.observe_op_stats()
 around their timed steps and print, per cell, the native per-bucket
@@ -264,7 +280,8 @@ raises WireCorruption there, and commits follow the last fault and the
 restart (whose heal must fall back off the stream path). The policy
 flash phase checks that both members took identical decisions, at least
 one a committed switch, and end bit-identical. The card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+power limit, a ``phase_s`` JSON line (each phase's seconds), and as its
+last line ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero.
 
 Usage: ``python3 chip_smoke.py`` (needs one CUDA device; the workers are
@@ -276,7 +293,8 @@ checks only that the machine's /dev/shm takes the shm host tier;
 ``--window-phases`` builds and runs only phases 14-17,
 ``--serving-phases`` only phases 18-20, ``--control-phases`` only
 phases 21-23 (the launched workers are this script re-run with
-``--control-worker``), ``--iso-phases`` only phases 24-27; ``--legacy-turns A B`` runs the
+``--control-worker``), ``--iso-phases`` only phases 24-27,
+``--parallel-phases`` only phase 28; ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
 a), each from its own chip_smoke.py and build.
 """
@@ -284,6 +302,7 @@ a), each from its own chip_smoke.py and build.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -336,14 +355,14 @@ DILOCO_WARM_WINDOWS, DILOCO_WINDOWS = 1, 1
 RAW_STEPS = 4
 # sharded diloco: windows on the big LM; the outer Nesterov momentum is
 # half of the big LM's f32 size per group at W = 2
-SHARDED_DILOCO_WINDOWS = 2
+SHARDED_DILOCO_WINDOWS = 1
 SHARDED_OUTER_BYTES = 4 * 111_166_464 // 2
 # diloco reshard (dense LM, sync_every 2): founder windows before the
 # joiner, and windows all three take after the first three-member quorum
 DILOCO_RESHARD_WINDOWS = 2
 # adaptive flash: probe steps per candidate, steps after the lock
 ADAPTIVE_PROBE_STEPS = 2
-ADAPTIVE_LOCKED_STEPS = 2
+ADAPTIVE_LOCKED_STEPS = 1
 ADAPTIVE_HOST = "smoke_host"  # an explicit TORCHFT_HOST: plan_hier races
 # the big LM's attention call: (B, S, H, head_dim), S = 2048 less the
 # token loss_fn drops
@@ -387,6 +406,22 @@ REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# (phase, start on the host clock): each phase's seconds for the phase_s line
+PHASE_MARKS: list = []
+
+
+def _phase(name: str) -> None:
+    """Logs the start of a phase and marks its time."""
+    PHASE_MARKS.append((name, time.perf_counter()))
+    log(f"phase {name}")
+
+
+def _phase_seconds() -> dict:
+    """Each marked phase's seconds: to the next mark, the last to now."""
+    marks = PHASE_MARKS + [("end", time.perf_counter())]
+    return {a: round(t1 - t0, 1) for (a, t0), (_, t1) in zip(marks, marks[1:])}
 
 
 def fail(msg: str) -> None:
@@ -634,6 +669,12 @@ def worker(cfg: dict) -> None:
         return
     if cfg["role"] == "adaptive_iso":
         adaptive_iso_worker(cfg)
+        return
+    if cfg["role"] == "parallel":
+        parallel_worker(cfg)
+        return
+    if cfg["role"] == "gloo_probe":
+        gloo_probe_worker(cfg)
         return
     import torchft_tpu_torch as tft
     from torchft_tpu_torch.models import transformer as tt
@@ -3299,7 +3340,7 @@ def shm_probe() -> int:
 def window_phases(by_phase: dict) -> None:
     """The window strategies' phases and AdaptiveDDP's: each runs, is
     checked and logged, and puts its launch counts into ``by_phase``."""
-    log("phase async diloco flash + sharded diloco")
+    _phase("async diloco flash + sharded diloco")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_diloco_") as workdir:
         dlres = phase_diloco_flash(workdir)
         adsum = check_async_diloco(dlres)
@@ -3319,7 +3360,7 @@ def window_phases(by_phase: dict) -> None:
         f"{sdsum['sync_ms']}; outer momentum {sdsum['outer_bytes']} B per "
         f"group; op split (group 0) {json.dumps(sdsum['ops'])}; launches "
         f"{json.dumps(sdsum['launches'])}")
-    log("phase diloco reshard")
+    _phase("diloco reshard")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dreshard_") as workdir:
         drres = phase_diloco_reshard(workdir)
         drsum = check_diloco_reshard(drres)
@@ -3328,7 +3369,7 @@ def window_phases(by_phase: dict) -> None:
         f"{drsum['commits']}, worlds {drsum['worlds']}; the joiner healed in "
         f"its start_quorum {json.dumps(drsum['fetch'])}; three groups "
         f"bit-identical, outer shards tile the model")
-    log("phase adaptive flash")
+    _phase("adaptive flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_adaptive_") as workdir:
         apres = phase_adaptive_flash(workdir)
         apsum = check_adaptive(apres)
@@ -3351,7 +3392,7 @@ DURABLE_MOMENTS = 2 * 51
 # with room for the sync baseline's set
 DURABLE_DISK_BYTES = 3 * (4 + 2 * 2) * 111_166_464
 # serving flash: versions per wire, the snapshot cadence, the wires
-SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 5, 4
+SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 4, 4
 SERVE_WIRES = ("q8", "bf16", "f32")
 
 
@@ -3919,7 +3960,7 @@ def serving_phases(by_phase: dict) -> None:
     """The durable flash, serving flash and parameter server phases: each
     runs, is checked and logged, and puts its launch counts into
     ``by_phase``."""
-    log("phase durable flash")
+    _phase("durable flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_durable_") as workdir:
         t0 = time.perf_counter()
         dres = phase_durable_flash(workdir)
@@ -3934,7 +3975,7 @@ def serving_phases(by_phase: dict) -> None:
         f"{json.dumps(dsum['sync'])}; step ms {dsum['step_ms']}; writer "
         f"flush s {dsum['flush_s']}; cold restore at width 1 "
         f"{json.dumps(dsum['restore'])}")
-    log("phase serving flash")
+    _phase("serving flash")
     sres = phase_serving_flash()
     ssum = check_serving_flash(sres)
     by_phase["serving flash"] = ssum["launches"]
@@ -3944,7 +3985,7 @@ def serving_phases(by_phase: dict) -> None:
         f"third on the publisher, all installing on the card)")
     for wire, rows in ssum["wires"].items():
         log(f"  serving {wire}: {json.dumps(rows)}")
-    log("phase parameter server")
+    _phase("parameter server")
     pres = phase_parameter_server()
     psum = check_parameter_server(pres)
     by_phase["parameter server"] = psum["launches"]
@@ -3959,7 +4000,7 @@ def serving_phases(by_phase: dict) -> None:
 # CONTROL_TAIL_STEPS more steps. The cold run kills at the same step.
 CONTROL_KILL_STEP = 4
 CONTROL_ROOT_KILL_AFTER = 3
-CONTROL_TAIL_STEPS = 3
+CONTROL_TAIL_STEPS = 2
 CONTROL_LEASE_MS = 1000      # the managers' lease: a dead group leaves fast
 CONTROL_TAKEOVER_MS = 1500   # the standby root's sync-starvation bound
 CONTROL_LR = 1e-3            # the workers' AdamW rate (the drift bound)
@@ -4000,7 +4041,7 @@ CORRUPTING_KINDS = ("bit_flip", "duplicate")
 # windowed one on 4-step windows; POLICY_STEPS ends on a window's sync
 POLICY_DECIDE_EVERY = 4
 POLICY_SYNC_EVERY = 4
-POLICY_STEPS = 12
+POLICY_STEPS = 8
 # the knob that makes the switch: a per-sync fixed cost of 0.5 s (the
 # model's default is 2 ms) charges every per-step sync and a quarter of
 # it to a 4-step window
@@ -5024,7 +5065,7 @@ def _keep_logs(workdir: str, name: str) -> None:
 def control_phases(by_phase: dict) -> None:
     """The control dense, chaos flash and policy flash phases: each runs,
     is checked and logged, and puts its launch counts into ``by_phase``."""
-    log("phase control dense")
+    _phase("control dense")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_control_") as workdir:
         try:
             cres = phase_control_dense(workdir)
@@ -5039,7 +5080,7 @@ def control_phases(by_phase: dict) -> None:
     log(f"  control dense spares (prewarm + warm on the card before the "
         f"gate): {json.dumps(csum['standbys'])}; a CUDA context takes "
         f"{csum['context_bytes']} B of the card per process")
-    log("phase chaos flash")
+    _phase("chaos flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as workdir:
         try:
             xres = phase_chaos_flash(workdir)
@@ -5049,7 +5090,7 @@ def control_phases(by_phase: dict) -> None:
     by_phase["chaos flash"] = xsum.pop("launches")
     log(f"  chaos flash: seed {xsum['seed']} plan {json.dumps(xsum['plan'])}")
     log(f"  chaos flash: {json.dumps(xsum)}")
-    log("phase policy flash")
+    _phase("policy flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_policy_") as workdir:
         try:
             pres = phase_policy_flash(workdir)
@@ -5078,7 +5119,7 @@ ISO_STALL_SLACK_S = 3.0
 XLA_DENSE_STEPS = 2    # timed xla dense steps after one warm-up
 XLA_HEAL_STEPS = 2     # steps all three take after the join
 ADAPTIVE_ISO_PROBE_STEPS = 2
-ADAPTIVE_ISO_LOCKED_STEPS = 2
+ADAPTIVE_ISO_LOCKED_STEPS = 1
 ADAPTIVE_ISO_CANDIDATES = ["blocking", "plan", "plan_devpack", "pipelined",
                            "xla_iso"]
 
@@ -5706,14 +5747,14 @@ def iso_phases(by_phase: dict, flash_step_ms: "float | None" = None) -> None:
     each runs, is checked and logged, and puts its launch counts into
     ``by_phase``. ``flash_step_ms``: the plan-q8 flash step p50 of the
     same call, printed beside the iso flash step."""
-    log("phase nccl probe")
+    _phase("nccl probe")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as workdir:
         nres = phase_nccl_probe(workdir)
     log(f"  nccl probe {nres['total_s']:.1f} s: two ProcessGroupNCCL ranks on "
         f"one card {'ACCEPTED' if nres['accepted'] else 'REFUSED'}: "
         f"{json.dumps(nres['results'])}")
     backend = "nccl" if nres["accepted"] else "gloo"
-    log("phase xla dense")
+    _phase("xla dense")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_xla_") as workdir:
         xres = phase_xla_dense(workdir, backend=backend)
         xsum = check_xla_dense(xres)
@@ -5721,7 +5762,7 @@ def iso_phases(by_phase: dict, flash_step_ms: "float | None" = None) -> None:
     log(f"  xla dense {xres['total_s']:.1f} s (XLACollectives backend "
         f"{xsum['backend']}, two dense groups then a third joining): "
         f"{json.dumps(xsum)}")
-    log("phase iso flash")
+    _phase("iso flash")
     log(f"  /dev/shm before: {_shm_df()}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_iso_") as workdir:
         ires = phase_iso_flash(workdir)
@@ -5734,12 +5775,625 @@ def iso_phases(by_phase: dict, flash_step_ms: "float | None" = None) -> None:
         f" group 0's op split (medians over the timed steps) "
         f"{json.dumps(isum['split'])}")
     log(f"  iso flash faults: {json.dumps({k: v for k, v in isum.items() if k not in ('split', 'step_ms_all', 'step_ms_p50')})}")
-    log("phase adaptive dense")
+    _phase("adaptive dense")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_adiso_") as workdir:
         ares = phase_adaptive_iso(workdir)
         asum = check_adaptive_iso(ares)
     by_phase["adaptive dense"] = asum.pop("launches")
     log(f"  adaptive dense {ares['total_s']:.1f} s: {json.dumps(asum)}")
+
+
+# -- the model-parallel phases: a mesh of processes per replica group -----------
+
+# two replica groups of two ranks each, one process per rank, all on the
+# one card (gloo groups, card tensors staged through the host)
+PAR_GROUPS, PAR_RANKS = 2, 2
+PAR_WARM, PAR_STEPS = 1, 2      # untimed and timed blocking steps a sub-phase
+PAR_TAIL_STEPS = 1              # tp flash: steps the groups take after the heal
+PAR_LOSS_RTOL = 3e-3            # sharded against unsharded bf16 (tests/test_moe.py)
+# the sub-phases in launch order (tp flash last: its kill ends the launch)
+# and their models at full width: the CNN demo family, bench.py's big LM,
+# the MoE family's defaults
+PAR_SIZES = {
+    "cnn": {"model": {}, "batch": 64},
+    "cp ulysses": {"model": BIG_LM, "batch": 8, "seq": 2049},
+    "cp ring": {"model": BIG_LM, "batch": 4, "seq": 2049},
+    "pp flash": {"model": BIG_LM, "batch": 8, "seq": BIG_SEQ, "micro": 4},
+    "ep moe": {"model": {"use_flash": True}, "batch": 8, "seq": 1024},
+    "tp flash": {"model": BIG_LM, "batch": 4, "seq": BIG_SEQ},
+}
+PAR_AXES = {"cnn": {"data": 1}, "cp ulysses": {"seq": 2}, "cp ring": {"seq": 2},
+            "pp flash": {"pipe": 2}, "ep moe": {"expert": 2},
+            "tp flash": {"model": 2}}
+# the kernels each sub-phase must launch (summed over its ranks)
+PAR_KERNELS = {
+    "cnn": ("q8_absmax", "q8_quantize"),
+    "cp ulysses": ("q8_absmax", "q8_quantize", "flash_fwd", "flash_bwd"),
+    "cp ring": ("q8_absmax", "q8_quantize"),
+    "pp flash": ("q8_absmax", "q8_quantize", "flash_fwd", "flash_bwd"),
+    "ep moe": ("q8_absmax", "q8_quantize", "flash_fwd", "flash_bwd"),
+    "tp flash": ("q8_absmax", "q8_quantize", "flash_fwd", "flash_bwd"),
+}
+
+
+_PAR_WHOLE: dict = {}  # (init fn, config, seed) -> whole params on the host
+
+
+def _par_init(init, cfg, seed: int, device: torch.device):
+    """``init(cfg, seed, "cpu")`` drawn once per process (the LM
+    sub-phases share seed 0's weights), copied to ``device``."""
+    from torchft_tpu_torch._tree import tree_map
+
+    key = (init.__module__, repr(cfg), seed)
+    if key not in _PAR_WHOLE:
+        _PAR_WHOLE[key] = init(cfg, seed, "cpu")
+    return tree_map(lambda l: l.to(device), _PAR_WHOLE[key])
+
+
+def _par_model(sub: str, sizes: dict, mesh, device: torch.device, seed: int):
+    """``(whole params, rules, loss_fn(params, batch) on the mesh, the
+    unsharded loss_fn)`` of a sub-phase: the model at its sizes, from
+    ``seed``."""
+    import functools
+
+    from torchft_tpu_torch import parallel as par
+    from torchft_tpu_torch import pipeline as tpp
+    from torchft_tpu_torch._tree import tree_map
+    from torchft_tpu_torch.models import cnn as tcnn
+    from torchft_tpu_torch.models import moe as tmoe
+    from torchft_tpu_torch.models import transformer as tt
+
+    spec = sizes[sub]
+    if sub == "cnn":
+        cfg = tcnn.CNNConfig(**spec["model"])
+        return (_par_init(tcnn.init_params, cfg, seed, device),
+                tcnn.param_sharding_rules(cfg),
+                functools.partial(tcnn.loss_fn, cfg),
+                functools.partial(tcnn.loss_fn, cfg))
+    if sub == "ep moe":
+        cfg = tmoe.MoEConfig(**spec["model"])
+        rules = par.restrict_rules(tmoe.param_sharding_rules(cfg), mesh)
+        return (_par_init(tmoe.init_params, cfg, seed, device), rules,
+                functools.partial(tmoe.loss_fn,
+                                  dataclasses.replace(cfg, cp_mesh=mesh)),
+                functools.partial(tmoe.loss_fn, cfg))
+    cfg = tt.TransformerConfig(**spec["model"])
+    plain = functools.partial(tt.loss_fn, cfg)
+    if sub == "pp flash":
+        raw = _par_init(tt.init_params, cfg, seed, device)
+        whole = {"backbone": {k: v for k, v in raw.items() if k != "blocks"},
+                 "stacked": tpp.stack_blocks(raw["blocks"])}
+        del raw
+        rules = {"backbone": tree_map(lambda l: (), whole["backbone"]),
+                 "stacked": tpp.stage_specs(whole["stacked"])}
+
+        def pp_loss(params, tokens):
+            x = tt.embed_tokens(cfg, params["backbone"], tokens[:, :-1])
+            x = tpp.pipeline_blocks(functools.partial(tt._block, cfg),
+                                    params["stacked"], x, mesh=mesh,
+                                    microbatches=spec["micro"])
+            return tt.next_token_loss(tt.readout(cfg, params["backbone"], x),
+                                      tokens[:, 1:])
+
+        def pp_plain(params, tokens):
+            n = params["stacked"]["ln1"]["scale"].shape[0]
+            blocks = [tree_map(lambda l: l[i], params["stacked"])
+                      for i in range(n)]
+            return plain({**params["backbone"], "blocks": blocks}, tokens)
+
+        return whole, rules, pp_loss, pp_plain
+    extra = {}
+    if sub.startswith("cp "):
+        extra = dict(cp_seq_axis="seq", cp_batch_axis=None,
+                     cp_strategy=sub.split()[1])
+    rules = par.restrict_rules(tt.param_sharding_rules(cfg), mesh)
+    return (_par_init(tt.init_params, cfg, seed, device), rules,
+            functools.partial(tt.loss_fn, dataclasses.replace(
+                cfg, cp_mesh=mesh, **extra)), plain)
+
+
+def _par_batch(sub: str, sizes: dict, step: int, device: torch.device):
+    """The whole batch of a step (the same on every rank of both groups):
+    tokens, or CIFAR-10-shaped images and labels for the CNN."""
+    spec = sizes[sub]
+    gen = torch.Generator().manual_seed(7000 + 100 * list(PAR_SIZES).index(sub)
+                                        + step)
+    if sub == "cnn":
+        from torchft_tpu_torch.models import cnn as tcnn
+
+        cfg = tcnn.CNNConfig(**spec["model"])
+        images = torch.randn((spec["batch"], cfg.image_size, cfg.image_size,
+                              cfg.channels), generator=gen)
+        labels = torch.randint(0, cfg.classes, (spec["batch"],), generator=gen)
+        return images.to(device), labels.to(device)
+    vocab = spec["model"].get("vocab_size", 32768)
+    return torch.randint(0, vocab, (spec["batch"], spec["seq"]),
+                         generator=gen).to(device)
+
+
+GLOO_PROBE_OPS = ("allreduce", "allgather_into_tensor", "reduce_scatter_tensor",
+                  "all_to_all_single", "send_recv")
+
+
+def gloo_probe_worker(cfg: dict) -> None:
+    """One rank of a two-process gloo group handing one collective a card
+    tensor directly (the mesh stages card tensors through the host
+    whatever the verdict). Prints the verdict: the op ran and gave the
+    right values, or what it raised. A gloo transport that writes from a
+    device pointer kills its process, which the harness reports."""
+    import datetime
+
+    import torch.distributed as dist
+
+    op, rank = cfg["op"], cfg["rank"]
+    device = torch.device(cfg["device"])
+    tcp = dist.TCPStore("127.0.0.1", cfg["port"], is_master=False,
+                        timeout=datetime.timedelta(seconds=60))
+    pg = dist.ProcessGroupGloo(dist.PrefixStore(f"gloo_probe/{op}", tcp), rank,
+                               2, datetime.timedelta(seconds=20))
+    x = torch.full((8,), float(rank + 1), device=device)
+    try:
+        if op == "allreduce":
+            out = x.clone()
+            pg.allreduce([out]).wait()
+            ok = bool((out == 3).all())
+        elif op == "allgather_into_tensor":
+            out = torch.empty(16, device=device)
+            pg._allgather_base(out, x).wait()
+            ok = bool((out[:8] == 1).all() and (out[8:] == 2).all())
+        elif op == "reduce_scatter_tensor":
+            out = torch.empty(4, device=device)
+            pg._reduce_scatter_base(out, x.clone()).wait()
+            ok = bool((out == 3).all())
+        elif op == "all_to_all_single":
+            out = torch.empty(8, device=device)
+            pg.alltoall_base(out, x, [], [], dist.AllToAllOptions()).wait()
+            ok = bool((out[:4] == 1).all() and (out[4:] == 2).all())
+        else:
+            if rank == 0:
+                pg.send([x], 1, 0).wait()
+                ok = True
+            else:
+                out = torch.empty(8, device=device)
+                pg.recv([out], 0, 0).wait()
+                ok = bool((out == 1).all())
+        verdict = ("takes a card tensor" if ok
+                   else "takes a card tensor, wrong values")
+    except Exception as e:  # noqa: BLE001 - the verdict is the output
+        verdict = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    print("VERDICT " + json.dumps({"op": op, "rank": rank,
+                                   "verdict": verdict}), flush=True)
+    try:
+        pg.shutdown()
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def _gloo_verdicts(workdir: str, port: int, device: str) -> tuple:
+    """Starts one pair of probe processes per op (all at once); returns
+    ``(procs, collect)``, ``collect()`` waiting for them and giving each
+    op's verdict (rank 0's, or how a rank's process died)."""
+    procs = {}
+    for op in GLOO_PROBE_OPS:
+        for rank in (0, 1):
+            logf = open(os.path.join(workdir, f"gloo_{op}_{rank}.log"), "w")
+            procs[(op, rank)] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 json.dumps({"role": "gloo_probe", "op": op, "rank": rank,
+                             "port": port, "device": device})],
+                cwd=REPO, stdout=logf, stderr=subprocess.STDOUT)
+
+    def collect() -> dict:
+        verdicts = {}
+        for (op, rank), p in procs.items():
+            try:
+                p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            with open(os.path.join(workdir, f"gloo_{op}_{rank}.log")) as f:
+                text = f.read()
+            line = next((l for l in text.splitlines()
+                         if l.startswith("VERDICT ")), None)
+            if line is None:
+                tail = [l for l in text.splitlines() if l.strip()][-2:]
+                verdicts[(op, rank)] = (f"killed its process (exit "
+                                        f"{p.returncode}): "
+                                        + " | ".join(tail)[:200])
+            else:
+                verdicts[(op, rank)] = json.loads(line[8:])["verdict"]
+        out = {}
+        for op in GLOO_PROBE_OPS:
+            a, b = verdicts[(op, 0)], verdicts[(op, 1)]
+            out[op] = a if a == b else {"rank 0": a, "rank 1": b}
+        return out
+
+    return procs, collect
+
+
+def _par_progress(workdir: str, g: int, r: int, row: dict) -> None:
+    with open(os.path.join(workdir, f"parprog_{g}_{r}.jsonl"), "a") as f:
+        f.write(json.dumps(row) + "\n")
+
+
+def _par_rows(workdir: str, g: int, r: int) -> list:
+    try:
+        with open(os.path.join(workdir, f"parprog_{g}_{r}.jsonl")) as f:
+            return [json.loads(l) for l in f if l.strip()]
+    except OSError:
+        return []
+
+
+def _par_step(ddp, manager, batch) -> tuple:
+    """One blocking step, as :func:`_guarded_step`, with its loss."""
+    try:
+        loss = ddp.blocking_step(batch)
+        return bool(ddp.last_commit), manager.errored(), float(loss)
+    except Exception as e:  # noqa: BLE001 - the worker retries
+        try:
+            if manager.errored() is None:
+                manager.report_error(e)
+            manager.should_commit()
+        except Exception:  # noqa: BLE001
+            pass
+        return False, e, None
+
+
+def parallel_worker(cfg: dict) -> None:
+    """One rank of one replica group: each sub-phase builds its mesh (the
+    group's ranks, gloo), its block of the model (``shard_pytree``), an
+    FTTrainState (AdamW), a ``Manager(rank=r, world_size=2)`` with its own
+    HostCollectives ring and PipelinedDDP(compress="q8") over
+    ``build_grad_step``; blocking steps (warm-up, timed, and in tp flash
+    a tail that the harness's kill interrupts), the per-step checksum, the
+    mesh's collective seconds and the ring's op stats."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch import parallel as par
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    g, r, workdir = cfg["group"], cfg["rank"], cfg["workdir"]
+    device = torch.device(cfg["device"])
+    on_card = device.type == "cuda"
+    sizes = cfg["sizes"]
+    tcp = dist.TCPStore("127.0.0.1", cfg["mesh_port"], is_master=False,
+                        timeout=datetime.timedelta(seconds=300))
+    for sub in cfg["subs"]:
+        world = 1 if sub == "cnn" else PAR_RANKS
+        if r >= world:
+            continue  # the CNN runs as groups of one rank
+        out = {"group": g, "rank": r, "sub": sub, "pid": os.getpid()}
+        log(f"[g{g}/r{r}] sub-phase {sub}")
+        mesh = par.make_mesh(PAR_AXES[sub], rank=r, world_size=world,
+                             store=tcp, prefix=f"{sub}/{cfg['incarnation']}/g{g}",
+                             timeout=datetime.timedelta(seconds=300))
+        whole, rules, loss_fn, plain = _par_model(sub, sizes, mesh, device,
+                                                  cfg["seed"])
+        if g == 0 and r == 0 and not cfg.get("restart"):
+            # the unsharded loss of the same params and first batch
+            with torch.no_grad():
+                out["loss_unsharded"] = float(plain(
+                    whole, _par_batch(sub, sizes, 0, device)))
+        state = tft.FTTrainState(par.shard_pytree(whole, rules, mesh),
+                                 tft.AdamW(1e-3, weight_decay=1e-4))
+        del whole
+        out["shard_params"] = _n_params(state.params)
+        step_fn = par.build_grad_step(loss_fn, mesh, rules)
+        collectives = tft.HostCollectives()
+        manager = tft.Manager(
+            collectives=collectives, load_state_dict=state.load_state_dict,
+            state_dict=state.state_dict, min_replica_size=PAR_GROUPS,
+            rank=r, world_size=world, store_addr=cfg["stores"][sub][str(g)],
+            lighthouse_addr=cfg["lighthouses"][sub], replica_id=f"par_g{g}",
+            device=device, quorum_timeout=datetime.timedelta(seconds=300),
+            timeout=datetime.timedelta(seconds=120))
+        ddp = tft.PipelinedDDP(manager, state, step_fn, compress="q8")
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        qk.reset_launch_counts()
+        manager.observe_op_stats()
+        mesh.pop_stats()
+        rows, n = [], 0
+        target = (PAR_WARM + PAR_STEPS + (PAR_TAIL_STEPS if sub == "tp flash"
+                                          else 0))
+        # tp flash's victim: group 1's first incarnation waits for its
+        # SIGKILL once its timed steps are in (a kill point no race moves)
+        victim = sub == "tp flash" and g == 1 and not cfg.get("restart")
+        try:
+            while manager.current_step() < target:
+                if victim and manager.current_step() >= PAR_WARM + PAR_STEPS:
+                    time.sleep(600)
+                t0 = time.time()
+                committed, err, loss = _par_step(
+                    ddp, manager, _par_batch(sub, sizes, manager.current_step(),
+                                             device))
+                if on_card:
+                    torch.cuda.synchronize(device)
+                t1 = time.time()
+                row = {"t0": t0, "t": t1, "n": n, "step": manager.current_step(),
+                       "committed": committed, "pid": os.getpid(),
+                       "loss": loss,
+                       "checksum": _checksum(state.params) if committed else None,
+                       "mesh": mesh.pop_stats(),
+                       "ops": _op_split(manager.observe_op_stats()),
+                       "heals": manager.metrics().snapshot()["counters"].get(
+                           "heals", 0),
+                       "err": None if err is None
+                       else f"{type(err).__name__}: {str(err)[:200]}"}
+                rows.append(row)
+                if sub == "tp flash":
+                    _par_progress(workdir, g, r, row)
+                n += 1
+                # only tp flash's tail (the kill) may fail a step: anything
+                # else ends the launch at once, not at the peers' timeouts
+                if err is not None and (sub != "tp flash" or n <= PAR_WARM
+                                        + PAR_STEPS or n > 3 * target):
+                    raise RuntimeError(f"{sub}: step {n - 1} failed: "
+                                       f"{row['err']}")
+            out["rows"] = rows
+            out["launches"] = dict(qk.launch_counts)
+            out["digest"] = _digest(state.params)
+            out["fetch"] = manager.checkpoint_transport().last_fetch_stats
+            if on_card:
+                out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                    device)
+        finally:
+            manager.shutdown()
+            collectives.shutdown()
+            mesh.shutdown()
+        del ddp, state, step_fn
+        if on_card:
+            torch.cuda.empty_cache()
+        with open(os.path.join(
+                workdir, f"par_{sub.replace(' ', '_')}_{g}_{r}_"
+                f"{cfg['incarnation']}.json"), "w") as f:
+            json.dump(out, f)
+
+
+def _par_spawn(cfg: dict, workdir: str) -> subprocess.Popen:
+    name = f"parworker_{cfg['group']}_{cfg['rank']}_{cfg['incarnation']}.log"
+    logf = open(os.path.join(workdir, name), "w")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", json.dumps(cfg)],
+        cwd=REPO, stdout=logf, stderr=subprocess.STDOUT)
+
+
+def _par_fail(procs: list, workdir: str, why: str) -> None:
+    tails = []
+    for p in procs:
+        cfg = json.loads(p.args[-1])
+        name = (f"parworker_{cfg['group']}_{cfg['rank']}_"
+                f"{cfg['incarnation']}.log")
+        with open(os.path.join(workdir, name)) as f:
+            tails.append(f"--- {name} (exit {p.poll()}):\n{f.read()[-2500:]}")
+    fail(why + "\n" + "\n".join(tails))
+
+
+def phase_parallel(workdir: str, device: str = "cuda",
+                   sizes: dict = PAR_SIZES) -> dict:
+    """One launch of four worker processes (two replica groups of two
+    ranks) that run the model-parallel sub-phases in turn against one
+    lighthouse each; in tp flash, last, group 1's two processes wait
+    once both have committed their timed steps, are SIGKILLed there and
+    restarted from other weights, and each rank heals its block from
+    group 0's."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import torchft_tpu_torch as tft
+    from torchft_tpu_torch._native import Store
+    from torchft_tpu_torch.chaos import kill_process
+
+    subs = list(PAR_SIZES)
+    t0 = time.perf_counter()
+    tcp = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                        timeout=datetime.timedelta(seconds=300))
+    lighthouses = {s: tft.Lighthouse(min_replicas=PAR_GROUPS,
+                                     join_timeout_ms=10000, quorum_tick_ms=50,
+                                     heartbeat_timeout_ms=5000) for s in subs}
+    stores = {s: {str(g): Store() for g in range(PAR_GROUPS)} for s in subs}
+    base = {"role": "parallel", "workdir": workdir, "device": device,
+            "sizes": sizes, "mesh_port": tcp.port, "subs": subs,
+            "incarnation": 0, "seed": 0,
+            "lighthouses": {s: lh.address() for s, lh in lighthouses.items()},
+            "stores": {s: {g: st.address() for g, st in v.items()}
+                       for s, v in stores.items()}}
+    procs = []
+    out: dict = {}
+    restart_store = Store()
+    probes, collect = ({}, None)
+    try:
+        procs = [_par_spawn({**base, "group": g, "rank": r}, workdir)
+                 for g in range(PAR_GROUPS) for r in range(PAR_RANKS)]
+        if device == "cuda":
+            probes, collect = _gloo_verdicts(workdir, tcp.port, device)
+        deadline = time.monotonic() + 600
+
+        def timed_done() -> bool:
+            return all(sum(1 for row in _par_rows(workdir, 1, r)
+                           if row["committed"]) >= PAR_WARM + PAR_STEPS
+                       for r in range(PAR_RANKS))
+
+        while not timed_done():
+            if any(p.poll() is not None for p in procs):
+                _par_fail(procs, workdir, "a parallel worker exited early")
+            if time.monotonic() > deadline:
+                _par_fail(procs, workdir, "the parallel launch timed out")
+            time.sleep(0.05)
+        victims = procs[PAR_RANKS:]
+        t_kill = time.time()
+        for p in victims:
+            kill_process(p.pid)
+        for p in victims:
+            p.wait(30)
+        out["kill_t"] = t_kill
+        restart = {**base, "subs": ["tp flash"], "incarnation": 1, "seed": 1,
+                   "restart": True,
+                   "stores": {**base["stores"], "tp flash": {
+                       **base["stores"]["tp flash"],
+                       "1": restart_store.address()}}}
+        procs[PAR_RANKS:] = [_par_spawn({**restart, "group": 1, "rank": r},
+                                        workdir) for r in range(PAR_RANKS)]
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                _par_fail(procs, workdir, "a parallel worker did not finish")
+        if any(p.returncode != 0 for p in procs):
+            _par_fail(procs, workdir, "a parallel worker failed")
+        if collect is not None:
+            out["gloo_verdicts"] = collect()
+    finally:
+        for p in procs + list(probes.values()):
+            if p.poll() is None:
+                p.kill()
+        for lh in lighthouses.values():
+            lh.shutdown()
+        for v in stores.values():
+            for st in v.values():
+                st.shutdown()
+        restart_store.shutdown()
+    out["results"] = {}
+    for name in sorted(os.listdir(workdir)):
+        if name.startswith("par_") and name.endswith(".json"):
+            with open(os.path.join(workdir, name)) as f:
+                res = json.load(f)
+            out["results"].setdefault(res["sub"], []).append(
+                {**res, "incarnation": int(name[:-5].rsplit("_", 1)[1])})
+    out["progress"] = {f"{g}_{r}": _par_rows(workdir, g, r)
+                       for g in range(PAR_GROUPS) for r in range(PAR_RANKS)}
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_parallel(res: dict, on_card: bool = True) -> dict:
+    """Per sub-phase: the step-0 loss of every rank within PAR_LOSS_RTOL of
+    the unsharded loss, every warm-up and timed step committed, the
+    groups' params bit-identical rank for rank after every step, and the
+    kernels launched; in tp flash every rank of the restarted group healed
+    over the stream once and ended bit-identical to group 0's same rank."""
+    summary: dict = {}
+    steps = PAR_WARM + PAR_STEPS
+    for sub in PAR_SIZES:
+        results = res["results"].get(sub, [])
+        world = 1 if sub == "cnn" else PAR_RANKS
+        first = {(x["group"], x["rank"]): x for x in results
+                 if x["incarnation"] == 0}
+        healed = {x["rank"]: x for x in results if x["incarnation"] == 1}
+        want = PAR_GROUPS * world - (world if sub == "tp flash" else 0)
+        if len(first) != want:
+            fail(f"parallel {sub}: {len(first)} results, want {want}")
+        ref = first[(0, 0)]["loss_unsharded"]
+        rows = {}
+        for g in range(PAR_GROUPS):
+            for r in range(world):
+                if (g, r) in first:
+                    rows[(g, r)] = first[(g, r)]["rows"]
+                else:  # tp flash's killed incarnation: its progress rows
+                    pid = healed[r]["pid"]
+                    rows[(g, r)] = [row for row in res["progress"][f"{g}_{r}"]
+                                    if row["pid"] != pid]
+        for r in range(world):
+            for g in range(PAR_GROUPS):
+                got = [row["committed"] for row in rows[(g, r)][:steps]]
+                if got != [True] * steps:
+                    fail(f"parallel {sub}: group {g} rank {r} commits {got}")
+            for a, b in zip(rows[(0, r)][:steps], rows[(1, r)][:steps]):
+                if a["checksum"] != b["checksum"]:
+                    fail(f"parallel {sub}: rank {r}'s params part at step "
+                         f"{a['step']}")
+            loss0 = rows[(0, r)][0]["loss"]
+            if loss0 is None or abs(loss0 - ref) > PAR_LOSS_RTOL * abs(ref):
+                fail(f"parallel {sub}: rank {r}'s step-0 loss {loss0} vs the "
+                     f"unsharded {ref}")
+            last = healed[r] if sub == "tp flash" else first[(1, r)]
+            if first[(0, r)]["digest"] != last["digest"]:
+                fail(f"parallel {sub}: the groups' rank {r} ended apart")
+        launches: dict = {}
+        for x in results:
+            for k, v in x["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if on_card:
+            for name in PAR_KERNELS[sub]:
+                if launches.get(name, 0) == 0:
+                    fail(f"parallel {sub}: {name} never launched")
+        timed = [row for v in rows.values() for row in v[PAR_WARM:steps]]
+        mesh_s: dict = {}
+        for row in timed:
+            for op, (calls, secs, nbytes) in row["mesh"].items():
+                m = mesh_s.setdefault(op, [0, 0.0, 0])
+                m[0] += calls
+                m[1] += secs
+                m[2] += nbytes
+        n_timed = max(1, len(timed))
+        keys = sorted(rows)
+        summary[sub] = {
+            "loss_unsharded": ref,
+            "loss_step0": {f"{g}/{r}": rows[(g, r)][0]["loss"] for g, r in keys},
+            "step_ms_p50": _p50([row["t"] - row["t0"] for row in timed]),
+            "step_ms_all": [round(1e3 * (row["t"] - row["t0"]), 1)
+                            for row in timed],
+            "mesh_per_step": {op: {"calls": round(v[0] / n_timed, 1),
+                                   "ms": round(1e3 * v[1] / n_timed, 1),
+                                   "MB": round(v[2] / n_timed / 1e6, 1)}
+                              for op, v in sorted(mesh_s.items())},
+            "ring_by_rank": {f"{g}/{r}": {k: _median([
+                row["ops"].get("plan_allreduce", {}).get(f"{k}_ms")
+                for row in rows[(g, r)][PAR_WARM:steps]])
+                for k in ("pack", "d2h", "ring")} for g, r in keys},
+            "shard_params": {f"{g}/{r}": first[(g, r)]["shard_params"]
+                             for g, r in sorted(first)},
+            "max_memory_gb": {f"{g}/{r}": round(
+                first[(g, r)].get("max_memory_allocated", 0) / 2**30, 2)
+                for g, r in sorted(first)},
+            "launches": launches,
+        }
+        if sub == "tp flash":
+            if len(healed) != PAR_RANKS:
+                fail(f"parallel tp flash: {len(healed)} restarted ranks")
+            firsts = []
+            for r, x in sorted(healed.items()):
+                if x["fetch"] is None or x["fetch"].get("path") != "stream":
+                    fail(f"parallel tp flash: rank {r} healed by {x['fetch']}")
+                if max(row["heals"] for row in x["rows"]) != 1:
+                    fail(f"parallel tp flash: rank {r} heals "
+                         f"{[row['heals'] for row in x['rows']]}")
+                c = [row["t"] for row in x["rows"] if row["committed"]]
+                if not c:
+                    fail(f"parallel tp flash: rank {r} never committed after "
+                         f"the restart")
+                firsts.append(min(c))
+            summary[sub]["kill_to_first_commit_s"] = round(
+                max(firsts) - res["kill_t"], 3)
+            summary[sub]["heal_fetch"] = {r: {k: x["fetch"].get(k) for k in (
+                "path", "fetch_s", "h2d_s", "bytes")}
+                for r, x in sorted(healed.items())}
+            summary[sub]["after_heal_commits"] = {
+                r: [row["committed"] for row in x["rows"]]
+                for r, x in sorted(healed.items())}
+    return summary
+
+
+def parallel_phases(by_phase: dict) -> None:
+    """The model-parallel launch: runs, is checked and logged, and puts
+    each sub-phase's launch counts into ``by_phase``."""
+    _phase("parallel")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as workdir:
+        res = phase_parallel(workdir)
+        summary = check_parallel(res)
+    log(f"  parallel launch {res['total_s']:.1f} s (two groups of two rank "
+        f"processes, one card, gloo meshes; {PAR_WARM} warm-up + {PAR_STEPS} "
+        f"timed blocking steps a sub-phase; card {_smi()})")
+    for sub, row in summary.items():
+        by_phase[f"parallel {sub}"] = row.pop("launches")
+        log(f"  parallel {sub} {PAR_AXES[sub]}: {json.dumps(row)}")
+    log(f"  gloo handed a card tensor directly (torch {torch.__version__}): "
+        f"{json.dumps(res.get('gloo_verdicts'))}")
 
 
 def legacy_turns(tree_a: str, tree_b: str) -> int:
@@ -5798,6 +6452,10 @@ def main() -> int:
     parser.add_argument("--iso-phases", action="store_true",
                         help="build, then run only the NCCL probe, xla "
                         "dense, iso flash and adaptive dense phases")
+    parser.add_argument("--parallel-phases", action="store_true",
+                        help="build, then run only the model-parallel "
+                        "launch (cnn, cp ulysses, cp ring, pp flash, ep moe, "
+                        "tp flash with a kill and heal)")
     parser.add_argument("--legacy-turns", nargs=2, metavar=("TREE_A", "TREE_B"),
                         help="measure only: the legacy and sharded flash "
                         "phases of two checkouts in turns (a, b, b, a)")
@@ -5850,21 +6508,30 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(_smi(), flush=True)
         return 0
+    if args.parallel_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        parallel_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
+        print(_smi(), flush=True)
+        return 0
     if args.window_phases:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         window_phases({})
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(_smi(), flush=True)
         return 0
-    log("phase build")
+    _phase("build")
     log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
-    log("phase kernels")
+    _phase("kernels")
     rows = phase_kernels()
-    log("phase flash kernels")
+    _phase("flash kernels")
     rows.update(phase_flash_kernels())
     torch.cuda.empty_cache()  # the card's memory goes to the workers next
     by_phase: dict = {}  # each main-path phase's launch counts
-    log("phase train + heal")
+    _phase("train + heal")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         res = phase_train_and_heal(workdir)
         summary = check_training(res)
@@ -5882,7 +6549,7 @@ def main() -> int:
     log(f"  trace of group 0's {TRACED_STEPS} traced steps (card clock): "
         f"{json.dumps(summary['trace'])}")
     _log_ring_split("dense", summary)
-    log("phase flash train")
+    _phase("flash train")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as workdir:
         fres = phase_flash_train(workdir)
         fsum = check_flash_training(fres)
@@ -5901,7 +6568,7 @@ def main() -> int:
     log(f"  trace of group 0's {TRACED_FLASH_STEPS} traced flash steps (card "
         f"clock): {json.dumps(fsum['trace'])}")
     _log_ring_split("flash", fsum)
-    log("phase hier flash train")
+    _phase("hier flash train")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_hier_") as workdir:
         hres = phase_flash_train(workdir, hier=True)
         hsum = check_flash_training(hres, hier=True)
@@ -5920,7 +6587,7 @@ def main() -> int:
         f"{json.dumps(hsum['signals']['tier_eff_MBps'])}")
     log(f"  trace of group 0's {TRACED_FLASH_STEPS} traced hier flash steps "
         f"(card clock): {json.dumps(hsum['trace'])}")
-    log("phase hier dense")
+    _phase("hier dense")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_hdense_") as workdir:
         dres = phase_hier_dense(workdir)
         dsum = check_hier_dense(dres)
@@ -5929,7 +6596,7 @@ def main() -> int:
         f"whole timed window {dsum['window_ms_per_step']} ms/step per group; "
         f"tier_eff_MBps {json.dumps(dsum['signals']['tier_eff_MBps'])}; per "
         f"group (median over the timed steps): {json.dumps(dsum['split'])}")
-    log("phase legacy")
+    _phase("legacy")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_legacy_") as workdir:
         lres = phase_legacy(workdir)
         lsum = check_legacy(lres)
@@ -5944,7 +6611,7 @@ def main() -> int:
             f"op split (group 0, medians) {json.dumps(row['ops'])}"
             + (f"; ring split {json.dumps(row['ring_split'])}"
                if "ring_split" in row else ""))
-    log("phase sharded flash")
+    _phase("sharded flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as workdir:
         sres = phase_sharded_flash(workdir)
         ssum = check_sharded_flash(sres)
@@ -5959,7 +6626,7 @@ def main() -> int:
         f"launches {json.dumps(ssum['launches'])}")
     log(f"  sharded flash op split (group 0, medians over the timed steps): "
         f"{json.dumps(ssum['ops'])}; timers ms {json.dumps(ssum['timers_ms'])}")
-    log("phase sharded reshard")
+    _phase("sharded reshard")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_reshard_") as workdir:
         rsres = phase_reshard(workdir)
         rssum = check_reshard(rsres)
@@ -5968,7 +6635,7 @@ def main() -> int:
         f"opt_state_bytes after the reshard {rssum['opt_state_bytes']}; "
         f"three groups bit-identical, shards tile the model; op split "
         f"{json.dumps(rssum['ops'])}")
-    log("phase heal transport")
+    _phase("heal transport")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_heal_") as workdir:
         hres = phase_heal_transport(workdir)
         check_heal_transport(hres)
@@ -5979,7 +6646,7 @@ def main() -> int:
         f"staging build (pinned buffer, d2h, K3) s by wire "
         f"{json.dumps(hres['staging_build_s'])}; CRC32C of the raw staging "
         f"{hres['crc_s']:.4f} s")
-    log("phase remat")
+    _phase("remat")
     rres = phase_remat()
     rsum = check_remat(rres)
     by_phase["remat"] = rsum["launches"]
@@ -5993,6 +6660,8 @@ def main() -> int:
     control_phases(by_phase)
     torch.cuda.empty_cache()
     iso_phases(by_phase, flash_step_ms=fsum["step_ms_p50"])
+    torch.cuda.empty_cache()
+    parallel_phases(by_phase)
     # each kernel's launches over the main paths' runs (the counts each
     # worker, or phase, reset just before a path and read just after)
     for name in rows:
@@ -6036,12 +6705,14 @@ def main() -> int:
             ("iso flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
                            "flash_fwd", "flash_bwd")),
             ("adaptive dense", ("q8_absmax", "q8_quantize",
-                                "q8_dequantize"))):
+                                "q8_dequantize")),
+            *((f"parallel {sub}", names) for sub, names in PAR_KERNELS.items())):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:
                 fail(f"{name} never launched on the {phase} path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
     print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

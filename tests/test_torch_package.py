@@ -56,6 +56,12 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
         "torchft_tpu_torch.isolated_xla\n"
         "from torchft_tpu_torch import (ChildDiedError, ChildStalledError, "
         "IsolatedXLACollectives, XLACollectives)\n"
+        "import torchft_tpu_torch.parallel, torchft_tpu_torch.pipeline, "
+        "torchft_tpu_torch.context_parallel, torchft_tpu_torch.models.moe, "
+        "torchft_tpu_torch.models.cnn\n"
+        "from torchft_tpu_torch import Mesh, make_mesh, pipeline_blocks\n"
+        "from torchft_tpu_torch.models import (CNNConfig, MoEConfig, cnn, moe, "
+        "param_sharding_rules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'optax', 'ml_dtypes', 'torchft_tpu'))\n"
         "assert not bad, bad\n"

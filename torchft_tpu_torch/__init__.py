@@ -15,8 +15,11 @@ region tier), the launcher with hot spares (``launcher``,
 ``platform.standby_gate``), the seeded chaos plane (``chaos``) and the
 runtime strategy policy (``PolicyEngine``); the second data plane, a
 torch process group rebuilt per quorum (``XLACollectives``), and its
-disposable-child form (``IsolatedXLACollectives``). Imports neither JAX
-nor ``torchft_tpu``.
+disposable-child form (``IsolatedXLACollectives``); intra-group
+parallelism over a mesh of processes (``parallel``: tensor, data,
+``context_parallel``, ``pipeline``, and the MoE and CNN families in
+``models``), each rank of a group with its own ``Manager``. Imports
+neither JAX nor ``torchft_tpu``.
 
 Entry points run on the card unless given ``device="cpu"``.
 """
@@ -48,6 +51,8 @@ from .chaos import ChaosInjector, FaultEvent, FaultPlan
 from .manager import Manager, WorldSizeMode
 from .metrics import Metrics
 from .optim import OptimizerWrapper, ShardedOptimizerWrapper
+from .parallel import Mesh, make_mesh
+from .pipeline import pipeline_blocks, stack_blocks
 from .policy import CostKnobs, PolicyEngine, StrategySpec
 from .parameter_server import ParameterServer
 from .profiling import Profiler, span
@@ -99,6 +104,7 @@ __all__ = [
     "Manager",
     "ManagerClient",
     "ManifestLog",
+    "Mesh",
     "Metrics",
     "OptimizerWrapper",
     "ParameterServer",
@@ -124,5 +130,8 @@ __all__ = [
     "Work",
     "WorldSizeMode",
     "XLACollectives",
+    "make_mesh",
+    "pipeline_blocks",
     "span",
+    "stack_blocks",
 ]

@@ -51,14 +51,18 @@ and ``flash_lse`` saved, the backward's replay skips K4.
 
 ``interpret=True`` runs the plain versions on any device because the
 caller asks for it (the JAX argument's meaning: no compiled kernel);
-``None`` keeps the dispatch by device. Not ported: the JAX signature's
-``mesh``/``batch_axis``/``head_axis`` (shard_map; ROADMAP.md).
+``None`` keeps the dispatch by device. ``mesh``/``batch_axis``/
+``head_axis``: in the JAX package the kernel then runs per shard under
+``shard_map``; in the port each rank's q/k/v already are its shard (its
+rows and heads, :mod:`torchft_tpu_torch.parallel`), so the call runs the
+kernels on them as they are, once the named axes are checked against the
+mesh.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -363,6 +367,9 @@ def flash_attention(
     block_k: Optional[int] = None,
     window: Optional[int] = None,
     interpret: Optional[bool] = None,
+    mesh: Optional[Any] = None,
+    batch_axis: Optional[str] = None,
+    head_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Fused multi-head attention on (B, S, H, head_dim) q, k, v; returns
     (B, S, H, head_dim) in q's dtype.
@@ -374,7 +381,14 @@ def flash_attention(
     rounded to q's dtype (exact for power-of-two scales). ``block_q``,
     ``block_k``: tile sizes (module docstring). On the card: bf16 or f32
     inputs, head_dim 64 or 128; anything else raises. ``interpret=True``:
-    the plain versions on any device (module docstring)."""
+    the plain versions on any device (module docstring). ``mesh``,
+    ``batch_axis``, ``head_axis``: the axes this rank's rows and heads
+    are split over (module docstring); checked, not re-sharded."""
+    if mesh is not None:
+        for axis in (batch_axis, head_axis):
+            if axis is not None and axis not in mesh.shape:
+                raise ValueError(
+                    f"axis {axis!r} is not in the mesh {mesh.shape}")
     B, S, H, D = q.shape
     if sm_scale is None:
         sm_scale = D ** -0.5
