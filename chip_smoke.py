@@ -39,15 +39,17 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            each group, and K3 in turns against ``x.to(torch.bfloat16)``
            and against the f32 concatenation then a flat cast;
 3. flash   the flash-attention kernels (K4 forward, K5 backward: bf16 on
-           the tensor-core kernels, f32 on the scalar ones) against their
+           the tensor-core kernels, the forward on wgmma with TMA loads and
+           the backward on mma.sync, f32 on the scalar ones) against their
            plain versions on the card within printed tolerances: the big
            LM's call (16, 2047, 16, 64) bf16 causal, S 2048, non-causal,
            windows 1/16/200/1000, block_k 32 (the general path), head_dim
-           128 and f32 inputs; K5 run twice must give the same bits; times
-           both (and K5's two kernels) at the big LM's call beside their
-           bounds and achieved TFLOP/s, their plain versions and
-           scaled_dot_product_attention's (timed only, never used by the
-           port);
+           128 and f32 inputs; K4 and K5 run twice must give the same
+           bits; the forward kernel's SASS (cuobjdump) must hold HGMMA and
+           UTMALDG instructions; times both (and K5's two kernels) at the
+           big LM's call beside their bounds and achieved TFLOP/s, their
+           plain versions and scaled_dot_product_attention's (timed only,
+           never used by the port);
 4. train   an in-process lighthouse and two replica-group worker processes
            sharing the GPU, each running Manager + HostCollectives +
            FTTrainState/AdamW + PipelinedDDP(compress="q8",
@@ -296,7 +298,8 @@ phases 21-23 (the launched workers are this script re-run with
 ``--control-worker``), ``--iso-phases`` only phases 24-27,
 ``--parallel-phases`` only phase 28; ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
-a), each from its own chip_smoke.py and build.
+a), each from its own chip_smoke.py and build; ``--kernel-turns A B``
+likewise the flash kernel phase (phase 3), K4's time compared at the end.
 """
 
 from __future__ import annotations
@@ -389,10 +392,14 @@ KERNEL_SOURCES = {
 PACK_KERNELS = ("q8_absmax_seg_kernel", "q8_quantize_seg_kernel",
                 "cast_bf16_seg_kernel")
 # the flash kernels' names in a trace (both families), and the tensor-core
-# kernels the bf16 path runs
+# kernels the bf16 path runs (the forward on wgmma, the backward on mma.sync)
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
-MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel",
+MMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkdv_mma_kernel",
                "flash_bwd_dq_mma_kernel")
+# the bf16 forward's route, and the SASS instructions that show it: the
+# warpgroup products and the TMA tile loads
+K4_ROUTE = "wgmma"
+K4_SASS = ("HGMMA", "UTMALDG")
 TRACE_FILE = "trace_g0.json"
 REPLACES = {
     "q8_absmax": "torchft_tpu/ops/quantize_kernels.py:109",
@@ -1376,8 +1383,9 @@ def _ptxas_report(path: str) -> list:
                     d, bn = map(int, shape.groups())
                     row["name"] = f"{name}<D{d}, BN{bn}>"
                     kind = kinds[name.split("_")[2 if "bwd" in name else 1]]
+                    bf16 = "_mma_" in name or "_wgmma_" in name
                     row["smem"] = _kernels.lib().tft_flash_smem_bytes(
-                        kind, 1 if "_mma_" in name else 0, d, bn)
+                        kind, 1 if bf16 else 0, d, bn)
                 rows.append(row)
             elif rows:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1389,6 +1397,31 @@ def _ptxas_report(path: str) -> list:
                 if m:
                     rows[-1]["registers"] = int(m.group(1))
     return rows
+
+
+def _sass_counts() -> dict:
+    """Each bf16 forward instantiation's count of the ``K4_SASS``
+    instructions in the built library's SASS (the toolkit's ``cuobjdump
+    -sass``), keyed by its template arguments."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from torchft_tpu_torch import _build
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.KERNEL_LIB], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            shape = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
+            key = (f"<D{shape.group(1)}, BN{shape.group(2)}>"
+                   if "flash_fwd_wgmma_kernel" in m.group(1) and shape else None)
+            if key:
+                counts[key] = dict.fromkeys(K4_SASS, 0)
+        elif key:
+            for op in K4_SASS:
+                counts[key][op] += op in line
+    return counts
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2020,10 +2053,18 @@ def phase_flash_kernels() -> dict:
     _flash_case(tfa, "f32", (2, S, H, D), torch.float32)
     q, k, v, do, out, lse, delta, cfg = (path[n] for n in (
         "q", "k", "v", "do", "out", "lse", "delta", "cfg"))
+    if not all(_bits_equal(a, b) for a, b in zip(
+            (out, lse), tfa.flash_fwd(q, k, v, cfg))):
+        fail("K4 flash_fwd is not bit-identical run to run")
     again = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
     if not all(_bits_equal(a, b) for a, b in zip(path["grads"], again)):
         fail("K5 flash_bwd is not bit-identical run to run")
-    log("  K5 run twice on the path's inputs: bit-identical")
+    log("  K4 and K5 run twice on the path's inputs: bit-identical")
+    sass = _sass_counts()
+    log(f"  K4 route {K4_ROUTE}: {'/'.join(K4_SASS)} instructions in each "
+        f"bf16 forward kernel's SASS {json.dumps(sass)}")
+    if len(sass) != 4 or not all(all(c.values()) for c in sass.values()):
+        fail(f"the bf16 forward kernels' SASS lacks {K4_SASS}: {sass}")
 
     # device times at the path's shape (graph replay; the plain versions,
     # one to a few seconds a call, eagerly)
@@ -2075,7 +2116,8 @@ def phase_flash_kernels() -> dict:
     pair_flops = 2 * B * H * _flash_pairs(S, True, None) * D
     tflops = lambda products, ms: products * pair_flops / ms / 1e9
     log(f"  achieved at {FLASH_SHAPE} (bf16 bound {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f}"
-        f" TFLOP/s): K4 {tflops(2, rows['flash_fwd']['ms']):.1f} TFLOP/s; K5 "
+        f" TFLOP/s): K4 ({K4_ROUTE}) {tflops(2, rows['flash_fwd']['ms']):.1f}"
+        f" TFLOP/s; K5 "
         f"{tflops(5, rows['flash_bwd']['ms']):.1f} TFLOP/s of its minimal "
         f"work, the dk/dv kernel {tflops(4, split['dkdv']):.1f} and the dq "
         f"kernel {tflops(3, split['dq']):.1f} of the products each executes "
@@ -6396,11 +6438,28 @@ def parallel_phases(by_phase: dict) -> None:
         f"{json.dumps(res.get('gloo_verdicts'))}")
 
 
+def _turns(tree_a: str, tree_b: str, code: str):
+    """Runs ``code`` in checkouts a and b in turns (a, b, b, a), each turn
+    a process of that checkout's own chip_smoke (its own build); yields
+    (label, tree, seconds, the dict its ``TURN`` line printed, stdout)."""
+    for label, tree in (("a", tree_a), ("b", tree_b), ("b", tree_b),
+                        ("a", tree_a)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                              capture_output=True, text=True, timeout=1200)
+        line = next((l for l in proc.stdout.splitlines()
+                     if l.startswith("TURN ")), None)
+        if proc.returncode != 0 or line is None:
+            log(proc.stdout[-3000:] + proc.stderr[-3000:])
+            fail(f"turn in {tree} exited {proc.returncode}")
+        yield (label, tree, round(time.perf_counter() - t0, 1),
+               json.loads(line[5:]), proc.stdout)
+
+
 def legacy_turns(tree_a: str, tree_b: str) -> int:
-    """The legacy and sharded flash phases of two checkouts in turns (a,
-    b, b, a), each turn a process of that checkout's own chip_smoke (its
-    own build), one JSON line per turn: each legacy mode's step p50 and
-    the sharded flash step p50 and all steps."""
+    """The legacy and sharded flash phases of two checkouts in turns, one
+    JSON line per turn: each legacy mode's step p50 and the sharded flash
+    step p50 and all steps."""
     code = (
         "import json, tempfile, chip_smoke as cs\n"
         "cs.phase_build()\n"
@@ -6413,19 +6472,37 @@ def legacy_turns(tree_a: str, tree_b: str) -> int:
         "l['modes'].items()}, 'sharded': {k: s[k] for k in "
         "('step_ms_p50', 'step_ms_all')}}), flush=True)\n"
     )
-    for label, tree in (("a", tree_a), ("b", tree_b), ("b", tree_b),
-                        ("a", tree_a)):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
-                              capture_output=True, text=True, timeout=1200)
-        line = next((l for l in proc.stdout.splitlines()
-                     if l.startswith("TURN ")), None)
-        if proc.returncode != 0 or line is None:
-            log(proc.stdout[-3000:] + proc.stderr[-3000:])
-            fail(f"turn in {tree} exited {proc.returncode}")
-        print(json.dumps({"turn": label, "tree": tree,
-                          "s": round(time.perf_counter() - t0, 1),
-                          **json.loads(line[5:])}), flush=True)
+    for label, tree, secs, turn, _ in _turns(tree_a, tree_b, code):
+        print(json.dumps({"turn": label, "tree": tree, "s": secs, **turn}),
+              flush=True)
+    print(_smi(), flush=True)
+    return 0
+
+
+def kernel_turns(tree_a: str, tree_b: str) -> int:
+    """The flash kernel phase of two checkouts in turns, one JSON line per
+    turn (each flash kernel's ms, library ms, bound ms and error) after
+    the turn's phase log, then K4's times by checkout, b's mean over a's
+    and whether b was faster in every turn."""
+    code = (
+        "import json, chip_smoke as cs\n"
+        "cs.phase_build()\n"
+        "rows = cs.phase_flash_kernels()\n"
+        "print('TURN ' + json.dumps({n: {k: r[k] for k in ('ms', "
+        "'library_ms', 'bound_ms', 'max_abs_err')} for n, r in "
+        "rows.items()}), flush=True)\n"
+    )
+    k4 = {"a": [], "b": []}
+    for label, tree, secs, turn, out in _turns(tree_a, tree_b, code):
+        for l in out.splitlines():  # the phase's log, less ptxas
+            if l.startswith("  ") and not l.startswith("  ptxas"):
+                log(f"  [{label}]{l}")
+        k4[label].append(turn["flash_fwd"]["ms"])
+        print(json.dumps({"turn": label, "tree": tree, "s": secs, **turn}),
+              flush=True)
+    print(json.dumps({"k4_ms": k4, "b_over_a": (sum(k4["b"]) / sum(k4["a"])),
+                      "b_faster_every_turn": max(k4["b"]) < min(k4["a"])}),
+          flush=True)
     print(_smi(), flush=True)
     return 0
 
@@ -6459,6 +6536,9 @@ def main() -> int:
     parser.add_argument("--legacy-turns", nargs=2, metavar=("TREE_A", "TREE_B"),
                         help="measure only: the legacy and sharded flash "
                         "phases of two checkouts in turns (a, b, b, a)")
+    parser.add_argument("--kernel-turns", nargs=2, metavar=("TREE_A", "TREE_B"),
+                        help="measure only: the flash kernel phase of two "
+                        "checkouts in turns (a, b, b, a)")
     args = parser.parse_args()
     if args.worker:
         worker(json.loads(args.worker))
@@ -6484,6 +6564,8 @@ def main() -> int:
         return shm_probe()
     if args.legacy_turns:
         return legacy_turns(*args.legacy_turns)
+    if args.kernel_turns:
+        return kernel_turns(*args.kernel_turns)
     if args.serving_phases:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         by_phase: dict = {}

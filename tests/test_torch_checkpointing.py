@@ -102,6 +102,46 @@ def _numpy_tree():
     }
 
 
+class _Recorder:
+    """A write-only file object that keeps each piece it is handed."""
+
+    def __init__(self) -> None:
+        self.pieces = []
+
+    def write(self, data) -> int:
+        self.pieces.append(bytes(data))
+        return len(self.pieces[-1])
+
+
+def test_dump_state_dict_stream_reads_back_through_the_loader():
+    """The streamed writer: ``dump_state_dict_stream`` hands the pickle to
+    its file object in pieces (never the whole payload at once), the
+    bytes equal ``serialize_state_dict``'s, and ``load_state_dict_stream``
+    (the port's, and the JAX package's, which reads the same wire) gives
+    back the input with every tensor leaf as numpy."""
+    rng = np.random.default_rng(5)
+    state = {
+        "params": {"w": torch.from_numpy(
+            rng.standard_normal((512, 512)).astype(np.float32)),
+            "b": torch.arange(7)},
+        "opt": [torch.zeros(4, dtype=torch.float64), {"lr": 1e-3}],
+        "step": 3,
+    }
+    out = _Recorder()
+    ck.dump_state_dict_stream(state, out)
+    raw = b"".join(out.pieces)
+    assert raw == ck.serialize_state_dict(state)
+    assert len(out.pieces) > 1 and max(map(len, out.pieces)) < len(raw)
+    for load in (ck.load_state_dict_stream, jck.load_state_dict_stream):
+        got = load(io.BytesIO(raw))
+        assert got["step"] == 3 and got["opt"][1] == {"lr": 1e-3}
+        for name in ("w", "b"):
+            want = state["params"][name].numpy()
+            assert got["params"][name].dtype == want.dtype
+            np.testing.assert_array_equal(got["params"][name], want)
+        np.testing.assert_array_equal(got["opt"][0], np.zeros(4))
+
+
 def _ranges(address, step, wire_tok, streams, unpickle):
     with urllib.request.urlopen(
         f"{address}{step}/streammeta/{wire_tok}", timeout=10

@@ -664,6 +664,79 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mn_major", [0, 1], ids=["q_kT", "p_v"])
+def test_wgmma_tile_product_matches_matmul(cuda_device, mn_major):
+    """One wgmma tile product through the forward's tensor maps,
+    swizzled tiles and descriptors: both operands K-major from shared
+    memory (as s = q . k^T), and A from registers with B MN-major (as
+    o = p . v). A wrong descriptor or swizzle moves whole rows or
+    16-byte chunks, far past the f32 summation-order tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(15)
+    a, b = (torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(2))
+    c = torch.empty(64, 64, device=cuda_device)
+    lib = tfa._kernels.lib()
+    rc = lib.tft_wgmma_tile_test(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                 mn_major, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, lib.tft_cuda_error_string(rc)
+    want = a.float() @ (b.float() if mn_major else b.float().T)
+    torch.testing.assert_close(c, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2047, 1100, 257])
+@pytest.mark.parametrize("D,block_k", [(64, 64), (64, 32), (128, 64),
+                                       (128, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_ragged_tails(cuda_device, S, D, block_k, causal):
+    """K4 (TMA boxes of 64 query and block_k key rows) where the last box
+    runs past S and reads zeros, for every (D, block_k) it takes."""
+    shape = (1, S, 2, D)
+    q, k, v, _ = _flash_inputs(cuda_device, shape, torch.bfloat16, seed=S)
+    cfg = tfa.FlashConfig(causal, None, *tfa.resolve_blocks(
+        S, cuda_device, None, block_k))
+    out, lse = tfa.flash_fwd(q, k, v, cfg)
+    want_out, want_lse = tfa.flash_fwd_plain(q, k, v, cfg)
+    err = float((out.float() - want_out.float()).abs().max())
+    assert err <= _flash_tol(want_out), (err, _flash_tol(want_out))
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_forward_is_deterministic_at_the_path_shape(cuda_device):
+    """K4 at the flash LM's call (B16 H16 S2047 D64, bf16, causal) gives
+    the same bits run to run, and one launch a call."""
+    q, k, v, _ = _flash_inputs(cuda_device, (16, 2047, 16, 64),
+                               torch.bfloat16, seed=4)
+    cfg = tfa.FlashConfig(True, None, *tfa.resolve_blocks(
+        2047, cuda_device, None, None))
+    before = tq.launch_counts["flash_fwd"]
+    first = tfa.flash_fwd(q, k, v, cfg)
+    second = tfa.flash_fwd(q, k, v, cfg)
+    assert tq.launch_counts["flash_fwd"] == before + 2
+    for name, x, y in zip(("out", "lse"), first, second):
+        assert _bytes(x) == _bytes(y), name
+    assert torch.isfinite(first[0].float()).all()
+
+
+@pytest.mark.cuda
+def test_flash_forward_reads_permuted_views(cuda_device):
+    """q, k, v as (B, S, H, D) views of (B, H, S, D) tensors (the head
+    stride above the row stride): the tensor maps order the dimensions by
+    stride, so the result equals that of contiguous copies."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, 300, 64))
+                                .astype(np.float32))
+               .to(cuda_device, torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    assert q.stride(2) > q.stride(1)
+    got = tfa.flash_attention(q, k, v)
+    want = tfa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert _bytes(got) == _bytes(want)
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_mismatched_inputs(cuda_device):
     x = torch.ones(8, device=cuda_device)
     with pytest.raises(ValueError):

@@ -112,3 +112,23 @@ def test_span_names_and_summary_match_reference(tmp_path, monkeypatch):
     for name, t in summaries["port"]["timers_s"].items():
         assert set(t) == set(summaries["jax"]["timers_s"][name])
         assert t["n"] == summaries["jax"]["timers_s"][name]["n"]
+
+
+def test_step_span_lands_in_the_windowed_trace(tmp_path):
+    """``step_span`` inside the port's windowed capture: the trace the
+    Profiler writes holds one ``torchft_step`` span per annotated step,
+    the JAX package's step annotation name; outside a capture both
+    packages' ``step_span`` are plain context managers."""
+    with jprof.step_span(3), tprof.step_span(3):
+        torch.ones(4).sum()
+    logdir = str(tmp_path / "steps")
+    prof = tprof.Profiler(logdir, start_step=1, num_steps=2)
+    for step in range(4):
+        prof.on_step(step)
+        with tprof.step_span(step):
+            torch.ones(64).sum()
+    prof.shutdown()
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("name") == "torchft_step"]
+    assert len(steps) == 2  # steps 1 and 2: the window

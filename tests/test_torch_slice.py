@@ -284,3 +284,49 @@ def test_optimizer_wrapper_loop_commits_bit_identical():
     assert c0 == c1 == [True, True, True]
     for a, b in zip(p0, p1):
         assert a.tobytes() == b.tobytes()
+
+
+def test_wrap_grad_fn_matches_the_jax_package():
+    """``DistributedDataParallel.wrap_grad_fn`` of both packages on the
+    same numpy inputs, each over a mocked Manager whose allreduce averages
+    the grads with a fixed peer's (tests/test_api.py's pattern): the same
+    value and the same averaged grads, one allreduce a call."""
+    from unittest.mock import create_autospec
+
+    from torchft_tpu.collectives import _completed as jax_completed
+    from torchft_tpu_torch.collectives import _completed as port_completed
+
+    rng = np.random.default_rng(15)
+    w, x, y, peer = (rng.standard_normal(s).astype(np.float32)
+                     for s in ((4, 3), (5, 4), (5, 3), (4, 3)))
+
+    jax_manager = create_autospec(jft.Manager, instance=True)
+    jax_manager.allreduce.side_effect = lambda g: jax_completed(
+        {"w": (g["w"] + peer) / 2})
+    port_manager = create_autospec(tft.Manager, instance=True)
+    port_manager.allreduce.side_effect = lambda g: port_completed(
+        {"w": (g["w"] + torch.from_numpy(peer)) / 2})
+
+    def jax_loss(p, x, y):
+        return jnp.mean((x @ p["w"] - y) ** 2)
+
+    def port_grad_fn(p, x, y):
+        pw = p["w"].clone().requires_grad_(True)
+        loss = ((x @ pw - y) ** 2).mean()
+        (g,) = torch.autograd.grad(loss, [pw])
+        return loss.detach(), {"w": g}
+
+    jax_fn = jft.DistributedDataParallel(jax_manager).wrap_grad_fn(
+        jax.value_and_grad(jax_loss))
+    port_fn = tft.DistributedDataParallel(port_manager).wrap_grad_fn(
+        port_grad_fn)
+    jv, jg = jax_fn({"w": jnp.asarray(w)}, jnp.asarray(x), jnp.asarray(y))
+    pv, pg = port_fn({"w": torch.from_numpy(w)}, torch.from_numpy(x),
+                     torch.from_numpy(y))
+    np.testing.assert_allclose(float(pv), float(jv), rtol=1e-6)
+    np.testing.assert_allclose(pg["w"].numpy(), np.asarray(jg["w"]),
+                               rtol=1e-5, atol=1e-6)
+    want = (2 * x.T @ (x @ w - y) / y.size + peer) / 2
+    np.testing.assert_allclose(pg["w"].numpy(), want, rtol=1e-5, atol=1e-6)
+    jax_manager.allreduce.assert_called_once()
+    port_manager.allreduce.assert_called_once()

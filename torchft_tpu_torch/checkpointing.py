@@ -142,8 +142,16 @@ def _to_host(tree: Any) -> Any:
 def serialize_state_dict(state_dict: Any) -> bytes:
     """Pickles a tree with all tensor leaves on the host as numpy."""
     buf = io.BytesIO()
-    pickle.dump(_to_host(state_dict), buf, protocol=pickle.HIGHEST_PROTOCOL)
+    dump_state_dict_stream(state_dict, buf)
     return buf.getvalue()
+
+
+def dump_state_dict_stream(state_dict: Any, fileobj: Any) -> None:
+    """Streams the pickled tree (tensor leaves as host numpy) into
+    ``fileobj``, e.g. a socket's writer: pickle emits as it goes, so the
+    payload is never one bytes object. :func:`load_state_dict_stream`
+    reads it back."""
+    pickle.dump(_to_host(state_dict), fileobj, protocol=pickle.HIGHEST_PROTOCOL)
 
 
 class _ChunkedWriter:

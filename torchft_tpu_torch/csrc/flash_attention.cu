@@ -33,30 +33,51 @@
 // Two kernel families, chosen by dtype (a dispatch, not a fallback: a call
 // that the chosen kernel cannot take fails):
 //
-// bf16: tensor cores (mma.sync, the FlashAttention-2 design). The first
-// port ran every product as a register-tiled scalar f32 FMA loop with one
-// shared-memory load per FMA pair: shared-memory instructions bounded it
-// at about a third of the 67 TFLOP/s f32 rate (the forward 6.03 ms, 2.3%
-// of the bound above, on an NVIDIA H100 80GB HBM3 at 700.00 W). Here each
-// warp owns 16 rows and every product is mma.sync.m16n8k16.bf16 with f32
-// accumulators:
-// - tiles stay bf16 in shared memory, rows padded to D + 8 elements, so
-//   the 8 rows an ldmatrix reads start in 8 distinct bank groups;
-// - operands come in as ldmatrix fragments (.trans for the operand read
-//   down its rows: v in p.v, k in ds.k, q and do in the dk/dv products);
-// - the online softmax stays in registers, rows reduced over the quad of
-//   lanes that hold them;
-// - p (and ds) go from the f32 accumulator layout straight into bf16
-//   A-fragments in registers: no p tile in shared memory;
-// - the streamed tiles (k/v in the forward and dq, q/do/lse/delta in
-//   dk/dv) go through a two-stage cp.async ring of 16-byte copies, the next
-//   tile in flight while this one computes; rows past S are zero-filled by
-//   the copy's source size. cp.async needs every row 16-byte aligned: the
-//   entry points refuse a bf16 pointer or stride that is not.
-// At the path's call on that card (chip_smoke.py): the forward 0.88 ms
-// (156 TFLOP/s), dk/dv 1.67 ms and dq 1.28 ms. Each warp still reads
-// whole shared B tiles for its 16 rows (one ldmatrix.x4 per two mma);
-// wgmma, which reads B once per 64-row warpgroup, is the next step.
+// bf16: tensor cores. The first port ran every product as a register-tiled
+// scalar f32 FMA loop (the forward 6.03 ms, 2.3% of the bound above, on an
+// NVIDIA H100 80GB HBM3 at 700.00 W); then every product went to
+// mma.sync.m16n8k16 (the FlashAttention-2 design for Ampere: each warp
+// owns 16 rows and reads whole shared B tiles through ldmatrix, tiles come
+// in through a two-stage cp.async ring every thread issues; the forward
+// 0.88 ms, 156 TFLOP/s).
+//
+// The forward (K4) is now built for Hopper:
+// - a block is one warpgroup (4 warps) over 64 query rows of one (batch,
+//   head); each product is one wgmma.mma_async per k16 step for the whole
+//   warpgroup, so a shared B tile is read once per 64 rows, not once per
+//   16;
+// - q/k/v come in by TMA: thread 0 issues cp.async.bulk.tensor through
+//   three 4-D tensor maps (D, head, row, batch, the strided qkv split read
+//   in place) encoded on the host at each launch, into 1024-aligned tiles
+//   in the 128-byte swizzle wgmma reads (a 64-wide bf16 row is 128 B;
+//   D128 is two boxes across D); rows past S arrive as zeros. q once, k
+//   and v through a two-stage ring, each stage's arrival counted in bytes
+//   by an mbarrier; a __syncthreads after a tile's products frees its
+//   stage for the tile two ahead;
+// - s = q . k^T reads both operands K-major from shared memory
+//   (m64n{BN}k16); o += p . v takes p from registers and v MN-major (the
+//   transposed-B immediate), n64 per 64 columns of D;
+// - wgmma's accumulator gives warp w rows 16w + g and 16w + g + 8 in
+//   mma.sync's per-8-column C layout, so the online softmax (rows reduced
+//   over the quad of lanes that hold them) and the f32 -> bf16 A-fragment
+//   pack of p are those of the mma.sync kernels.
+// What bounds it is the softmax's instruction issue, not the tensor
+// cores: the accurate expf is a range reduction, an ex2 and a rescale
+// for every (query, key) pair, and with the max, the sum, o's rescale and
+// the pack the loop's SASS is mostly softmax, against 256 flops of
+// product a pair at D64.
+// Five blocks per SM overlap one block's waits and products with the
+// others' softmax. Two warpgroups sharing each k/v tile (with or without a
+// producer warp and empty barriers) and overlapping a tile's softmax with
+// the next products inside a warpgroup were both slower on the card.
+// The backward (K5) stays on mma.sync: each warp owns 16 rows, operands
+// come in as ldmatrix fragments from tiles padded to D + 8 elements (8
+// rows of an ldmatrix in 8 distinct bank groups), p and ds go from the f32
+// accumulators straight into bf16 A-fragments, and the streamed tiles
+// (k/v in dq, q/do/lse/delta in dk/dv) go through a two-stage cp.async
+// ring of 16-byte copies, rows past S zero-filled by the copy's source
+// size. cp.async and TMA both need 16-byte aligned rows: the entry points
+// refuse a bf16 pointer or stride that is not.
 //
 // f32: scalar kernels. f32 products on tensor cores would be TF32, which
 // keeps 10 mantissa bits and breaks the 2e-5 tolerance that the JAX
@@ -89,8 +110,10 @@
 // C interface (route (b): nvcc -> .so, bound with ctypes). Each entry
 // point launches on the caller's stream, never synchronises, and returns
 // cudaGetLastError() (0 = success); tft_cuda_error_string is in
-// quantize_kernels.cu.
+// quantize_kernels.cu. tft_wgmma_tile_test runs one tile product of each
+// kind the forward uses, for the card tests.
 
+#include <cuda.h>  // CUtensorMap and its enums (the types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,11 +126,11 @@ using bf16 = __nv_bfloat16;
 constexpr int kBM = 64;         // query rows per tile; also the dkdv query tile
 constexpr int kRows = 16;       // rows of one mma tile: each warp owns 16 rows
 constexpr int kMmaThreads = 128;  // forward and dq: 4 warps x 16 query rows
-// Blocks per SM the D64 tensor-core kernels are compiled for (registers
+// Blocks per SM the D64 mma.sync kernels are compiled for (registers
 // capped at 65536 / (blocks x threads)): registers, not shared memory,
-// set their occupancy, and the cap buys a block per SM (forward and dq
-// 3 -> 4, dk/dv 2 -> 3) for 4-32 bytes of spill per thread (ptxas -v).
-// D128 keeps its registers.
+// set their occupancy, and the cap buys a block per SM (dq 3 -> 4, dk/dv
+// 2 -> 3) for 4-32 bytes of spill per thread (ptxas -v). D128 keeps its
+// registers. The wgmma forward has its own (kWgBlocks).
 template <int D> constexpr int kMmaBlocks = D == 64 ? 4 : 1;
 template <int D> constexpr int kDkdvBlocks = D == 64 ? 3 : 1;
 constexpr int kThreads = 256;   // the scalar f32 kernels
@@ -375,60 +398,322 @@ __device__ __forceinline__ void store_rows(bf16* out, bf16* stage,
 }
 
 // ---------------------------------------------------------------------------
-// K4 forward, bf16: out, lse
+// PTX of the Hopper forward (sm_90a): mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
 
-template <int D, int BN>
-constexpr size_t fwd_mma_smem() {
-  return sizeof(bf16) * (kBM + 4 * BN) * (D + 8);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrives once and adds bytes to the phase's expected transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of the given parity to complete; every thread of the
+// warp calls it, and the warp leaves it converged (wgmma's .aligned
+// instructions follow). A wrong parity would spin for ever: past ~2^32
+// cycles (seconds) the kernel traps, so the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) break;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+  __syncwarp();
+}
+
+// One box of a 4-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor of a tile as TMA's 128-byte
+// swizzle lays it out: rows of 128 B (64 bf16), 8 rows to a 1024-byte
+// atom, atoms 1024 B apart. That is the stride byte offset of both
+// layouts used here: K-major (q, k: rows are M or N, 64 of K along a row)
+// and MN-major (v: rows are K, 64 of N along a row). The leading byte
+// offset is unused by both (K-major: a k16 step lies inside a row;
+// MN-major: each product is N = 64, one atom wide), so it is set to the
+// same 1024. A k16 step moves the start address: +32 B along a K-major
+// row, +16 rows (2048 B) down an MN-major tile.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of this warpgroup's committed product groups
+// are pending (groups complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins accumulator registers at this point of the program: the compiler
+// may not move their reads above a wait, or their writes below a fence.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(x[i][e])::"memory");
+}
+
+#define TFT_F4(x) "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3])
+
+// The accumulator of m64nNk16 in the layout of mma.sync's C fragments:
+// d[nb][e] of warp w is row 16w + g + 8 (e >> 1), column 8 nb + 2t + (e & 1)
+// (g = lane / 4, t = lane % 4).
+
+// d (64 x 64) = A . B^T (+ d if accumulate), A (64 x 16) and B (64 x 16)
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TFT_F4(d[0]), TFT_F4(d[1]), TFT_F4(d[2]), TFT_F4(d[3]), TFT_F4(d[4]),
+        TFT_F4(d[5]), TFT_F4(d[6]), TFT_F4(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same at N = 32.
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : TFT_F4(d[0]), TFT_F4(d[1]), TFT_F4(d[2]), TFT_F4(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += A . B, A (64 x 16) from registers in mma.sync's
+// A-fragment layout (warp w: rows 16w..16w+15), B (16 x 64) MN-major in
+// shared memory (the transposed-B immediate).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TFT_F4(d[0]), TFT_F4(d[1]), TFT_F4(d[2]), TFT_F4(d[3]), TFT_F4(d[4]),
+        TFT_F4(d[5]), TFT_F4(d[6]), TFT_F4(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef TFT_F4
+
+// Where the tensor map puts head, row and batch among its outer
+// dimensions (1..3): the host orders them by stride.
+struct TmaOrder {
+  int h, s, b;
+};
+
+// One box of q, k or v: columns [c, c + 64) of rows [row, row + rows) of
+// head h of batch b.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, TmaOrder o, int c,
+                                        int h, int row, int b) {
+  const auto at = [&](int pos) {
+    return o.h == pos ? h : o.s == pos ? row : b;
+  };
+  tma_load4(dst, map, bar, c, at(1), at(2), at(3));
+}
+
+// ---------------------------------------------------------------------------
+// K4 forward, bf16: out, lse (TMA ring, mbarriers, wgmma)
+// ---------------------------------------------------------------------------
+
+// Blocks per SM the forward is compiled for. At D64 five: registers are
+// capped at 65536 / (5 x 128) = 102 a thread (ptxas -v: 96, 12 bytes
+// spilled), against 121 unbound and four blocks, and five blocks' 42 KB
+// of shared memory each fit the SM's 227 KB; the fifth block was worth
+// about 4% on the card.
+template <int D> constexpr int kWgBlocks = D == 64 ? 5 : 2;
+constexpr int kStages = 2;  // the k/v ring
+
+// Shared memory of the forward, byte offsets from a 1024-aligned base: q
+// (D/64 boxes of 64 rows x 128 B), the ring of k and v tiles (D/64 boxes
+// of BN rows each), then the barriers (q's, one per stage).
 template <int D, int BN>
-__global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
-    flash_fwd_mma_kernel(Args a) {
-  constexpr int LD = D + 8, KD = D / 16, NB = BN / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kBM][LD]; at the end, out
-  bf16* Ks = Qs + kBM * LD;                  // [2][BN][LD]
-  bf16* Vs = Ks + 2 * BN * LD;               // [2][BN][LD]
+struct FwdSmem {
+  static constexpr int q_bytes = kBM * D * 2;
+  static constexpr int kv_bytes = BN * D * 2;  // one k (or v) tile
+  static constexpr int k = q_bytes;
+  static constexpr int v = k + kStages * kv_bytes;
+  static constexpr int bars = v + kStages * kv_bytes;
+  // + slack to align the base
+  static constexpr int bytes = bars + 8 * (1 + kStages) + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - smem_addr(p) % 1024) % 1024);
+}
+
+// The online softmax of one s tile (rows g and g + 8 of this warp, NB
+// blocks of 8 columns) into p, in place: the rows' running max m and sum
+// l, and corr, each row's rescale of the output so far. Both rows go
+// through each step together, so their shuffles and expf overlap.
+template <int NB>
+__device__ __forceinline__ void online_softmax(float (&s)[NB][4], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               bool fast) {
+  float m_new[2], psum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mt = s[0][2 * i];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      mt = fmaxf(mt, fmaxf(s[nb][2 * i], s[nb][2 * i + 1]));
+    m_new[i] = mt;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m_new[i] = fmaxf(m[i], quad_max(m_new[i]));
+  if (fast) {
+    // every row has a live key (its own position), so m_new is finite and
+    // exp(-1e30 - m_new) underflows to exactly 0
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = expf(s[nb][e] - m_new[e >> 1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) corr[i] = expf(m[i] - m_new[i]);
+  } else {
+    float safe_m[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) safe_m[i] = isfinite(m_new[i]) ? m_new[i] : 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nb][e] = isfinite(s[nb][e]) ? expf(s[nb][e] - safe_m[e >> 1]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      corr[i] = isfinite(m[i]) ? expf(m[i] - safe_m[i]) : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    psum[i] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) psum[i] += s[nb][2 * i] + s[nb][2 * i + 1];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = l[i] * corr[i] + quad_sum(psum[i]);
+    m[i] = m_new[i];
+  }
+}
+
+// One block: 64 query rows of one (batch, head), one warpgroup. Thread 0
+// issues every TMA load; the others only wait on the barriers. The
+// shared-memory descriptors are built once: a k16 step, a stage or a box
+// only adds its byte offset / 16 to the start address field.
+template <int D, int BN>
+__global__ void __launch_bounds__(kMmaThreads, kWgBlocks<D>)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, Args a,
+                           TmaOrder oq, TmaOrder ok, TmaOrder ov) {
+  using L = FwdSmem<D, BN>;
+  constexpr int DH = D / 64, NB = BN / 8, NK = BN / 16, LD = D + 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);  // q, stages
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = (threadIdx.x >> 5) * kRows;  // this warp's rows
   // the causal grid's heaviest tiles (last rows) start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, S = a.S;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[2];
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[2];
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[2];
   const bool fast = a.fast;
   const float neg = fast ? kNegLarge : -INFINITY;
   int lo, hi;
   key_range<BN>(a, q0, &lo, &hi);
 
-  cp_rows<D, kMmaThreads>(Qs, q, a.sq[1], q0, kBM, S);
-  cp_rows<D, kMmaThreads>(Ks, k, a.sk[1], lo * BN, BN, S);
-  cp_rows<D, kMmaThreads>(Vs, v, a.sv[1], lo * BN, BN, S);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[KD][4];
-  load_a<LD>(qf, Qs, row0);
-  float m[2] = {neg, neg}, l[2] = {0.f, 0.f}, o[ND][4];
-  zero(o);
-  for (int j = lo; j < hi; ++j) {
-    const int stage = (j - lo) & 1;
-    if (j + 1 < hi) {  // the next tile into the other stage
-      const int nxt = (stage ^ 1) * BN * LD;
-      cp_rows<D, kMmaThreads>(Ks + nxt, k, a.sk[1], (j + 1) * BN, BN, S);
-      cp_rows<D, kMmaThreads>(Vs + nxt, v, a.sv[1], (j + 1) * BN, BN, S);
+  // tile j's k and v into stage st (thread 0)
+  const auto load_kv = [&](int st, int j) {
+    mbar_expect_tx(&bars[1 + st], 2 * L::kv_bytes);
+#pragma unroll
+    for (int c = 0; c < DH; ++c) {
+      tma_box(smem + L::k + st * L::kv_bytes + c * BN * 128, &tk, &bars[1 + st],
+              ok, 64 * c, h, j * BN, b);
+      tma_box(smem + L::v + st * L::kv_bytes + c * BN * 128, &tv, &bars[1 + st],
+              ov, 64 * c, h, j * BN, b);
     }
-    cp_async_commit();  // an empty group on the last tile
-    cp_async_wait<1>();  // this tile's group has landed
-    __syncthreads();
-    const bf16* Kt = Ks + stage * BN * LD;
-    const bf16* Vt = Vs + stage * BN * LD;
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bars[0], L::q_bytes);
+#pragma unroll
+    for (int c = 0; c < DH; ++c)
+      tma_box(smem + c * kBM * 128, &tq, &bars[0], oq, 64 * c, h, q0, b);
+    for (int st = 0; st < kStages && lo + st < hi; ++st) load_kv(st, lo + st);
+  }
+  __syncthreads();  // the barriers are initialised
+  const uint64_t q_desc = sw128_desc(smem), k_desc = sw128_desc(smem + L::k),
+                 v_desc = sw128_desc(smem + L::v);
+  float m[2] = {neg, neg}, l[2] = {0.f, 0.f}, o[DH][8][4];
+#pragma unroll
+  for (int dh = 0; dh < DH; ++dh) zero(o[dh]);
+  mbar_wait(&bars[0], 0);
+  for (int j = lo; j < hi; ++j) {
+    const int it = j - lo, st = it % kStages;
+    const uint32_t stage16 = st * (L::kv_bytes >> 4);
+    mbar_wait(&bars[1 + st], (it / kStages) & 1);
+    // s = q . k^T: D/16 k16 steps, each +32 B along the rows of one box;
+    // the first overwrites s (no zeroing pass)
     float s[NB][4];
-    zero(s);
-    mma_abt<LD>(s, qf, Kt);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, q_desc + (((kk / 4) * kBM * 128 + (kk % 4) * 32) >> 4),
+               k_desc + stage16 + (((kk / 4) * BN * 128 + (kk % 4) * 32) >> 4),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
     const int k0 = j * BN;
     if (tile_masked(a, q0, kBM, k0, BN)) {
 #pragma unroll
@@ -438,48 +723,42 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
           if (!live(a, q0 + row0 + g + (e >> 1) * 8, k0 + nb * 8 + 2 * t + (e & 1)))
             s[nb][e] = neg;
     }
+    float corr[2];
+    online_softmax(s, m, l, corr, fast);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // rows g and g + 8
-      float mt = s[0][2 * i];
+    for (int dh = 0; dh < DH; ++dh)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-        mt = fmaxf(mt, fmaxf(s[nb][2 * i], s[nb][2 * i + 1]));
-      const float m_new = fmaxf(m[i], quad_max(mt));
-      float corr, psum = 0.f;
-      if (fast) {
-        // every row has a live key (its own position), so m_new is finite
-        // and exp(-1e30 - m_new) underflows to exactly 0
+      for (int nd = 0; nd < 8; ++nd)
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
+        for (int e = 0; e < 4; ++e) o[dh][nd][e] *= corr[e >> 1];
+    // o += p . v: p rounded to bf16 into A fragments in registers; v read
+    // down its rows, each k16 step 16 rows (2048 B) further
+    uint32_t pa[NK][4];
 #pragma unroll
-          for (int e = 2 * i; e < 2 * i + 2; ++e) {
-            s[nb][e] = expf(s[nb][e] - m_new);
-            psum += s[nb][e];
-          }
-        corr = expf(m[i] - m_new);
-      } else {
-        const float safe_m = isfinite(m_new) ? m_new : 0.f;
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-          for (int e = 2 * i; e < 2 * i + 2; ++e) {
-            s[nb][e] = isfinite(s[nb][e]) ? expf(s[nb][e] - safe_m) : 0.f;
-            psum += s[nb][e];
-          }
-        corr = isfinite(m[i]) ? expf(m[i] - safe_m) : 0.f;
-      }
-      l[i] = l[i] * corr + quad_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        o[nd][2 * i] *= corr;
-        o[nd][2 * i + 1] *= corr;
-      }
+    for (int kc = 0; kc < NK; ++kc) {
+      pa[kc][0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pa[kc][1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pa[kc][2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[kc][3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
     }
-    mma_pb<LD>(o, s, Vt);  // p rounded to bf16 on its way in
-    __syncthreads();       // the next iteration refills this stage
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh) fence_regs(o[dh]);
+    wgmma_fence();
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh)
+#pragma unroll
+      for (int kc = 0; kc < NK; ++kc)
+        wgmma_rs(o[dh], pa[kc],
+                 v_desc + stage16 + ((dh * BN * 128 + kc * 2048) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh) fence_regs(o[dh]);
+    __syncthreads();  // every warp's products have read this stage
+    if (threadIdx.x == 0 && j + kStages < hi) load_kv(st, j + kStages);
   }
-  // each warp stages its rows in its own rows of Qs (only it read them)
+  // each warp stages its rows in its own 16 rows of padded shared memory
+  // (q and the ring are no longer read: every load was waited for)
   float l_safe[2];
   float* lse = static_cast<float*>(a.out1) + static_cast<int64_t>(bh) * S;
 #pragma unroll
@@ -489,8 +768,69 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
     if (t == 0 && r < S)
       lse[r] = (fast || isfinite(m[i])) ? m[i] + logf(l_safe[i]) : -INFINITY;
   }
-  store_rows<D>(static_cast<bf16*>(a.out0), Qs + row0 * LD, o, l_safe, a, b, h,
+  store_rows<D>(static_cast<bf16*>(a.out0),
+                reinterpret_cast<bf16*>(smem) + row0 * LD,
+                reinterpret_cast<const float(&)[D / 8][4]>(o), l_safe, a, b, h,
                 q0 + row0);
+}
+
+// One wgmma tile product of each kind the forward uses, for the card
+// tests: c (64 x 64 f32) = a . b^T with a and b K-major in shared memory
+// (mn_major 0, as s = q . k^T), or a . b with a in registers and b
+// MN-major (mn_major 1, as o = p . v). a and b are contiguous 64 x 64
+// bf16 and come in through the forward's tensor maps.
+__global__ void __launch_bounds__(kMmaThreads)
+    wgmma_tile_test_kernel(const __grid_constant__ CUtensorMap ta,
+                           const __grid_constant__ CUtensorMap tb,
+                           const bf16* a, float* c, int mn_major) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* As = smem;
+  unsigned char* Bs = smem + 8192;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 16384);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bar, mn_major ? 8192 : 16384);
+    if (!mn_major) tma_load4(As, &ta, bar, 0, 0, 0, 0);
+    tma_load4(Bs, &tb, bar, 0, 0, 0, 0);
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = (threadIdx.x >> 5) * kRows;
+  float d[8][4];
+  zero(d);
+  fence_regs(d);
+  if (!mn_major) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(d, sw128_desc(As + kk * 32), sw128_desc(Bs + kk * 32), 1);
+  } else {
+    uint32_t af[4][4];
+    const auto pair = [&](int r, int col) {
+      return *reinterpret_cast<const uint32_t*>(a + r * 64 + col);
+    };
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      af[kc][0] = pair(row0 + g, 16 * kc + 2 * t);
+      af[kc][1] = pair(row0 + g + 8, 16 * kc + 2 * t);
+      af[kc][2] = pair(row0 + g, 16 * kc + 8 + 2 * t);
+      af[kc][3] = pair(row0 + g + 8, 16 * kc + 8 + 2 * t);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs(d, af[kc], sw128_desc(Bs + kc * 2048));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[(row0 + g + 8 * (e >> 1)) * 64 + nb * 8 + 2 * t + (e & 1)] = d[nb][e];
 }
 
 // ---------------------------------------------------------------------------
@@ -1082,11 +1422,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2 };
 
 // Grid, block and dynamic shared memory of one kernel of one (dtype, D, BN).
+// A tensor-map kernel (the bf16 forward) takes (q, k, v maps, Args, their
+// three orders); the others take Args alone.
 struct Launch {
-  void (*kernel)(Args);
+  const void* kernel;
   dim3 grid;
   int threads;
   size_t smem;
+  bool tma;
 };
 
 template <int D, int BN>
@@ -1094,14 +1437,14 @@ Launch plan_mma(Kind kind, int S, int bh) {
   const unsigned nq = (S + kBM - 1) / kBM, nk = (S + BN - 1) / BN;
   switch (kind) {
     case kFwd:
-      return {flash_fwd_mma_kernel<D, BN>, dim3(nq, bh), kMmaThreads,
-              fwd_mma_smem<D, BN>()};
+      return {reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<D, BN>),
+              dim3(nq, bh), kMmaThreads, FwdSmem<D, BN>::bytes, true};
     case kDkdv:
-      return {flash_bwd_dkdv_mma_kernel<D, BN>, dim3(nk, bh), 2 * BN,
-              dkdv_mma_smem<D, BN>()};
+      return {reinterpret_cast<const void*>(&flash_bwd_dkdv_mma_kernel<D, BN>),
+              dim3(nk, bh), 2 * BN, dkdv_mma_smem<D, BN>(), false};
     default:
-      return {flash_bwd_dq_mma_kernel<D, BN>, dim3(nq, bh), kMmaThreads,
-              dq_mma_smem<D, BN>()};
+      return {reinterpret_cast<const void*>(&flash_bwd_dq_mma_kernel<D, BN>),
+              dim3(nq, bh), kMmaThreads, dq_mma_smem<D, BN>(), false};
   }
 }
 
@@ -1110,18 +1453,19 @@ Launch plan_f32(Kind kind, int S, int bh) {
   const unsigned nq = (S + kBM - 1) / kBM, nk = (S + BN - 1) / BN;
   switch (kind) {
     case kFwd:
-      return {flash_fwd_kernel<D, BN>, dim3(nq, bh), kThreads,
-              fwd_f32_smem<D, BN>()};
+      return {reinterpret_cast<const void*>(&flash_fwd_kernel<D, BN>),
+              dim3(nq, bh), kThreads, fwd_f32_smem<D, BN>(), false};
     case kDkdv:
-      return {flash_bwd_dkdv_kernel<D, BN>, dim3(nk, bh), kThreads,
-              dkdv_f32_smem<D, BN>()};
+      return {reinterpret_cast<const void*>(&flash_bwd_dkdv_kernel<D, BN>),
+              dim3(nk, bh), kThreads, dkdv_f32_smem<D, BN>(), false};
     default:
-      return {flash_bwd_dq_kernel<D, BN>, dim3(nq, bh), kThreads,
-              dq_f32_smem<D, BN>()};
+      return {reinterpret_cast<const void*>(&flash_bwd_dq_kernel<D, BN>),
+              dim3(nq, bh), kThreads, dq_f32_smem<D, BN>(), false};
   }
 }
 
-// dtype 0 (f32): the scalar kernels; 1 (bf16): the tensor-core kernels.
+// dtype 0 (f32): the scalar kernels; 1 (bf16): the tensor-core kernels
+// (the forward on wgmma, the backward on mma.sync).
 bool plan(Kind kind, int dtype, int D, int block_k, int S, int bh, Launch* out) {
   const bool mma = dtype == 1;
   if (dtype != 0 && dtype != 1) return false;
@@ -1142,6 +1486,76 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
+// point query: this library links no libcuda of its own.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// q, k or v (B, S, H, D) bf16 with (batch, seq, head) strides s, in
+// elements, as a 4-D tensor map read in boxes of 64 columns x `rows` rows
+// with the 128-byte swizzle; rows past S read as zeros. D is innermost;
+// head, row and batch follow in the order of their strides (so a permuted
+// view maps as well as the qkv split), an extent-1 dimension last (its
+// stride is never used). *ord says where each went.
+bool encode_map(CUtensorMap* map, TmaOrder* ord, const void* base, int B,
+                int S, int H, int D, const int64_t* s, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const int64_t ext[3] = {H, S, B};      // head, row, batch
+  const int64_t str[3] = {s[2], s[1], s[0]};
+  int64_t last = D;  // a stride past every used one, for extent-1 dims
+  for (int i = 0; i < 3; ++i)
+    if (ext[i] > 1) last = str[i] * ext[i] > last ? str[i] * ext[i] : last;
+  int64_t key[3];
+  int idx[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i) key[i] = ext[i] > 1 ? str[i] : last;
+  for (int i = 1; i < 3; ++i)  // insertion sort by key, stable
+    for (int j = i; j > 0 && key[idx[j]] < key[idx[j - 1]]; --j) {
+      const int x = idx[j];
+      idx[j] = idx[j - 1];
+      idx[j - 1] = x;
+    }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D)};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  int pos[3];
+  for (int r = 0; r < 3; ++r) {
+    const int i = idx[r];
+    pos[i] = r + 1;
+    dims[r + 1] = static_cast<cuuint64_t>(ext[i]);
+    strides[r] = static_cast<cuuint64_t>(2 * key[i]);  // bytes
+    if (i == 1) box[r + 1] = static_cast<cuuint32_t>(rows);
+  }
+  *ord = {pos[0], pos[1], pos[2]};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // strides: (batch, seq, head) of q, k, v and, for the backward, do (12
 // values; the forward reads 9).
 int dispatch(Kind kind, const void* q, const void* k, const void* v,
@@ -1154,7 +1568,7 @@ int dispatch(Kind kind, const void* q, const void* k, const void* v,
       !plan(kind, dtype, D, block_k, S, B * H, &l))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_strides = kind == kFwd ? 9 : 12;
-  if (dtype == 1) {  // cp.async moves 16-byte rows: 8 bf16 elements
+  if (dtype == 1) {  // cp.async and TMA move 16-byte rows: 8 bf16 elements
     for (int i = 0; i < n_strides; ++i)
       if (strides[i] % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
     if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
@@ -1189,7 +1603,24 @@ int dispatch(Kind kind, const void* q, const void* k, const void* v,
       l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(l.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  l.kernel<<<l.grid, l.threads, l.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  // the tensor maps are encoded at every launch: host code, legal during
+  // capture too (a graph keeps the parameters it was launched with)
+  CUtensorMap maps[3];
+  TmaOrder ords[3];
+  void* tma_params[] = {&maps[0], &maps[1], &maps[2], &a,
+                        &ords[0], &ords[1], &ords[2]};
+  void* params[] = {&a};
+  if (l.tma) {
+    const void* src[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i)
+      if (!encode_map(&maps[i], &ords[i], src[i], B, S, H, D, strides + 3 * i,
+                      i == 0 ? kBM : block_k))
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads),
+                         l.tma ? tma_params : params, l.smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1231,6 +1662,26 @@ int tft_flash_smem_bytes(int kind, int dtype, int D, int block_k) {
       !plan(static_cast<Kind>(kind), dtype, D, block_k, 1, 1, &l))
     return -1;
   return static_cast<int>(l.smem);
+}
+
+// One wgmma tile product through the forward's tensor maps and
+// descriptors, for the card tests: c (64 x 64 f32, contiguous) = a . b^T
+// (mn_major 0: both operands K-major in shared memory, as s = q . k^T) or
+// a . b (mn_major 1: a from registers, b MN-major, as o = p . v); a and b
+// contiguous 64 x 64 bf16.
+int tft_wgmma_tile_test(const void* a, const void* b, void* c, int mn_major,
+                        void* stream) {
+  const int64_t s[3] = {64 * 64, 64, 64};
+  CUtensorMap ta, tb;
+  TmaOrder ord;
+  if (!aligned16(a) || !aligned16(b) ||
+      !encode_map(&ta, &ord, a, 1, 64, 1, 64, s, 64) ||
+      !encode_map(&tb, &ord, b, 1, 64, 1, 64, s, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wgmma_tile_test_kernel<<<1, kMmaThreads, 16384 + 8 + 1024,
+                           static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, static_cast<const bf16*>(a), static_cast<float*>(c), mn_major);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

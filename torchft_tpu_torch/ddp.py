@@ -57,6 +57,10 @@ class DistributedDataParallel:
         ddp = DistributedDataParallel(manager)
         loss, grads = grad_fn(state.params, batch)
         grads = ddp.allreduce_grads(grads).wait()
+
+    or wraps a function returning ``(value, grads)`` so the average
+    happens on call: ``loss, grads = ddp.wrap_grad_fn(grad_fn)(params,
+    batch)``.
     """
 
     def __init__(self, manager: Manager) -> None:
@@ -67,6 +71,18 @@ class DistributedDataParallel:
         averaged tree (the input on error, with the error latched for
         ``should_commit``)."""
         return self._manager.allreduce(grads)
+
+    def wrap_grad_fn(
+        self, grad_fn: Callable[..., Tuple[Any, Any]]
+    ) -> Callable[..., Tuple[Any, Any]]:
+        """Wraps a function returning ``(value, grads)`` so the grads it
+        returns are already averaged across replica groups (blocking)."""
+
+        def wrapped(*args: Any, **kwargs: Any) -> Tuple[Any, Any]:
+            value, grads = grad_fn(*args, **kwargs)
+            return value, self.allreduce_grads(grads).wait()
+
+        return wrapped
 
 
 class PipelinedDDP:

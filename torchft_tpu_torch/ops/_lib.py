@@ -55,6 +55,8 @@ _SIGNATURES = {
     "tft_flash_bwd_dq": [_VP] * 7 + _FLASH_TAIL,
     # kind (0 forward, 1 dk/dv, 2 dq), dtype, D, block_k
     "tft_flash_smem_bytes": [_INT] * 4,
+    # a, b, c, mn_major, stream: one wgmma tile product (card tests)
+    "tft_wgmma_tile_test": [_VP, _VP, _VP, _INT, _VP],
 }
 
 

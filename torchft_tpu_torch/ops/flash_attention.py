@@ -8,8 +8,9 @@ bodies, picked by the tensors' device alone:
   ``sm_90a`` at first use) for tensors on the card: no (S, S) score matrix
   ever reaches device memory; it launches or raises, never falls back.
   The dtype picks the kernel (:func:`kernel_route`): bf16 runs the
-  tensor-core kernels (``mma.sync``, tiles streamed with ``cp.async``,
-  which needs every row 16-byte aligned: :func:`check_kernel_layout`),
+  tensor-core kernels (the forward on ``wgmma`` with tiles brought in by
+  TMA, the backward on ``mma.sync`` with tiles streamed by ``cp.async``;
+  both need every row 16-byte aligned: :func:`check_kernel_layout`),
   f32 the scalar f32 kernels (f32 on tensor cores would be TF32, too
   coarse for the f32 tolerance);
 - a plain PyTorch version (:func:`flash_fwd_plain`,
@@ -207,8 +208,9 @@ def kernel_route(dtype: torch.dtype) -> str:
 
 def check_kernel_layout(*ts: torch.Tensor) -> None:
     """Raises ValueError unless each tensor's address and (batch, seq,
-    head) strides are 16-byte aligned, as the tensor-core kernels'
-    16-byte ``cp.async`` row copies need. The qkv split of a (B, S, 3HD)
+    head) strides are 16-byte aligned, as the tensor-core kernels' row
+    copies need (the forward's TMA tensor maps, the backward's 16-byte
+    ``cp.async``). The qkv split of a (B, S, 3HD)
     projection is: its strides and offsets are multiples of the head dim.
     A misaligned view raises rather than being copied."""
     for t in ts:

@@ -39,6 +39,13 @@ def span(name: str) -> Any:
     return torch.profiler.record_function(name)
 
 
+def step_span(step: int) -> Any:
+    """Step annotation: ``with step_span(step): train_step(...)`` opens a
+    ``torchft_step`` span whose argument is the step number, the JAX
+    package's ``StepTraceAnnotation("torchft_step", step_num=step)``."""
+    return torch.profiler.record_function("torchft_step", args=str(step))
+
+
 def _all_threads() -> Any:
     """Kineto's all-threads mode: without it a capture records only the
     spans of the thread that started it, and the quorum, reconfigure and
