@@ -39,17 +39,18 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            each group, and K3 in turns against ``x.to(torch.bfloat16)``
            and against the f32 concatenation then a flat cast;
 3. flash   the flash-attention kernels (K4 forward, K5 backward: bf16 on
-           the tensor-core kernels, the forward on wgmma with TMA loads and
-           the backward on mma.sync, f32 on the scalar ones) against their
-           plain versions on the card within printed tolerances: the big
-           LM's call (16, 2047, 16, 64) bf16 causal, S 2048, non-causal,
-           windows 1/16/200/1000, block_k 32 (the general path), head_dim
-           128 and f32 inputs; K4 and K5 run twice must give the same
-           bits; the forward kernel's SASS (cuobjdump) must hold HGMMA and
-           UTMALDG instructions; times both (and K5's two kernels) at the
-           big LM's call beside their bounds and achieved TFLOP/s, their
-           plain versions and scaled_dot_product_attention's (timed only,
-           never used by the port);
+           the tensor-core kernels, wgmma with TMA loads, f32 on the
+           scalar ones) against their plain versions on the card within
+           printed tolerances: the big LM's call (16, 2047, 16, 64) bf16
+           causal, S 2048, non-causal, windows 1/16/200/1000, block_k 32
+           (the general path), head_dim 128 and f32 inputs; K5's folded
+           delta against the torch one; K4 and K5 run twice must give the
+           same bits; every bf16 kernel's SASS (cuobjdump) must hold HGMMA
+           and UTMALDG instructions; times both (and K5's two kernels, dq
+           with delta and dk/dv) at the big LM's call beside their bounds
+           and achieved TFLOP/s, their plain versions and
+           scaled_dot_product_attention's (timed only, never used by the
+           port);
 4. train   an in-process lighthouse and two replica-group worker processes
            sharing the GPU, each running Manager + HostCollectives +
            FTTrainState/AdamW + PipelinedDDP(compress="q8",
@@ -299,7 +300,8 @@ phases 21-23 (the launched workers are this script re-run with
 ``--parallel-phases`` only phase 28; ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
 a), each from its own chip_smoke.py and build; ``--kernel-turns A B``
-likewise the flash kernel phase (phase 3), K4's time compared at the end.
+likewise the flash kernel phase (phase 3), K4's and K5's times compared
+at the end.
 """
 
 from __future__ import annotations
@@ -392,14 +394,25 @@ KERNEL_SOURCES = {
 PACK_KERNELS = ("q8_absmax_seg_kernel", "q8_quantize_seg_kernel",
                 "cast_bf16_seg_kernel")
 # the flash kernels' names in a trace (both families), and the tensor-core
-# kernels the bf16 path runs (the forward on wgmma, the backward on mma.sync)
+# kernels the bf16 path runs (the forward and both backward kernels on
+# wgmma with TMA)
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
-MMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkdv_mma_kernel",
-               "flash_bwd_dq_mma_kernel")
-# the bf16 forward's route, and the SASS instructions that show it: the
+MMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+               "flash_bwd_dq_wgmma_kernel")
+# the bf16 kernels' route, and the SASS instructions that show it: the
 # warpgroup products and the TMA tile loads
-K4_ROUTE = "wgmma"
-K4_SASS = ("HGMMA", "UTMALDG")
+MMA_ROUTE = "wgmma"
+MMA_SASS = ("HGMMA", "UTMALDG")
+# the bf16 instantiations the library must hold, by kernel: the forward
+# and dq per (D, block_k), dk/dv per D (its key tile is 64 whatever
+# block_k is)
+MMA_INSTANCES = {
+    "flash_fwd_wgmma_kernel": ("<D64, BN64>", "<D64, BN32>", "<D128, BN64>",
+                               "<D128, BN32>"),
+    "flash_bwd_dq_wgmma_kernel": ("<D64, BN64>", "<D64, BN32>",
+                                  "<D128, BN64>", "<D128, BN32>"),
+    "flash_bwd_dkdv_wgmma_kernel": ("<D64>", "<D128>"),
+}
 TRACE_FILE = "trace_g0.json"
 REPLACES = {
     "q8_absmax": "torchft_tpu/ops/quantize_kernels.py:109",
@@ -1377,15 +1390,15 @@ def _ptxas_report(path: str) -> list:
                 # mangled: the name follows its length
                 name = next((n for n in names if f"{len(n)}{n}" in m.group(1)),
                             m.group(1))
-                shape = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
+                shape = _template_args(m.group(1))
                 row = {"name": name}
                 if name.startswith("flash_") and shape:
-                    d, bn = map(int, shape.groups())
-                    row["name"] = f"{name}<D{d}, BN{bn}>"
+                    d, bn = shape
+                    row["name"] = name + _instance_key(d, bn)
                     kind = kinds[name.split("_")[2 if "bwd" in name else 1]]
-                    bf16 = "_mma_" in name or "_wgmma_" in name
+                    bf16 = "_wgmma_" in name
                     row["smem"] = _kernels.lib().tft_flash_smem_bytes(
-                        kind, 1 if bf16 else 0, d, bn)
+                        kind, 1 if bf16 else 0, d, bn or 64)
                 rows.append(row)
             elif rows:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1399,10 +1412,23 @@ def _ptxas_report(path: str) -> list:
     return rows
 
 
+def _template_args(mangled: str):
+    """(D, BN) of a flash kernel's mangled name, BN None for the one
+    template argument of dk/dv; None if it has none."""
+    m = re.search(r"ILi(\d+)E(?:Li(\d+)E)?E", mangled)
+    if not m:
+        return None
+    return int(m.group(1)), int(m.group(2)) if m.group(2) else None
+
+
+def _instance_key(d: int, bn) -> str:
+    return f"<D{d}, BN{bn}>" if bn else f"<D{d}>"
+
+
 def _sass_counts() -> dict:
-    """Each bf16 forward instantiation's count of the ``K4_SASS``
+    """Each bf16 (wgmma) flash instantiation's count of the ``MMA_SASS``
     instructions in the built library's SASS (the toolkit's ``cuobjdump
-    -sass``), keyed by its template arguments."""
+    -sass``), keyed by kernel and template arguments."""
     from torch.utils.cpp_extension import CUDA_HOME
     from torchft_tpu_torch import _build
 
@@ -1413,13 +1439,13 @@ def _sass_counts() -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            shape = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
-            key = (f"<D{shape.group(1)}, BN{shape.group(2)}>"
-                   if "flash_fwd_wgmma_kernel" in m.group(1) and shape else None)
+            name = next((n for n in MMA_INSTANCES if n in m.group(1)), None)
+            shape = _template_args(m.group(1))
+            key = name + _instance_key(*shape) if name and shape else None
             if key:
-                counts[key] = dict.fromkeys(K4_SASS, 0)
+                counts[key] = dict.fromkeys(MMA_SASS, 0)
         elif key:
-            for op in K4_SASS:
+            for op in MMA_SASS:
                 counts[key][op] += op in line
     return counts
 
@@ -1973,10 +1999,21 @@ def _flash_tol(name: str, ref: torch.Tensor) -> float:
     return 2.0 ** -6 * big
 
 
+def _delta_off(got: torch.Tensor, want: torch.Tensor, out: torch.Tensor,
+               do: torch.Tensor) -> int:
+    """Rows of a kernel's delta (B, H, S) f32 off the torch delta by more
+    than f32 rounding: rtol 1e-6, plus the bound on two summation orders
+    of D products, 2 D 2**-24 of the row's sum of |do * out|."""
+    mag = (do.float() * out.float()).abs().sum(-1).transpose(1, 2)
+    tol = 1e-6 * want.abs() + 2 * do.shape[-1] * 2.0 ** -24 * mag
+    return int(((got - want).abs() > tol).sum())
+
+
 def _flash_case(tfa, label: str, shape, dtype, causal=True, window=None,
                 block_k=None, chunk: int = 2, device: str = "cuda") -> dict:
     """K4 and K5 on the card against their plain versions on the same
-    inputs (the plain backward gets the kernel's lse, out and delta), in
+    inputs (the plain backward gets the kernel's lse and out and the torch
+    delta, which the dq kernel's own must match), in
     batch chunks of ``chunk`` so the plain (S, S) scores stay small.
     Fails past the tolerance; returns the inputs and errors."""
     dev = torch.device(device)
@@ -1986,8 +2023,15 @@ def _flash_case(tfa, label: str, shape, dtype, causal=True, window=None,
     cfg = tfa.FlashConfig(causal, window, *tfa.resolve_blocks(
         shape[1], dev, None, block_k))
     out, lse = tfa.flash_fwd(q, k, v, cfg)
-    grads = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = tfa.flash_delta_plain(out, do)
+    if dev.type == "cuda":  # the kernels' own delta, folded into dq
+        *grads, kdelta = tfa.flash_bwd_kernels(q, k, v, out, lse, do, cfg)
+        bad_rows = _delta_off(kdelta, delta, out, do)
+        if bad_rows:
+            fail(f"flash {label}: the dq kernel's delta is off the torch "
+                 f"delta in {bad_rows} rows")
+    else:
+        grads = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
     names = ("out", "lse", "dq", "dk", "dv")
     err = dict.fromkeys(names, 0.0)
     tol = dict.fromkeys(names, 0.0)
@@ -2061,24 +2105,33 @@ def phase_flash_kernels() -> dict:
         fail("K5 flash_bwd is not bit-identical run to run")
     log("  K4 and K5 run twice on the path's inputs: bit-identical")
     sass = _sass_counts()
-    log(f"  K4 route {K4_ROUTE}: {'/'.join(K4_SASS)} instructions in each "
-        f"bf16 forward kernel's SASS {json.dumps(sass)}")
-    if len(sass) != 4 or not all(all(c.values()) for c in sass.values()):
-        fail(f"the bf16 forward kernels' SASS lacks {K4_SASS}: {sass}")
+    log(f"  K4/K5 route {MMA_ROUTE}: {'/'.join(MMA_SASS)} instructions in "
+        f"each bf16 kernel's SASS {json.dumps(sass)}")
+    want = [n + i for n, insts in MMA_INSTANCES.items() for i in insts]
+    if sorted(sass) != sorted(want) or not all(
+            all(c.values()) for c in sass.values()):
+        fail(f"the bf16 flash kernels' SASS lacks {MMA_SASS}: {sass}")
 
     # device times at the path's shape (graph replay; the plain versions,
     # one to a few seconds a call, eagerly)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # the stream is read at each launch: the capture's, not the default
-    args = lambda: tfa._kernel_args(cfg, (q, k, v, do))
+    kdelta = torch.empty_like(delta)
+    # the stream is read at each launch: the capture's, not the default;
+    # dq (which writes delta) first, as flash_bwd launches them
     split = {
-        "dkdv": _graph_ms(lambda: _kernels.launch(
-            "flash_bwd", "tft_flash_bwd_dkdv", *ptrs, dk.data_ptr(),
-            dv.data_ptr(), *args())),
         "dq": _graph_ms(lambda: _kernels.launch(
-            "flash_bwd", "tft_flash_bwd_dq", *ptrs, dq.data_ptr(), *args())),
+            "flash_bwd", "tft_flash_bwd_dq", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            kdelta.data_ptr(), dq.data_ptr(),
+            *tfa._kernel_args(cfg, (q, k, v, do, out)))),
+        "dkdv": _graph_ms(lambda: _kernels.launch(
+            "flash_bwd", "tft_flash_bwd_dkdv", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), kdelta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            *tfa._kernel_args(cfg, (q, k, v, do)))),
+        # the torch pass the parent ran before the kernels (timed only)
+        "torch_delta": _graph_ms(lambda: (do.float() * out.float()).sum(-1)
+                                 .transpose(1, 2).contiguous()),
     }
     times = {
         "flash_fwd": (
@@ -2109,19 +2162,20 @@ def phase_flash_kernels() -> dict:
             f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}; the kernel at "
             f"{bound_ms / ms:.1%} of it)")
-    log(f"  flash_bwd split: dk/dv kernel {split['dkdv']:.3f} ms, dq kernel "
-        f"{split['dq']:.3f} ms")
+    log(f"  flash_bwd split: dq kernel (with delta) {split['dq']:.3f} ms, "
+        f"dk/dv kernel {split['dkdv']:.3f} ms (the torch delta pass they "
+        f"replace: {split['torch_delta']:.3f} ms)")
     # flops over the path's live (query, key) pairs: 2 per pair and head dim
     # for each product (K4 2, K5 5 minimal; the split executes dk/dv 4, dq 3)
     pair_flops = 2 * B * H * _flash_pairs(S, True, None) * D
     tflops = lambda products, ms: products * pair_flops / ms / 1e9
     log(f"  achieved at {FLASH_SHAPE} (bf16 bound {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f}"
-        f" TFLOP/s): K4 ({K4_ROUTE}) {tflops(2, rows['flash_fwd']['ms']):.1f}"
-        f" TFLOP/s; K5 "
+        f" TFLOP/s): K4 ({MMA_ROUTE}) {tflops(2, rows['flash_fwd']['ms']):.1f}"
+        f" TFLOP/s; K5 ({MMA_ROUTE}) "
         f"{tflops(5, rows['flash_bwd']['ms']):.1f} TFLOP/s of its minimal "
-        f"work, the dk/dv kernel {tflops(4, split['dkdv']):.1f} and the dq "
-        f"kernel {tflops(3, split['dq']):.1f} of the products each executes "
-        f"(4 and 3); scaled_dot_product_attention forward "
+        f"work, the dq kernel {tflops(3, split['dq']):.1f} and the dk/dv "
+        f"kernel {tflops(4, split['dkdv']):.1f} of the products each executes "
+        f"(3 and 4); scaled_dot_product_attention forward "
         f"{tflops(2, rows['flash_fwd']['library_ms']):.1f}, backward "
         f"{tflops(5, rows['flash_bwd']['library_ms']):.1f}")
     return rows
@@ -6482,8 +6536,8 @@ def legacy_turns(tree_a: str, tree_b: str) -> int:
 def kernel_turns(tree_a: str, tree_b: str) -> int:
     """The flash kernel phase of two checkouts in turns, one JSON line per
     turn (each flash kernel's ms, library ms, bound ms and error) after
-    the turn's phase log, then K4's times by checkout, b's mean over a's
-    and whether b was faster in every turn."""
+    the turn's phase log, then K4's and K5's times by checkout, b's mean
+    over a's and whether b was faster in every turn."""
     code = (
         "import json, chip_smoke as cs\n"
         "cs.phase_build()\n"
@@ -6492,17 +6546,20 @@ def kernel_turns(tree_a: str, tree_b: str) -> int:
         "'library_ms', 'bound_ms', 'max_abs_err')} for n, r in "
         "rows.items()}), flush=True)\n"
     )
-    k4 = {"a": [], "b": []}
+    ms = {"k4": {"a": [], "b": []}, "k5": {"a": [], "b": []}}
     for label, tree, secs, turn, out in _turns(tree_a, tree_b, code):
         for l in out.splitlines():  # the phase's log, less ptxas
             if l.startswith("  ") and not l.startswith("  ptxas"):
                 log(f"  [{label}]{l}")
-        k4[label].append(turn["flash_fwd"]["ms"])
+        ms["k4"][label].append(turn["flash_fwd"]["ms"])
+        ms["k5"][label].append(turn["flash_bwd"]["ms"])
         print(json.dumps({"turn": label, "tree": tree, "s": secs, **turn}),
               flush=True)
-    print(json.dumps({"k4_ms": k4, "b_over_a": (sum(k4["b"]) / sum(k4["a"])),
-                      "b_faster_every_turn": max(k4["b"]) < min(k4["a"])}),
-          flush=True)
+    for name, t in ms.items():
+        print(json.dumps({f"{name}_ms": t,
+                          "b_over_a": sum(t["b"]) / sum(t["a"]),
+                          "b_faster_every_turn": max(t["b"]) < min(t["a"])}),
+              flush=True)
     print(_smi(), flush=True)
     return 0
 

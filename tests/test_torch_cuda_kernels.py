@@ -547,8 +547,8 @@ def _flash_check(device, shape, dtype, causal=True, window=None, block_k=None):
     assert tq.launch_counts["flash_fwd"] == before["flash_fwd"] + 1
     assert tq.launch_counts["flash_bwd"] == before["flash_bwd"] + 2
     want_out, want_lse = tfa.flash_fwd_plain(q, k, v, cfg)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    want = tfa.flash_bwd_plain(q, k, v, do, lse, delta, cfg)
+    want = tfa.flash_bwd_plain(q, k, v, do, lse,
+                               tfa.flash_delta_plain(out, do), cfg)
     torch.cuda.synchronize()
     for name, g, w in zip(("out", "dq", "dk", "dv"), (out, *grads),
                           (want_out, *want)):
@@ -734,6 +734,105 @@ def test_flash_forward_reads_permuted_views(cuda_device):
     got = tfa.flash_attention(q, k, v)
     want = tfa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     assert _bytes(got) == _bytes(want)
+
+
+def _flash_bwd_check(q, k, v, do, cfg):
+    """K5 (through K4's out and lse) against its plain version within
+    ``_flash_tol``; returns the kernels' (dq, dk, dv)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 products
+    out, lse = tfa.flash_fwd(q, k, v, cfg)
+    grads = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    want = tfa.flash_bwd_plain(q, k, v, do, lse,
+                               tfa.flash_delta_plain(out, do), cfg)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= _flash_tol(w), (name, err, _flash_tol(w))
+    return grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2047, 1100, 257])
+@pytest.mark.parametrize("D,block_k", [(64, 64), (64, 32), (128, 64),
+                                       (128, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_ragged_tails(cuda_device, S, D, block_k, causal):
+    """K5 (TMA boxes of 64 query rows, of block_k key rows in dq and of 64
+    in dk/dv, lse and delta rows by 4-byte copies) where the last box runs
+    past S and reads zeros, for every (D, block_k) it takes."""
+    q, k, v, do = _flash_inputs(cuda_device, (1, S, 2, D), torch.bfloat16,
+                                seed=S + D)
+    cfg = tfa.FlashConfig(causal, None, *tfa.resolve_blocks(
+        S, cuda_device, None, block_k))
+    _flash_bwd_check(q, k, v, do, cfg)
+
+
+@pytest.mark.cuda
+def test_flash_backward_reads_permuted_views(cuda_device):
+    """q, k, v, do and out as (B, S, H, D) views of (B, H, S, D) tensors:
+    the backward's tensor maps and the dq kernel's delta loads follow the
+    strides, so the gradients equal those of contiguous copies bit for
+    bit."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 3, 300, 64))
+                                    .astype(np.float32))
+                   .to(cuda_device, torch.bfloat16).transpose(1, 2)
+                   for _ in range(4))
+    assert q.stride(2) > q.stride(1)
+    cfg = tfa.FlashConfig(True, None, *tfa.resolve_blocks(
+        300, cuda_device, None, None))
+    out, lse = tfa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                             cfg)
+    out_view = out.transpose(1, 2).contiguous().transpose(1, 2)
+    got = tfa.flash_bwd(q, k, v, out_view, lse, do, cfg)
+    want = tfa.flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out,
+                         lse, do.contiguous(), cfg)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _bytes(a) == _bytes(b), name
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic_at_the_path_shape(cuda_device):
+    """K5 at the flash LM's call (B16 H16 S2047 D64, bf16, causal) gives
+    the same bits run to run, and two launches a call (dq with delta,
+    then dk/dv)."""
+    q, k, v, do = _flash_inputs(cuda_device, (16, 2047, 16, 64),
+                                torch.bfloat16, seed=6)
+    cfg = tfa.FlashConfig(True, None, *tfa.resolve_blocks(
+        2047, cuda_device, None, None))
+    out, lse = tfa.flash_fwd(q, k, v, cfg)
+    before = tq.launch_counts["flash_bwd"]
+    first = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    assert tq.launch_counts["flash_bwd"] == before + 2
+    second = tfa.flash_bwd(q, k, v, out, lse, do, cfg)
+    assert tq.launch_counts["flash_bwd"] == before + 4
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert _bytes(x) == _bytes(y), name
+        assert torch.isfinite(x.float()).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_folds_delta_as_torch_does(cuda_device, dtype):
+    """The dq kernel's delta = rowsum(do * out) at the path's shape equals
+    the torch delta (``flash_delta_plain``) within f32 rounding: rtol
+    1e-6, plus the bound on two summation orders of D products (2 D 2**-24
+    of the row's sum of |do * out|; the bf16 kernel sums in the plain
+    version's d order, the f32 scalar kernel over 16 lanes). It carries
+    the same bits run to run."""
+    shape = (16, 2047, 16, 64) if dtype == torch.bfloat16 else (2, 2047, 4, 64)
+    q, k, v, do = _flash_inputs(cuda_device, shape, dtype, seed=7)
+    cfg = tfa.FlashConfig(True, None, *tfa.resolve_blocks(
+        2047, cuda_device, None, None))
+    out, lse = tfa.flash_fwd(q, k, v, cfg)
+    delta = tfa.flash_bwd_kernels(q, k, v, out, lse, do, cfg)[3]
+    again = tfa.flash_bwd_kernels(q, k, v, out, lse, do, cfg)[3]
+    want = tfa.flash_delta_plain(out, do)
+    assert delta.shape == want.shape == (shape[0], shape[2], shape[1])
+    mag = (do.float() * out.float()).abs().sum(-1).transpose(1, 2)
+    tol = 1e-6 * want.abs() + 2 * shape[3] * 2.0 ** -24 * mag
+    assert bool(((delta - want).abs() <= tol).all())
+    assert _bytes(delta) == _bytes(again)
 
 
 @pytest.mark.cuda

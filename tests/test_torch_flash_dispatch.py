@@ -80,14 +80,15 @@ def _as_if_on_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("interpret,want", [
-    (None, ["tft_flash_fwd", "tft_flash_bwd_dkdv", "tft_flash_bwd_dq"]),
-    (False, ["tft_flash_fwd", "tft_flash_bwd_dkdv", "tft_flash_bwd_dq"]),
+    (None, ["tft_flash_fwd", "tft_flash_bwd_dq", "tft_flash_bwd_dkdv"]),
+    (False, ["tft_flash_fwd", "tft_flash_bwd_dq", "tft_flash_bwd_dkdv"]),
     (True, []),
 ])
 def test_interpret_asks_for_the_plain_version(monkeypatch, interpret, want):
     """``interpret=True`` runs the plain versions whatever the device;
     ``None`` (and ``False``) keep the dispatch, which on a card tensor
-    launches K4 and K5 and never falls back."""
+    launches K4 and K5 (dq, which writes delta, before dk/dv) and never
+    falls back."""
     launches = _as_if_on_the_card(monkeypatch)
     q, k, v = (torch.randn(1, 8, 2, 64, requires_grad=True) for _ in range(3))
     out = tfa.flash_attention(q, k, v, interpret=interpret)
@@ -97,3 +98,12 @@ def test_interpret_asks_for_the_plain_version(monkeypatch, interpret, want):
         monkeypatch.undo()  # the CPU route: the plain versions
         ref = tfa.flash_attention(q.detach(), k.detach(), v.detach())
         assert torch.equal(out.detach(), ref)
+
+
+def test_the_backward_kernels_refuse_host_tensors():
+    """``flash_bwd_kernels`` is the card's path alone: CPU tensors raise
+    before any launch (``flash_bwd`` takes the plain version for them)."""
+    q = torch.zeros(1, 8, 1, 64)
+    cfg = tfa.FlashConfig(True, None, 64, 64)
+    with pytest.raises(ValueError, match="on the card"):
+        tfa.flash_bwd_kernels(q, q, q, q, torch.zeros(1, 1, 8), q, cfg)

@@ -21,8 +21,13 @@
 //   dk += ds^T . q and dq += ds . k; dq stays f32 until its store.
 // - Every load past S is zero-filled, and masks always include the
 //   bounds: the GPU needs no padding in memory.
-// Build WITHOUT --use_fast_math: expf/logf and the divide must be the
-// accurate ones.
+// Build WITHOUT --use_fast_math: the forward's expf/logf and divide, and
+// every f32 kernel's, are the accurate ones. The bf16 backward rebuilds p
+// = exp(s - lse) with ex2.approx of the log2e-scaled argument (exp_approx:
+// relative error about 2^-21 against p's one rounding to bf16, 2^-9; on
+// the smoke's cases the errors against the plain version did not move,
+// PERF.md), which cut the instruction issue its elementwise part is bound
+// by.
 //
 // Bound on this card (H100 SXM) at the path's call (B16 H16 S2047 D64,
 // causal, bf16): operations. The minimal work is two products of 2 flops
@@ -41,7 +46,7 @@
 // in through a two-stage cp.async ring every thread issues; the forward
 // 0.88 ms, 156 TFLOP/s).
 //
-// The forward (K4) is now built for Hopper:
+// Both are now built for Hopper. The forward (K4):
 // - a block is one warpgroup (4 warps) over 64 query rows of one (batch,
 //   head); each product is one wgmma.mma_async per k16 step for the whole
 //   warpgroup, so a shared B tile is read once per 64 rows, not once per
@@ -60,7 +65,7 @@
 // - wgmma's accumulator gives warp w rows 16w + g and 16w + g + 8 in
 //   mma.sync's per-8-column C layout, so the online softmax (rows reduced
 //   over the quad of lanes that hold them) and the f32 -> bf16 A-fragment
-//   pack of p are those of the mma.sync kernels.
+//   pack of p are those of mma.sync's fragments.
 // What bounds it is the softmax's instruction issue, not the tensor
 // cores: the accurate expf is a range reduction, an ex2 and a rescale
 // for every (query, key) pair, and with the max, the sum, o's rescale and
@@ -70,14 +75,33 @@
 // others' softmax. Two warpgroups sharing each k/v tile (with or without a
 // producer warp and empty barriers) and overlapping a tile's softmax with
 // the next products inside a warpgroup were both slower on the card.
-// The backward (K5) stays on mma.sync: each warp owns 16 rows, operands
-// come in as ldmatrix fragments from tiles padded to D + 8 elements (8
-// rows of an ldmatrix in 8 distinct bank groups), p and ds go from the f32
-// accumulators straight into bf16 A-fragments, and the streamed tiles
-// (k/v in dq, q/do/lse/delta in dk/dv) go through a two-stage cp.async
-// ring of 16-byte copies, rows past S zero-filled by the copy's source
-// size. cp.async and TMA both need 16-byte aligned rows: the entry points
-// refuse a bf16 pointer or stride that is not.
+// The backward (K5) is the same machine, twice (its mma.sync kernels,
+// with ldmatrix fragments and a cp.async ring, ran at 162-166 TFLOP/s of
+// the products they execute):
+// - dq: a block is one warpgroup over 64 query rows; q and do come in
+//   once by TMA, k and v through the two-stage ring. s = q . k^T and
+//   dp = do . v^T read both operands K-major; dq += ds . k takes ds from
+//   registers and reads the same swizzled k tile MN-major (a second
+//   descriptor over it), as the forward reads v.
+// - dk/dv: a block is one warpgroup over 64 keys; k and v come in once,
+//   q and do through the ring, lse and delta by 4-byte cp.async beside
+//   them (a (B, H, S) row is S * 4 bytes apart, off TMA's 16-byte grid;
+//   past S they read zeros). s^T = k . q^T and dp^T = v . do^T take k and
+//   v as A; dv += p^T . do and dk += ds^T . q take p^T and ds^T from
+//   registers and read do and q MN-major. dk and dv stay in registers
+//   across the query loop.
+// - delta = rowsum(do * out) is folded into dq, which is launched first:
+//   each dq block reduces its own 64 rows (a thread a row, one chain of
+//   f32 FMAs in d order, the plain version's order) and writes them to a
+//   (B, H, S) f32 buffer that dk/dv then reads. No torch pass widens do
+//   and out to f32 copies (that pass took 0.47 ms at the path's call, the
+//   fold about 0.03).
+// As in K4, the elementwise work between the products (p, the masks, ds,
+// the packs) bounds both kernels, not the tensor cores; hence ex2.approx
+// for p. Overlapping it with a product inside a warpgroup (p's exp under
+// dp's product, or ds under dv's) was slower on the card.
+// TMA, cp.async and the 16-byte loads need 16-byte aligned rows: the entry
+// points refuse a bf16 pointer or stride that is not.
 //
 // f32: scalar kernels. f32 products on tensor cores would be TF32, which
 // keeps 10 mantissa bits and breaks the 2e-5 tolerance that the JAX
@@ -98,6 +122,10 @@
 // run. The two kernels form s and dp with differently shaped products (dq
 // takes q . k^T, dkdv k . q^T), whose f32 sums may round apart, so an
 // element of ds may differ in its last bf16 place between dq and dk.
+// wgmma's M is 64, so the dk/dv key tile is 64 whatever block_k is: how
+// keys are grouped into blocks changes no key's sum (its query tiles are
+// added in the same order), and block_k only shapes the dq kernel's key
+// loop and its masks.
 //
 // Window 1. Each query then sees only its own key: p = 1, out = v, and
 // ds = dp - delta subtracts two f32 sums of the same products, zero but for
@@ -105,13 +133,15 @@
 // the one live dp of a row as a dot product of its do and v rows, one f32
 // FMA per element in d order (the order of an f32 matmul, which the plain
 // version uses), instead of a tensor-core tile of which one element per row
-// is live.
+// is live; the rows are read out of the swizzled tiles (sw_at). delta is
+// folded in the same order (fold_delta), as the plain version takes it.
 //
 // C interface (route (b): nvcc -> .so, bound with ctypes). Each entry
 // point launches on the caller's stream, never synchronises, and returns
 // cudaGetLastError() (0 = success); tft_cuda_error_string is in
 // quantize_kernels.cu. tft_wgmma_tile_test runs one tile product of each
-// kind the forward uses, for the card tests.
+// kind the kernels use, for the card tests. The backward is two launches,
+// dq (which writes delta) before dk/dv (which reads it), on one stream.
 
 #include <cuda.h>  // CUtensorMap and its enums (the types only)
 #include <cuda_bf16.h>
@@ -123,16 +153,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 64;         // query rows per tile; also the dkdv query tile
-constexpr int kRows = 16;       // rows of one mma tile: each warp owns 16 rows
-constexpr int kMmaThreads = 128;  // forward and dq: 4 warps x 16 query rows
-// Blocks per SM the D64 mma.sync kernels are compiled for (registers
-// capped at 65536 / (blocks x threads)): registers, not shared memory,
-// set their occupancy, and the cap buys a block per SM (dq 3 -> 4, dk/dv
-// 2 -> 3) for 4-32 bytes of spill per thread (ptxas -v). D128 keeps its
-// registers. The wgmma forward has its own (kWgBlocks).
-template <int D> constexpr int kMmaBlocks = D == 64 ? 4 : 1;
-template <int D> constexpr int kDkdvBlocks = D == 64 ? 3 : 1;
+constexpr int kBM = 64;  // query rows per tile; also the dk/dv key and query tiles
+constexpr int kRows = 16;  // rows of one m16 slice: warp w of a warpgroup owns 16
+constexpr int kMmaThreads = 128;  // every bf16 kernel: one warpgroup
 constexpr int kThreads = 256;   // the scalar f32 kernels
 constexpr float kNegLarge = -1e30f;
 
@@ -141,15 +164,16 @@ struct Args {
   const void* k;
   const void* v;
   const void* dout;
+  const void* o;  // dq: the forward's out, read for delta
   const float* lse_in;
-  const float* delta;
+  const float* delta;  // dkdv: delta as the dq kernel wrote it
   void* out0;  // fwd: out; dkdv: dk; dq: dq
-  void* out1;  // fwd: lse (f32); dkdv: dv
+  void* out1;  // fwd: lse (f32); dkdv: dv; dq: delta (f32)
   int B, S, H;
-  // (batch, seq, head) strides in elements of q, k, v, do; the last dim
-  // is contiguous. Outputs are contiguous (B, S, H, D); lse and delta
-  // are contiguous (B, H, S) f32.
-  int64_t sq[3], sk[3], sv[3], sdo[3];
+  // (batch, seq, head) strides in elements of q, k, v, do and out; the
+  // last dim is contiguous. Outputs are contiguous (B, S, H, D); lse and
+  // delta are contiguous (B, H, S) f32.
+  int64_t sq[3], sk[3], sv[3], sdo[3], so[3];
   int causal, window, fast;  // window 0: none
 };
 
@@ -187,25 +211,16 @@ __device__ __forceinline__ void query_range(const Args& a, int k0, int* lo,
 }
 
 // ---------------------------------------------------------------------------
-// PTX of the tensor-core kernels (sm_80 and later)
+// Register and shared-memory helpers of the bf16 kernels
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte global -> shared copy past L1; the bytes past src_bytes (0 or 16)
-// are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// 4-byte copy, likewise (lse and delta rows: S * 4 bytes apart, so not
-// 16-byte aligned).
+// 4-byte global -> shared copy; the bytes past src_bytes (0 or 4) are
+// zero-filled (lse and delta rows: S * 4 bytes apart, so not 16-byte
+// aligned).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
@@ -224,121 +239,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// The same, each matrix transposed on its way into the registers.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d (16x8 f32) += a (16x16 bf16, row-major) . b (16x8 bf16, column-major)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two f32 rounded to bf16 (nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core building blocks. Fragment layouts of mma.m16n8k16 (g = lane
-// / 4, t = lane % 4): an accumulator holds rows g and g + 8, columns 2t and
-// 2t + 1 of its 16x8 tile, as {[g][2t], [g][2t+1], [g+8][2t], [g+8][2t+1]}.
-// ---------------------------------------------------------------------------
+// Fragment layouts of mma.m16n8k16, which wgmma's accumulators and
+// register A operands share (g = lane / 4, t = lane % 4): an accumulator
+// holds rows g and g + 8, columns 2t and 2t + 1 of its 16x8 tile, as
+// {[g][2t], [g][2t+1], [g+8][2t], [g+8][2t+1]}.
 
-// Rows [r0, r0 + rows) of one (b, h) slice into a shared tile whose rows are
-// D + 8 elements apart, one 16-byte copy per chunk; rows at or past S are
-// zero-filled through the copy's source size, so no read leaves the tensor.
-template <int D, int NT>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
-                                        int64_t row_stride, int r0, int rows,
-                                        int S) {
-  constexpr int kChunks = D / 8;
-  for (int e = threadIdx.x; e < rows * kChunks; e += NT) {
-    const int r = e / kChunks, c = e % kChunks, s = r0 + r;
-    const bool in = s < S;
-    cp_async16(dst + r * (D + 8) + c * 8, in ? src + s * row_stride + c * 8 : src,
-               in ? 16 : 0);
-  }
-}
-
-// kBM f32 values [r0, r0 + kBM) of a row of length S, zero past S.
-template <int NT>
-__device__ __forceinline__ void cp_vec(float* dst, const float* src, int r0,
-                                       int S) {
-  for (int e = threadIdx.x; e < kBM; e += NT) {
-    const int s = r0 + e;
-    cp_async4(dst + e, s < S ? src + s : src, s < S ? 4 : 0);
-  }
-}
-
-// A-fragments of the 16 x D rows [row0, row0 + 16) of a row-major tile.
-template <int LD, int KD>
-__device__ __forceinline__ void load_a(uint32_t (&af)[KD][4], const bf16* t,
-                                       int row0) {
-  const int l = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(af[kk], t + (row0 + (l & 15)) * LD + kk * 16 + (l >> 4) * 8);
-}
-
-// acc (16 x 8NB) += A . B^T: A from fragments (16 x 16KD), B the first 8NB
-// rows of tile b (8NB x 16KD, row-major; e.g. k for s = q . k^T).
-template <int LD, int KD, int NB>
-__device__ __forceinline__ void mma_abt(float (&acc)[NB][4],
-                                        const uint32_t (&af)[KD][4],
-                                        const bf16* b) {
-  const int l = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-    for (int nb = 0; nb < NB; nb += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (nb * 8 + (l >> 4) * 8 + (l & 7)) * LD + kk * 16 +
-                      ((l >> 3) & 1) * 8);
-      mma16816(acc[nb], af[kk], bf[0], bf[1]);
-      mma16816(acc[nb + 1], af[kk], bf[2], bf[3]);
-    }
-}
-
-// acc (16 x 8ND) += P . B: P from f32 accumulators (16 x 8NP), rounded to
-// bf16 into A-fragments in registers; B the first 8NP rows of tile b
-// (8NP x 8ND, row-major; e.g. v for o = p . v), read transposed.
-template <int LD, int NP, int ND>
-__device__ __forceinline__ void mma_pb(float (&acc)[ND][4],
-                                       const float (&p)[NP][4], const bf16* b) {
-  const int l = threadIdx.x & 31;
+// f32 accumulators (16 x 8NP: the NP blocks of 8 columns of rows g and
+// g + 8) rounded to bf16 into the A-fragments of NP / 2 k16 steps.
+template <int NP>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[NP / 2][4],
+                                       const float (&x)[NP][4]) {
 #pragma unroll
   for (int kc = 0; kc < NP / 2; ++kc) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-                            pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-                            pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                            pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < ND; nd += 2) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b + (kc * 16 + (l & 7) + ((l >> 3) & 1) * 8) * LD +
-                        nd * 8 + (l >> 4) * 8);
-      mma16816(acc[nd], pa, bf[0], bf[1]);
-      mma16816(acc[nd + 1], pa, bf[2], bf[3]);
-    }
+    a[kc][0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
+    a[kc][1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
+    a[kc][2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
+    a[kc][3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
   }
 }
 
@@ -359,14 +281,27 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// dp of the one live pair of a window-1 row: the f32 dot product of two
-// bf16 rows of D, one FMA per element in d order (see the note at the top).
+// Element (r, d) of a bf16 tile as TMA's 128-byte swizzle lays it out from
+// a 1024-aligned base: boxes of `rows` rows x 64 columns (128 B a row),
+// box d / 64 after the others, and 16-byte chunk c of row r at c ^ (r & 7).
+__device__ __forceinline__ float sw_at(const unsigned char* tile, int rows,
+                                       int r, int d) {
+  const int off = (d >> 6) * rows * 128 + r * 128 +
+                  ((((d & 63) >> 3) ^ (r & 7)) << 4) + (d & 7) * 2;
+  return __bfloat162float(*reinterpret_cast<const bf16*>(tile + off));
+}
+
+// dp of the one live pair of a window-1 row: the f32 dot product of row
+// xr of tile x and row yr of tile y (swizzled, as sw_at reads them), one
+// FMA per element in d order (see the note at the top).
 template <int D>
-__device__ __forceinline__ float dot_rows(const bf16* x, const bf16* y) {
+__device__ __forceinline__ float dot_rows(const unsigned char* x, int xrows,
+                                          int xr, const unsigned char* y,
+                                          int yrows, int yr) {
   float acc = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d)
-    acc = fmaf(__bfloat162float(x[d]), __bfloat162float(y[d]), acc);
+    acc = fmaf(sw_at(x, xrows, xr, d), sw_at(y, yrows, yr, d), acc);
   return acc;
 }
 
@@ -398,7 +333,7 @@ __device__ __forceinline__ void store_rows(bf16* out, bf16* stage,
 }
 
 // ---------------------------------------------------------------------------
-// PTX of the Hopper forward (sm_90a): mbarriers, TMA, wgmma
+// PTX of the Hopper kernels (sm_90a): mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -734,13 +669,7 @@ __global__ void __launch_bounds__(kMmaThreads, kWgBlocks<D>)
     // o += p . v: p rounded to bf16 into A fragments in registers; v read
     // down its rows, each k16 step 16 rows (2048 B) further
     uint32_t pa[NK][4];
-#pragma unroll
-    for (int kc = 0; kc < NK; ++kc) {
-      pa[kc][0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[kc][1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[kc][2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[kc][3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-    }
+    pack_a(pa, s);
 #pragma unroll
     for (int dh = 0; dh < DH; ++dh) fence_regs(o[dh]);
     wgmma_fence();
@@ -774,10 +703,11 @@ __global__ void __launch_bounds__(kMmaThreads, kWgBlocks<D>)
                 q0 + row0);
 }
 
-// One wgmma tile product of each kind the forward uses, for the card
+// One wgmma tile product of each kind the kernels use, for the card
 // tests: c (64 x 64 f32) = a . b^T with a and b K-major in shared memory
-// (mn_major 0, as s = q . k^T), or a . b with a in registers and b
-// MN-major (mn_major 1, as o = p . v). a and b are contiguous 64 x 64
+// (mn_major 0, as s = q . k^T, s^T = k . q^T and the dp products), or
+// a . b with a in registers and b MN-major (mn_major 1, as o = p . v,
+// dq = ds . k, dv = p^T . do and dk = ds^T . q). a and b are contiguous 64 x 64
 // bf16 and come in through the forward's tensor maps.
 __global__ void __launch_bounds__(kMmaThreads)
     wgmma_tile_test_kernel(const __grid_constant__ CUtensorMap ta,
@@ -834,183 +764,177 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K5 backward, part 1, bf16: dk, dv (grid over key tiles, loop over query
-// tiles). Each warp owns 16 keys, so BN / 16 warps.
+// K5 backward, bf16: dq with delta, then dk and dv (TMA rings, mbarriers,
+// wgmma)
 // ---------------------------------------------------------------------------
 
-template <int D, int BN>
-constexpr size_t dkdv_mma_smem() {
-  return sizeof(bf16) * (2 * BN + 4 * kBM) * (D + 8) + sizeof(float) * 4 * kBM;
+// Blocks per SM the backward kernels are compiled for (registers capped at
+// 65536 / (blocks x 128)), as K4's, chosen in turns on the card: at D64 dq
+// fits four (128 registers, no spill; 4% faster than three), dk/dv three
+// (168; at four, 126 registers and 504 B spilled made it 1.66x slower).
+// D128 takes two of each (up to 250 registers, no spill).
+template <int D> constexpr int kDqBlocks = D == 64 ? 4 : 2;
+template <int D> constexpr int kDkdvBlocks = D == 64 ? 3 : 2;
+
+// exp(x) as ex2.approx(x log2e): a multiply and the SFU's 2^x, where the
+// accurate expf is a range reduction, an ex2 and a rescale (see the note
+// at the top).
+__device__ __forceinline__ float exp_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
 }
 
-template <int D, int BN>
-__global__ void __launch_bounds__(2 * BN, kDkdvBlocks<D>)
-    flash_bwd_dkdv_mma_kernel(Args a) {
-  constexpr int NT = 2 * BN;  // BN / 16 warps of 32
-  constexpr int LD = D + 8, KD = D / 16, NQ = kBM / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BN][LD]; at the end, dk
-  bf16* Vs = Ks + BN * LD;                   // [BN][LD]; at the end, dv
-  bf16* Qs = Vs + BN * LD;                   // [2][kBM][LD]
-  bf16* dOs = Qs + 2 * kBM * LD;             // [2][kBM][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kBM * LD);  // [2][kBM]
-  float* delta_s = lse_s + 2 * kBM;                             // [2][kBM]
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = (threadIdx.x >> 5) * kRows;  // this warp's keys
-  const int k0 = blockIdx.x * BN;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, S = a.S;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[2];
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[2];
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[2];
-  const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.sdo[0] + h * a.sdo[2];
-  const float* lse = a.lse_in + static_cast<int64_t>(bh) * S;
-  const float* delta = a.delta + static_cast<int64_t>(bh) * S;
-  int lo, hi;
-  query_range<BN>(a, k0, &lo, &hi);
+// Descriptor offsets, in 16-byte units, into a swizzled tile of boxes of
+// `rows` rows: k16 step kk of a K-major operand (+32 B along a row, the
+// next box every 4 steps), and k16 step kc over the 64 columns of box dh
+// of an MN-major one (+16 rows, 2048 B).
+__device__ __forceinline__ uint32_t kmajor_step(int kk, int rows) {
+  return ((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4;
+}
+__device__ __forceinline__ uint32_t mnmajor_step(int dh, int kc, int rows) {
+  return (dh * rows * 128 + kc * 2048) >> 4;
+}
 
-  cp_rows<D, NT>(Ks, k, a.sk[1], k0, BN, S);
-  cp_rows<D, NT>(Vs, v, a.sv[1], k0, BN, S);
-  if (lo < hi) {
-    cp_rows<D, NT>(Qs, q, a.sq[1], lo * kBM, kBM, S);
-    cp_rows<D, NT>(dOs, dout, a.sdo[1], lo * kBM, kBM, S);
-    cp_vec<NT>(lse_s, lse, lo * kBM, S);
-    cp_vec<NT>(delta_s, delta, lo * kBM, S);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  float dk[ND][4], dv[ND][4];
-  zero(dk);
-  zero(dv);
-  for (int it = lo; it < hi; ++it) {
-    const int stage = (it - lo) & 1;
-    if (it + 1 < hi) {  // the next query tile into the other stage
-      const int nxt = (stage ^ 1) * kBM, r1 = (it + 1) * kBM;
-      cp_rows<D, NT>(Qs + nxt * LD, q, a.sq[1], r1, kBM, S);
-      cp_rows<D, NT>(dOs + nxt * LD, dout, a.sdo[1], r1, kBM, S);
-      cp_vec<NT>(lse_s + nxt, lse, r1, S);
-      cp_vec<NT>(delta_s + nxt, delta, r1, S);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qt = Qs + stage * kBM * LD;
-    const bf16* dOt = dOs + stage * kBM * LD;
-    const float* lse_t = lse_s + stage * kBM;
-    const float* delta_t = delta_s + stage * kBM;
-    const int q0 = it * kBM;
-    // s^T = k . q^T and dp^T = v . do^T: rows keys, columns queries
-    float st[NQ][4], dpt[NQ][4];
-    zero(st);
-    zero(dpt);
-    {
-      // this warp's k, then v rows as A-fragments (reloaded per tile:
-      // holding them costs the registers of a third block per SM)
-      uint32_t af[KD][4];
-      load_a<LD>(af, Ks, row0);
-      mma_abt<LD>(st, af, Qt);
-      load_a<LD>(af, Vs, row0);
-      mma_abt<LD>(dpt, af, dOt);
-    }
-    const bool masked = tile_masked(a, q0, kBM, k0, BN);
+// delta = rowsum(do * out) of the kBM rows from q0 of head h of batch b,
+// into delta_s and rows < S of the (B, H, S) f32 delta (a.out1): thread r
+// < kBM takes row r through 16-byte loads as one chain of FMAs in d order
+// (a bf16 product is exact in f32, so this is the plain version's chain
+// of adds bit for bit, and in window 1, where out = v, it is dot_rows's
+// dp: ds is then exactly 0). Rows past S give 0.
+template <int D>
+__device__ __forceinline__ void fold_delta(const Args& a, int b, int h,
+                                           int q0, float* delta_s) {
+  const int r = threadIdx.x, s = q0 + r;
+  if (r >= kBM) return;
+  float acc = 0.f;
+  if (s < a.S) {
+    const uint4* x = reinterpret_cast<const uint4*>(
+        static_cast<const bf16*>(a.dout) + b * a.sdo[0] + s * a.sdo[1] +
+        h * a.sdo[2]);
+    const uint4* y = reinterpret_cast<const uint4*>(
+        static_cast<const bf16*>(a.o) + b * a.so[0] + s * a.so[1] +
+        h * a.so[2]);
 #pragma unroll
-    for (int nb = 0; nb < NQ; ++nb) {
-      // lse and delta of this thread's two query columns 2t, 2t + 1
-      const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + nb * 8 + 2 * t);
-      const float2 delta2 =
-          *reinterpret_cast<const float2*>(delta_t + nb * 8 + 2 * t);
+    for (int c = 0; c < D / 8; ++c) {
+      const uint4 xv = __ldg(x + c), yv = __ldg(y + c);
+      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+      const bf16* ye = reinterpret_cast<const bf16*>(&yv);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nb * 8 + 2 * t + (e & 1), ki = row0 + g + (e >> 1) * 8;
-        float p = expf(st[nb][e] - (e & 1 ? lse2.y : lse2.x));
-        if (masked && !live(a, q0 + qi, k0 + ki)) p = 0.f;
-        const float dp = a.window == 1 && q0 + qi == k0 + ki
-                             ? dot_rows<D>(dOt + qi * LD, Vs + ki * LD)
-                             : dpt[nb][e];
-        st[nb][e] = p;
-        dpt[nb][e] = p * (dp - (e & 1 ? delta2.y : delta2.x));  // ds^T
-      }
+      for (int e = 0; e < 8; ++e)
+        acc = fmaf(__bfloat162float(xe[e]), __bfloat162float(ye[e]), acc);
     }
-    mma_pb<LD>(dv, st, dOt);   // p^T rounded to bf16 on its way in
-    mma_pb<LD>(dk, dpt, Qt);   // ds^T likewise: its one rounding
-    __syncthreads();           // the next iteration refills this stage
+    static_cast<float*>(a.out1)[static_cast<int64_t>(b * a.H + h) * a.S + s] =
+        acc;
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(static_cast<bf16*>(a.out0), Ks + row0 * LD, dk, one, a, b, h,
-                k0 + row0);
-  store_rows<D>(static_cast<bf16*>(a.out1), Vs + row0 * LD, dv, one, a, b, h,
-                k0 + row0);
+  delta_s[r] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// K5 backward, part 2, bf16: dq (grid over query tiles, loop over key tiles)
-// ---------------------------------------------------------------------------
-
+// Shared memory of the dq kernel, byte offsets from a 1024-aligned base:
+// q and do (D/64 boxes of 64 rows each), the ring of k and v tiles (D/64
+// boxes of BN rows), delta of the block's rows, then the barriers (q and
+// do's, one per stage).
 template <int D, int BN>
-constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * (2 * kBM + 4 * BN) * (D + 8);
-}
+struct DqSmem {
+  static constexpr int q_bytes = kBM * D * 2;  // q (or do)
+  static constexpr int kv_bytes = BN * D * 2;  // one k (or v) tile
+  static constexpr int dO = q_bytes;
+  static constexpr int k = 2 * q_bytes;
+  static constexpr int v = k + kStages * kv_bytes;
+  static constexpr int delta = v + kStages * kv_bytes;
+  static constexpr int bars = delta + kBM * 4;
+  // + slack to align the base
+  static constexpr int bytes = bars + 8 * (1 + kStages) + 1024;
+};
 
+// One block: 64 query rows of one (batch, head), one warpgroup, laid out
+// as the forward; thread 0 issues every TMA load.
 template <int D, int BN>
-__global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
-    flash_bwd_dq_mma_kernel(Args a) {
-  constexpr int LD = D + 8, KD = D / 16, NB = BN / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kBM][LD]; at the end, dq
-  bf16* dOs = Qs + kBM * LD;                 // [kBM][LD]
-  bf16* Ks = dOs + kBM * LD;                 // [2][BN][LD]
-  bf16* Vs = Ks + 2 * BN * LD;               // [2][BN][LD]
+__global__ void __launch_bounds__(kMmaThreads, kDqBlocks<D>)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo, Args a,
+                              TmaOrder oq, TmaOrder ok, TmaOrder ov,
+                              TmaOrder odo) {
+  using L = DqSmem<D, BN>;
+  constexpr int DH = D / 64, NB = BN / 8, NK = BN / 16, LD = D + 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);  // q, stages
+  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = (threadIdx.x >> 5) * kRows;
+  const int row0 = (threadIdx.x >> 5) * kRows;  // this warp's rows
+  // the causal grid's heaviest tiles (last rows) start first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, S = a.S;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[2];
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[2];
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[2];
-  const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.sdo[0] + h * a.sdo[2];
-  const float* lse = a.lse_in + static_cast<int64_t>(bh) * S;
-  const float* delta = a.delta + static_cast<int64_t>(bh) * S;
   int lo, hi;
   key_range<BN>(a, q0, &lo, &hi);
 
-  cp_rows<D, kMmaThreads>(Qs, q, a.sq[1], q0, kBM, S);
-  cp_rows<D, kMmaThreads>(dOs, dout, a.sdo[1], q0, kBM, S);
-  cp_rows<D, kMmaThreads>(Ks, k, a.sk[1], lo * BN, BN, S);
-  cp_rows<D, kMmaThreads>(Vs, v, a.sv[1], lo * BN, BN, S);
-  cp_async_commit();
+  // tile j's k and v into stage st (thread 0)
+  const auto load_kv = [&](int st, int j) {
+    mbar_expect_tx(&bars[1 + st], 2 * L::kv_bytes);
+#pragma unroll
+    for (int c = 0; c < DH; ++c) {
+      tma_box(smem + L::k + st * L::kv_bytes + c * BN * 128, &tk, &bars[1 + st],
+              ok, 64 * c, h, j * BN, b);
+      tma_box(smem + L::v + st * L::kv_bytes + c * BN * 128, &tv, &bars[1 + st],
+              ov, 64 * c, h, j * BN, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bars[0], 2 * L::q_bytes);
+#pragma unroll
+    for (int c = 0; c < DH; ++c) {
+      tma_box(smem + c * kBM * 128, &tq, &bars[0], oq, 64 * c, h, q0, b);
+      tma_box(smem + L::dO + c * kBM * 128, &tdo, &bars[0], odo, 64 * c, h,
+              q0, b);
+    }
+    for (int st = 0; st < kStages && lo + st < hi; ++st) load_kv(st, lo + st);
+  }
+  // while the tiles arrive: delta of this block's rows, for dq here and
+  // for dk/dv after it
+  fold_delta<D>(a, b, h, q0, delta_s);
+  __syncthreads();  // the barriers are initialised, delta_s written
+  const float* lse = a.lse_in + static_cast<int64_t>(bh) * S;
   float lse_r[2], delta_r[2];  // rows g and g + 8
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = q0 + row0 + g + 8 * i;
-    lse_r[i] = r < S ? lse[r] : 0.f;
-    delta_r[i] = r < S ? delta[r] : 0.f;
+    const int r = row0 + g + 8 * i;
+    lse_r[i] = q0 + r < S ? lse[q0 + r] : 0.f;
+    delta_r[i] = delta_s[r];
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  float dq[ND][4];
-  zero(dq);
+  const uint64_t q_desc = sw128_desc(smem), do_desc = sw128_desc(smem + L::dO),
+                 k_desc = sw128_desc(smem + L::k),
+                 v_desc = sw128_desc(smem + L::v);
+  float dq[DH][8][4];
+#pragma unroll
+  for (int dh = 0; dh < DH; ++dh) zero(dq[dh]);
+  mbar_wait(&bars[0], 0);
   for (int j = lo; j < hi; ++j) {
-    const int stage = (j - lo) & 1;
-    if (j + 1 < hi) {
-      const int nxt = (stage ^ 1) * BN * LD;
-      cp_rows<D, kMmaThreads>(Ks + nxt, k, a.sk[1], (j + 1) * BN, BN, S);
-      cp_rows<D, kMmaThreads>(Vs + nxt, v, a.sv[1], (j + 1) * BN, BN, S);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks + stage * BN * LD;
-    const bf16* Vt = Vs + stage * BN * LD;
+    const int it = j - lo, st = it % kStages;
+    const uint32_t stage16 = st * (L::kv_bytes >> 4);
+    mbar_wait(&bars[1 + st], (it / kStages) & 1);
+    // s = q . k^T and dp = do . v^T, both operands K-major; the first k16
+    // step of each overwrites it
     float s[NB][4], dp[NB][4];
-    zero(s);
-    zero(dp);
-    {
-      uint32_t af[KD][4];  // as in dk/dv, reloaded per tile
-      load_a<LD>(af, Qs, row0);
-      mma_abt<LD>(s, af, Kt);
-      load_a<LD>(af, dOs, row0);
-      mma_abt<LD>(dp, af, Vt);
-    }
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, q_desc + kmajor_step(kk, kBM),
+               k_desc + stage16 + kmajor_step(kk, BN), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, do_desc + kmajor_step(kk, kBM),
+               v_desc + stage16 + kmajor_step(kk, BN), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
     const int k0 = j * BN;
     const bool masked = tile_masked(a, q0, kBM, k0, BN);
 #pragma unroll
@@ -1018,19 +942,228 @@ __global__ void __launch_bounds__(kMmaThreads, kMmaBlocks<D>)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = row0 + g + (e >> 1) * 8, ki = nb * 8 + 2 * t + (e & 1);
-        float p = expf(s[nb][e] - lse_r[e >> 1]);
+        float p = exp_approx(s[nb][e] - lse_r[e >> 1]);
         if (masked && !live(a, q0 + qi, k0 + ki)) p = 0.f;
-        const float dpe = a.window == 1 && q0 + qi == k0 + ki
-                              ? dot_rows<D>(dOs + qi * LD, Vt + ki * LD)
-                              : dp[nb][e];
+        const float dpe =
+            a.window == 1 && q0 + qi == k0 + ki
+                ? dot_rows<D>(smem + L::dO, kBM, qi,
+                              smem + L::v + st * L::kv_bytes, BN, ki)
+                : dp[nb][e];
         s[nb][e] = p * (dpe - delta_r[e >> 1]);  // ds
       }
-    mma_pb<LD>(dq, s, Kt);  // ds rounded to bf16 on its way in
-    __syncthreads();
+    // dq += ds . k: ds rounded to bf16 into A fragments (its one
+    // rounding); the same k tile read down its rows (MN-major), n64 per
+    // 64 columns of D
+    uint32_t da[NK][4];
+    pack_a(da, s);
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh) fence_regs(dq[dh]);
+    wgmma_fence();
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh)
+#pragma unroll
+      for (int kc = 0; kc < NK; ++kc)
+        wgmma_rs(dq[dh], da[kc], k_desc + stage16 + mnmajor_step(dh, kc, BN));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh) fence_regs(dq[dh]);
+    __syncthreads();  // every warp's products have read this stage
+    if (threadIdx.x == 0 && j + kStages < hi) load_kv(st, j + kStages);
   }
+  // each warp stages its rows in its own 16 rows of padded shared memory
+  // (q, do and the ring are no longer read: every load was waited for)
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(static_cast<bf16*>(a.out0), Qs + row0 * LD, dq, one, a, b, h,
+  store_rows<D>(static_cast<bf16*>(a.out0),
+                reinterpret_cast<bf16*>(smem) + row0 * LD,
+                reinterpret_cast<const float(&)[D / 8][4]>(dq), one, a, b, h,
                 q0 + row0);
+}
+
+// Shared memory of the dk/dv kernel, byte offsets from a 1024-aligned
+// base: k and v (D/64 boxes of 64 rows each), the ring of q and do tiles,
+// the ring of lse and delta rows (kBM f32 each), then the barriers (k and
+// v's, one per stage).
+template <int D>
+struct DkdvSmem {
+  static constexpr int t_bytes = kBM * D * 2;  // one tile of k, v, q or do
+  static constexpr int v = t_bytes;
+  static constexpr int q = 2 * t_bytes;
+  static constexpr int dO = q + kStages * t_bytes;
+  static constexpr int lse = dO + kStages * t_bytes;
+  static constexpr int delta = lse + kStages * kBM * 4;
+  static constexpr int bars = delta + kStages * kBM * 4;
+  // + slack to align the base
+  static constexpr int bytes = bars + 8 * (1 + kStages) + 1024;
+};
+
+// One block: 64 keys of one (batch, head), one warpgroup (warp w owns keys
+// 16w..16w+15), looping over the query tiles that see them. Thread 0
+// issues the TMA loads; every thread copies one lse or delta value a tile.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, kDkdvBlocks<D>)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                Args a, TmaOrder oq, TmaOrder ok, TmaOrder ov,
+                                TmaOrder odo) {
+  using L = DkdvSmem<D>;
+  constexpr int DH = D / 64, LD = D + 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);  // k/v, stages
+  const float* lse_s = reinterpret_cast<const float*>(smem + L::lse);
+  const float* delta_s = reinterpret_cast<const float*>(smem + L::delta);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = (threadIdx.x >> 5) * kRows;  // this warp's keys
+  // the causal grid's heaviest tiles (first keys) start first
+  const int k0 = blockIdx.x * kBM;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, S = a.S;
+  const float* lse = a.lse_in + static_cast<int64_t>(bh) * S;
+  const float* delta = a.delta + static_cast<int64_t>(bh) * S;
+  int lo, hi;
+  query_range<kBM>(a, k0, &lo, &hi);
+
+  // query tile i's q and do into stage st (thread 0)
+  const auto load_qdo = [&](int st, int i) {
+    mbar_expect_tx(&bars[1 + st], 2 * L::t_bytes);
+#pragma unroll
+    for (int c = 0; c < DH; ++c) {
+      tma_box(smem + L::q + st * L::t_bytes + c * kBM * 128, &tq,
+              &bars[1 + st], oq, 64 * c, h, i * kBM, b);
+      tma_box(smem + L::dO + st * L::t_bytes + c * kBM * 128, &tdo,
+              &bars[1 + st], odo, 64 * c, h, i * kBM, b);
+    }
+  };
+  // query tile i's lse (threads 0-63) and delta (64-127) into stage st,
+  // zero past S: one 4-byte copy a thread, one commit group
+  const auto load_vecs = [&](int st, int i) {
+    const int e = threadIdx.x % kBM, s = i * kBM + e;
+    const bool first = threadIdx.x < kBM;
+    const float* src = first ? lse : delta;
+    cp_async4(smem + (first ? L::lse : L::delta) + (st * kBM + e) * 4,
+              s < S ? src + s : src, s < S ? 4 : 0);
+    cp_async_commit();
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bars[0], 2 * L::t_bytes);
+#pragma unroll
+    for (int c = 0; c < DH; ++c) {
+      tma_box(smem + c * kBM * 128, &tk, &bars[0], ok, 64 * c, h, k0, b);
+      tma_box(smem + L::v + c * kBM * 128, &tv, &bars[0], ov, 64 * c, h, k0,
+              b);
+    }
+    for (int st = 0; st < kStages && lo + st < hi; ++st) load_qdo(st, lo + st);
+  }
+  for (int st = 0; st < kStages && lo + st < hi; ++st) load_vecs(st, lo + st);
+  cp_async_wait<0>();
+  __syncthreads();  // the barriers are initialised, both stages' rows landed
+  const uint64_t k_desc = sw128_desc(smem), v_desc = sw128_desc(smem + L::v),
+                 q_desc = sw128_desc(smem + L::q),
+                 do_desc = sw128_desc(smem + L::dO);
+  float dk[DH][8][4], dv[DH][8][4];
+#pragma unroll
+  for (int dh = 0; dh < DH; ++dh) {
+    zero(dk[dh]);
+    zero(dv[dh]);
+  }
+  mbar_wait(&bars[0], 0);
+  for (int i = lo; i < hi; ++i) {
+    const int it = i - lo, st = it % kStages;
+    const uint32_t stage16 = st * (L::t_bytes >> 4);
+    mbar_wait(&bars[1 + st], (it / kStages) & 1);
+    // s^T = k . q^T and dp^T = v . do^T: rows keys, columns queries, both
+    // operands K-major
+    float sT[8][4], dpT[8][4];
+    fence_regs(sT);
+    fence_regs(dpT);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sT, k_desc + kmajor_step(kk, kBM),
+               q_desc + stage16 + kmajor_step(kk, kBM), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpT, v_desc + kmajor_step(kk, kBM),
+               do_desc + stage16 + kmajor_step(kk, kBM), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+    const int q0 = i * kBM;
+    const bool masked = tile_masked(a, q0, kBM, k0, kBM);
+    const float* lse_t = lse_s + st * kBM;
+    const float* delta_t = delta_s + st * kBM;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      // lse and delta of this thread's two query columns 2t, 2t + 1
+      const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + nb * 8 + 2 * t);
+      const float2 delta2 =
+          *reinterpret_cast<const float2*>(delta_t + nb * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = nb * 8 + 2 * t + (e & 1), ki = row0 + g + (e >> 1) * 8;
+        float p = exp_approx(sT[nb][e] - (e & 1 ? lse2.y : lse2.x));
+        if (masked && !live(a, q0 + qi, k0 + ki)) p = 0.f;
+        const float dp =
+            a.window == 1 && q0 + qi == k0 + ki
+                ? dot_rows<D>(smem + L::dO + st * L::t_bytes, kBM, qi,
+                              smem + L::v, kBM, ki)
+                : dpT[nb][e];
+        sT[nb][e] = p;
+        dpT[nb][e] = p * (dp - (e & 1 ? delta2.y : delta2.x));  // ds^T
+      }
+    }
+    // dv += p^T . do and dk += ds^T . q: p^T rounded to do's dtype and
+    // ds^T to q's (its one rounding) into A fragments; do and q read down
+    // their rows (MN-major), n64 per 64 columns of D
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, sT);
+    pack_a(da, dpT);
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh) {
+      fence_regs(dk[dh]);
+      fence_regs(dv[dh]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh)
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs(dv[dh], pa[kc], do_desc + stage16 + mnmajor_step(dh, kc, kBM));
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh)
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs(dk[dh], da[kc], q_desc + stage16 + mnmajor_step(dh, kc, kBM));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int dh = 0; dh < DH; ++dh) {
+      fence_regs(dk[dh]);
+      fence_regs(dv[dh]);
+    }
+    cp_async_wait<0>();  // this thread's lse/delta copy of the next tile
+    __syncthreads();  // this stage is free; the next tile's rows are visible
+    if (i + kStages < hi) {
+      if (threadIdx.x == 0) load_qdo(st, i + kStages);
+      load_vecs(st, i + kStages);
+    }
+  }
+  // staged in shared memory that is no longer read (every load was waited
+  // for): dk in the first kBM padded rows, dv in the next
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(static_cast<bf16*>(a.out0),
+                reinterpret_cast<bf16*>(smem) + row0 * LD,
+                reinterpret_cast<const float(&)[D / 8][4]>(dk), one, a, b, h,
+                k0 + row0);
+  store_rows<D>(static_cast<bf16*>(a.out1),
+                reinterpret_cast<bf16*>(smem) + (kBM + row0) * LD,
+                reinterpret_cast<const float(&)[D / 8][4]>(dv), one, a, b, h,
+                k0 + row0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1333,8 +1466,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   const float* k = static_cast<const float*>(a.k) + b * a.sk[0] + h * a.sk[2];
   const float* v = static_cast<const float*>(a.v) + b * a.sv[0] + h * a.sv[2];
   const float* dout = static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[2];
+  const float* o = static_cast<const float*>(a.o) + b * a.so[0] + h * a.so[2];
   const float* lse = a.lse_in + static_cast<int64_t>(bh) * S;
-  const float* delta = a.delta + static_cast<int64_t>(bh) * S;
+  float* delta = static_cast<float*>(a.out1) + static_cast<int64_t>(bh) * S;
 
   load_tile<D>(Qs, LD, q, a.sq[1], q0, kBM, S);
   load_tile<D>(dOs, LD, dout, a.sdo[1], q0, kBM, S);
@@ -1343,7 +1477,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + tr * 4 + i;
     lse_r[i] = r < S ? lse[r] : 0.f;
-    delta_r[i] = r < S ? delta[r] : 0.f;
+    // delta = rowsum(do * out), folded in as in the bf16 kernel: this
+    // thread's D/16 columns, then the row's 16 threads (written for dk/dv)
+    float part = 0.f;
+    if (r < S) {
+#pragma unroll
+      for (int c = 0; c < CD; ++c)
+        part = fmaf(dout[r * a.sdo[1] + tc + 16 * c],
+                    o[r * a.so[1] + tc + 16 * c], part);
+    }
+    delta_r[i] = row_sum16(part);
+    if (tc == 0 && r < S) delta[r] = delta_r[i];
 #pragma unroll
     for (int c = 0; c < CD; ++c) dq[i][c] = 0.f;
   }
@@ -1422,29 +1566,31 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 enum Kind { kFwd = 0, kDkdv = 1, kDq = 2 };
 
 // Grid, block and dynamic shared memory of one kernel of one (dtype, D, BN).
-// A tensor-map kernel (the bf16 forward) takes (q, k, v maps, Args, their
-// three orders); the others take Args alone.
+// A tensor-map kernel (every bf16 one) takes its maps (q, k, v, and do for
+// the backward), Args and the maps' orders; the f32 kernels take Args
+// alone.
 struct Launch {
   const void* kernel;
   dim3 grid;
   int threads;
   size_t smem;
-  bool tma;
+  int maps;     // tensor maps: 0, 3 (q, k, v) or 4 (q, k, v, do)
+  int kv_rows;  // rows of a k or v box (q and do boxes are kBM rows)
 };
 
 template <int D, int BN>
 Launch plan_mma(Kind kind, int S, int bh) {
-  const unsigned nq = (S + kBM - 1) / kBM, nk = (S + BN - 1) / BN;
+  const unsigned nq = (S + kBM - 1) / kBM;
   switch (kind) {
     case kFwd:
       return {reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<D, BN>),
-              dim3(nq, bh), kMmaThreads, FwdSmem<D, BN>::bytes, true};
-    case kDkdv:
-      return {reinterpret_cast<const void*>(&flash_bwd_dkdv_mma_kernel<D, BN>),
-              dim3(nk, bh), 2 * BN, dkdv_mma_smem<D, BN>(), false};
+              dim3(nq, bh), kMmaThreads, FwdSmem<D, BN>::bytes, 3, BN};
+    case kDkdv:  // 64-key tiles whatever BN is (see the note at the top)
+      return {reinterpret_cast<const void*>(&flash_bwd_dkdv_wgmma_kernel<D>),
+              dim3(nq, bh), kMmaThreads, DkdvSmem<D>::bytes, 4, kBM};
     default:
-      return {reinterpret_cast<const void*>(&flash_bwd_dq_mma_kernel<D, BN>),
-              dim3(nq, bh), kMmaThreads, dq_mma_smem<D, BN>(), false};
+      return {reinterpret_cast<const void*>(&flash_bwd_dq_wgmma_kernel<D, BN>),
+              dim3(nq, bh), kMmaThreads, DqSmem<D, BN>::bytes, 4, BN};
   }
 }
 
@@ -1454,18 +1600,18 @@ Launch plan_f32(Kind kind, int S, int bh) {
   switch (kind) {
     case kFwd:
       return {reinterpret_cast<const void*>(&flash_fwd_kernel<D, BN>),
-              dim3(nq, bh), kThreads, fwd_f32_smem<D, BN>(), false};
+              dim3(nq, bh), kThreads, fwd_f32_smem<D, BN>(), 0, 0};
     case kDkdv:
       return {reinterpret_cast<const void*>(&flash_bwd_dkdv_kernel<D, BN>),
-              dim3(nk, bh), kThreads, dkdv_f32_smem<D, BN>(), false};
+              dim3(nk, bh), kThreads, dkdv_f32_smem<D, BN>(), 0, 0};
     default:
       return {reinterpret_cast<const void*>(&flash_bwd_dq_kernel<D, BN>),
-              dim3(nq, bh), kThreads, dq_f32_smem<D, BN>(), false};
+              dim3(nq, bh), kThreads, dq_f32_smem<D, BN>(), 0, 0};
   }
 }
 
 // dtype 0 (f32): the scalar kernels; 1 (bf16): the tensor-core kernels
-// (the forward on wgmma, the backward on mma.sync).
+// (wgmma, tiles by TMA).
 bool plan(Kind kind, int dtype, int D, int block_k, int S, int bh, Launch* out) {
   const bool mma = dtype == 1;
   if (dtype != 0 && dtype != 1) return false;
@@ -1556,24 +1702,24 @@ bool encode_map(CUtensorMap* map, TmaOrder* ord, const void* base, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// strides: (batch, seq, head) of q, k, v and, for the backward, do (12
-// values; the forward reads 9).
+// strides: (batch, seq, head) of q, k, v and, for the backward, do, and
+// for dq out (the forward reads 9 values, dk/dv 12, dq 15).
 int dispatch(Kind kind, const void* q, const void* k, const void* v,
-             const void* dout, const void* lse_in, const void* delta,
-             void* out0, void* out1, int dtype, int B, int S, int H, int D,
-             const int64_t* strides, int causal, int window, int block_k,
-             int fast, void* stream) {
+             const void* dout, const void* o, const void* lse_in,
+             const void* delta, void* out0, void* out1, int dtype, int B,
+             int S, int H, int D, const int64_t* strides, int causal,
+             int window, int block_k, int fast, void* stream) {
   Launch l;
   if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535 ||
       !plan(kind, dtype, D, block_k, S, B * H, &l))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_strides = kind == kFwd ? 9 : 12;
-  if (dtype == 1) {  // cp.async and TMA move 16-byte rows: 8 bf16 elements
+  const int n_strides = kind == kFwd ? 9 : kind == kDkdv ? 12 : 15;
+  if (dtype == 1) {  // TMA and the 16-byte loads move 16-byte rows: 8 bf16
     for (int i = 0; i < n_strides; ++i)
       if (strides[i] % 8 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
     if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
-        (kind != kFwd && !aligned16(dout)) || !aligned16(out0) ||
-        (kind == kDkdv && !aligned16(out1)))
+        (kind != kFwd && !aligned16(dout)) || (kind == kDq && !aligned16(o)) ||
+        !aligned16(out0) || (kind == kDkdv && !aligned16(out1)))
       return static_cast<int>(cudaErrorMisalignedAddress);
   }
   Args a;
@@ -1581,6 +1727,7 @@ int dispatch(Kind kind, const void* q, const void* k, const void* v,
   a.k = k;
   a.v = v;
   a.dout = dout;
+  a.o = o;
   a.lse_in = static_cast<const float*>(lse_in);
   a.delta = static_cast<const float*>(delta);
   a.out0 = out0;
@@ -1593,6 +1740,7 @@ int dispatch(Kind kind, const void* q, const void* k, const void* v,
     a.sk[i] = strides[3 + i];
     a.sv[i] = strides[6 + i];
     a.sdo[i] = kind == kFwd ? 0 : strides[9 + i];
+    a.so[i] = kind == kDq ? strides[12 + i] : 0;
   }
   a.causal = causal;
   a.window = window;
@@ -1605,21 +1753,22 @@ int dispatch(Kind kind, const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   // the tensor maps are encoded at every launch: host code, legal during
   // capture too (a graph keeps the parameters it was launched with)
-  CUtensorMap maps[3];
-  TmaOrder ords[3];
-  void* tma_params[] = {&maps[0], &maps[1], &maps[2], &a,
-                        &ords[0], &ords[1], &ords[2]};
-  void* params[] = {&a};
-  if (l.tma) {
-    const void* src[3] = {q, k, v};
-    for (int i = 0; i < 3; ++i)
-      if (!encode_map(&maps[i], &ords[i], src[i], B, S, H, D, strides + 3 * i,
-                      i == 0 ? kBM : block_k))
-        return static_cast<int>(cudaErrorInvalidValue);
-  }
-  err = cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads),
-                         l.tma ? tma_params : params, l.smem,
-                         static_cast<cudaStream_t>(stream));
+  CUtensorMap maps[4];
+  TmaOrder ords[4];
+  void* params3[] = {&maps[0], &maps[1], &maps[2], &a,
+                     &ords[0], &ords[1], &ords[2]};
+  void* params4[] = {&maps[0], &maps[1], &maps[2], &maps[3], &a,
+                     &ords[0], &ords[1], &ords[2], &ords[3]};
+  void* params0[] = {&a};
+  const void* src[4] = {q, k, v, dout};
+  for (int i = 0; i < l.maps; ++i)  // q and do in kBM-row boxes
+    if (!encode_map(&maps[i], &ords[i], src[i], B, S, H, D, strides + 3 * i,
+                    i == 1 || i == 2 ? l.kv_rows : kBM))
+      return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaLaunchKernel(
+      l.kernel, l.grid, dim3(l.threads),
+      l.maps == 4 ? params4 : l.maps == 3 ? params3 : params0, l.smem,
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1632,26 +1781,31 @@ int tft_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int dtype, int B, int S, int H, int D,
                   const int64_t* strides, int causal, int window, int block_k,
                   int fast, void* stream) {
-  return dispatch(kFwd, q, k, v, nullptr, nullptr, nullptr, out, lse, dtype, B,
-                  S, H, D, strides, causal, window, block_k, fast, stream);
+  return dispatch(kFwd, q, k, v, nullptr, nullptr, nullptr, nullptr, out, lse,
+                  dtype, B, S, H, D, strides, causal, window, block_k, fast,
+                  stream);
 }
 
+// The backward's second launch: dk, dv from delta as the dq launch wrote
+// it (strides: q, k, v, do).
 int tft_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int dtype, int B, int S, int H,
                        int D, const int64_t* strides, int causal, int window,
                        int block_k, int fast, void* stream) {
-  return dispatch(kDkdv, q, k, v, dout, lse, delta, dk, dv, dtype, B, S, H, D,
-                  strides, causal, window, block_k, fast, stream);
+  return dispatch(kDkdv, q, k, v, dout, nullptr, lse, delta, dk, dv, dtype, B,
+                  S, H, D, strides, causal, window, block_k, fast, stream);
 }
 
+// The backward's first launch: dq, and delta = rowsum(do * out) into the
+// (B, H, S) f32 buffer delta (strides: q, k, v, do, out).
 int tft_flash_bwd_dq(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dq, int dtype, int B, int S, int H, int D,
-                     const int64_t* strides, int causal, int window,
+                     const void* dout, const void* out, const void* lse,
+                     void* delta, void* dq, int dtype, int B, int S, int H,
+                     int D, const int64_t* strides, int causal, int window,
                      int block_k, int fast, void* stream) {
-  return dispatch(kDq, q, k, v, dout, lse, delta, dq, nullptr, dtype, B, S, H,
-                  D, strides, causal, window, block_k, fast, stream);
+  return dispatch(kDq, q, k, v, dout, out, lse, nullptr, dq, delta, dtype, B,
+                  S, H, D, strides, causal, window, block_k, fast, stream);
 }
 
 // Dynamic shared memory one launch of a kernel takes (kind 0 forward, 1
@@ -1664,7 +1818,7 @@ int tft_flash_smem_bytes(int kind, int dtype, int D, int block_k) {
   return static_cast<int>(l.smem);
 }
 
-// One wgmma tile product through the forward's tensor maps and
+// One wgmma tile product through the kernels' tensor maps and
 // descriptors, for the card tests: c (64 x 64 f32, contiguous) = a . b^T
 // (mn_major 0: both operands K-major in shared memory, as s = q . k^T) or
 // a . b (mn_major 1: a from registers, b MN-major, as o = p . v); a and b

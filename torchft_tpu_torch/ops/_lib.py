@@ -26,6 +26,7 @@ launch_counts: Dict[str, int] = {
     "cast_bf16": 0,     # K3,  replaces cast_bf16 (:281); likewise
     "flash_fwd": 0,     # K4,  replaces _flash_fwd_call (flash_attention.py:261)
     "flash_bwd": 0,     # K5,  replaces _flash_bwd_call (:382); 2 per backward
+                        # (dq with delta, then dk/dv)
 }
 
 
@@ -51,8 +52,10 @@ _SIGNATURES = {
     "tft_q8_dequantize_seg": _SEGS + [_VP, _VP, _VP],
     "tft_cast_bf16_seg": _SEGS + [_VP, _VP],
     "tft_flash_fwd": [_VP] * 5 + _FLASH_TAIL,
+    # q, k, v, do, lse, delta (as the dq launch wrote it), dk, dv
     "tft_flash_bwd_dkdv": [_VP] * 8 + _FLASH_TAIL,
-    "tft_flash_bwd_dq": [_VP] * 7 + _FLASH_TAIL,
+    # q, k, v, do, out, lse, delta (written), dq; strides of all five inputs
+    "tft_flash_bwd_dq": [_VP] * 8 + _FLASH_TAIL,
     # kind (0 forward, 1 dk/dv, 2 dq), dtype, D, block_k
     "tft_flash_smem_bytes": [_INT] * 4,
     # a, b, c, mn_major, stream: one wgmma tile product (card tests)

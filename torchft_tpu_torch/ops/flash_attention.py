@@ -8,11 +8,10 @@ bodies, picked by the tensors' device alone:
   ``sm_90a`` at first use) for tensors on the card: no (S, S) score matrix
   ever reaches device memory; it launches or raises, never falls back.
   The dtype picks the kernel (:func:`kernel_route`): bf16 runs the
-  tensor-core kernels (the forward on ``wgmma`` with tiles brought in by
-  TMA, the backward on ``mma.sync`` with tiles streamed by ``cp.async``;
-  both need every row 16-byte aligned: :func:`check_kernel_layout`),
-  f32 the scalar f32 kernels (f32 on tensor cores would be TF32, too
-  coarse for the f32 tolerance);
+  tensor-core kernels (forward and backward on ``wgmma`` with tiles
+  brought in by TMA; they need every row 16-byte aligned:
+  :func:`check_kernel_layout`), f32 the scalar f32 kernels (f32 on tensor
+  cores would be TF32, too coarse for the f32 tolerance);
 - a plain PyTorch version (:func:`flash_fwd_plain`,
   :func:`flash_bwd_plain`) for tensors on the CPU: dense torch code with
   the kernels' masks, roundings and formulas (no
@@ -27,9 +26,11 @@ general path with ``-inf`` and ``isfinite`` guards (a row with every key
 masked gives out 0 and lse ``-inf``); ``p`` is rounded to v's dtype
 before ``p . v``; ``out = acc / max(l, 1e-30)``; ``lse = m + log(l)``.
 The backward rebuilds ``p = exp(s - lse)`` (masked with a select), takes
-``delta = rowsum(do * out)`` in plain torch as the JAX package does
-outside its kernel, and rounds ``ds = p * (dp - delta)`` once to q's
-dtype for both ``dk`` and ``dq``.
+``delta = rowsum(do * out)`` (the JAX package computes it outside its
+kernel; the plain version does so in torch, the card's dq kernel folds it
+into its first pass over each query tile and writes it for the dk/dv
+kernel), and rounds ``ds = p * (dp - delta)`` once to q's dtype for both
+``dk`` and ``dq``.
 
 Tiles. ``block_q``/``block_k`` keep the JAX meaning: the query and key
 tile sizes, and the fast path needs them equal. On the card the kernel's
@@ -209,8 +210,8 @@ def kernel_route(dtype: torch.dtype) -> str:
 def check_kernel_layout(*ts: torch.Tensor) -> None:
     """Raises ValueError unless each tensor's address and (batch, seq,
     head) strides are 16-byte aligned, as the tensor-core kernels' row
-    copies need (the forward's TMA tensor maps, the backward's 16-byte
-    ``cp.async``). The qkv split of a (B, S, 3HD)
+    copies need (the TMA tensor maps, and the dq kernel's 16-byte loads
+    of do and out for delta). The qkv split of a (B, S, 3HD)
     projection is: its strides and offsets are multiples of the head dim.
     A misaligned view raises rather than being copied."""
     for t in ts:
@@ -271,30 +272,59 @@ def flash_fwd(
     return out, lse
 
 
+def flash_delta_plain(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do * out)`` as (B, H, S) f32, as the JAX package
+    computes it outside its kernel, summed as one chain of f32 adds in d
+    order: the order in which the card's dq kernel folds it (with bf16
+    inputs each product is exact in f32, so the two agree bit for bit),
+    and that of the f32 matmul giving ``dp``. In window 1, where out = v
+    and ``ds = dp - delta`` is all rounding, that keeps the kernels and
+    this version on the same bits."""
+    prod = do.float() * out.float()
+    acc = torch.zeros(prod.shape[:-1], dtype=torch.float32, device=prod.device)
+    for d in range(prod.shape[-1]):
+        acc = acc + prod[..., d]
+    return acc.transpose(1, 2).contiguous()
+
+
+def flash_bwd_kernels(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, cfg: FlashConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's two launches on the card: ``(dq, dk, dv, delta)``. The dq
+    kernel runs first and writes ``delta`` (B, H, S) f32, which the dk/dv
+    kernel then reads on the same stream."""
+    if device_kind(q) != "cuda":
+        raise ValueError(f"the K5 kernels take tensors on the card, got {q.device}")
+    q, k, v, do, out = (_last_dim_dense(t) for t in (q, k, v, do, out))
+    _check_kernel_inputs(q, k, v, do, out)
+    lse = lse.contiguous()
+    B, S, H, _ = q.shape
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if q.numel():
+        _kernels.launch("flash_bwd", "tft_flash_bwd_dq", q.data_ptr(),
+                        k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dq.data_ptr(), *_kernel_args(cfg, (q, k, v, do, out)))
+        _kernels.launch("flash_bwd", "tft_flash_bwd_dkdv", q.data_ptr(),
+                        k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), *_kernel_args(cfg, (q, k, v, do)))
+    return dq, dk, dv, delta
+
+
 def flash_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, cfg: FlashConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5: ``(dq, dk, dv)``; two launches on the card (dk/dv, then dq)."""
-    # delta_i = sum_d do_id * o_id: one elementwise product and reduce,
-    # as the JAX package computes it outside its kernel
-    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    """K5: ``(dq, dk, dv)``; two launches on the card (dq with delta,
+    then dk/dv: :func:`flash_bwd_kernels`)."""
     if cfg.interpret or device_kind(q) == "cpu":
-        return flash_bwd_plain(q, k, v, do, lse, delta, cfg)
-    q, k, v, do = (_last_dim_dense(t) for t in (q, k, v, do))
-    _check_kernel_inputs(q, k, v, do)
-    lse = lse.contiguous()
-    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
-                  for _ in range(3))
-    if q.numel():
-        args = _kernel_args(cfg, (q, k, v, do))
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr())
-        _kernels.launch("flash_bwd", "tft_flash_bwd_dkdv", *ptrs,
-                        dk.data_ptr(), dv.data_ptr(), *args)
-        _kernels.launch("flash_bwd", "tft_flash_bwd_dq", *ptrs,
-                        dq.data_ptr(), *args)
-    return dq, dk, dv
+        return flash_bwd_plain(q, k, v, do, lse, flash_delta_plain(out, do),
+                               cfg)
+    return flash_bwd_kernels(q, k, v, out, lse, do, cfg)[:3]
 
 
 @torch.library.custom_op("torchft_tpu_torch::flash_fwd", mutates_args=())
@@ -417,7 +447,9 @@ __all__ = [
     "checkpoint_name",
     "flash_attention",
     "flash_bwd",
+    "flash_bwd_kernels",
     "flash_bwd_plain",
+    "flash_delta_plain",
     "flash_fwd",
     "flash_fwd_plain",
     "kernel_route",
