@@ -142,7 +142,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            the saved ones; prints each capture's stall_s, write_s,
            commit_s and bytes, and the restore's seconds;
 19. serving flash  a training group (this process) publishes its params
-           through publish_on_commit, 4 versions per wire (q8, bf16,
+           through publish_on_commit, 3 versions per wire (q8, bf16,
            f32; snapshot_every 4): the encode on the card (K1a/K1b, K3)
            and the q8 decode (K2) of the served tree; a WeightRelay and
            two subscribers behind it, a third on the publisher, all
@@ -186,6 +186,20 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            CostKnobs(sync_fixed_s=0.5); prints each decision's costs and
            signals, the switch tick and each decision transaction's
            seconds;
+    chaos harness  beside phases 22 and 23 (their card work leaves the
+           host room), scripts/chaos_run_torch.py --dryrun --tree
+           dense (members' trees the dense LM's 39 leaves on the
+           card: the plan and hier_shm schedules, the pinned bit flip,
+           a root outage with a WAL'd primary and a standby, the sharded
+           re-partition, a whole-fleet loss restored from the durable
+           tier, serving churn, the iso child's SIGKILL and SIGSTOP) and
+           one plan schedule on the q8 wire (K1a/K1b), two processes at
+           once; checks a CRC detection, 0 silent commits, epoch purity,
+           bit identity and liveness on every schedule, a root restart
+           that replayed its WAL, a re-partition, a fleet-loss restore
+           equal to the pre-kill digest, and K1a/K1b/K2 launches; prints
+           each schedule's seconds and faults, the takeover and
+           kill-to-next-commit seconds;
 24. nccl probe  two processes build one XLACollectives(backend="nccl")
            group over the one card; prints the verdict or the refusal's
            text (the next phase runs on NCCL only if it was accepted);
@@ -296,7 +310,8 @@ checks only that the machine's /dev/shm takes the shm host tier;
 ``--window-phases`` builds and runs only phases 14-17,
 ``--serving-phases`` only phases 18-20, ``--control-phases`` only
 phases 21-23 (the launched workers are this script re-run with
-``--control-worker``), ``--iso-phases`` only phases 24-27,
+``--control-worker``), ``--harness-phases`` only the chaos harness,
+``--iso-phases`` only phases 24-27,
 ``--parallel-phases`` only phase 28; ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
 a), each from its own chip_smoke.py and build; ``--kernel-turns A B``
@@ -307,11 +322,13 @@ at the end.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import hashlib
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -428,6 +445,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# when this process started its work (a pooled spare: when it got it)
+T_WORK = time.perf_counter()
+
+
+def _mark(marks: dict, name: str) -> None:
+    """Seconds from the start of this process's work to ``name``."""
+    marks[name] = round(time.perf_counter() - T_WORK, 3)
+
+
 # (phase, start on the host clock): each phase's seconds for the phase_s line
 PHASE_MARKS: list = []
 
@@ -438,10 +464,18 @@ def _phase(name: str) -> None:
     log(f"phase {name}")
 
 
+# phases that ran beside the marked ones: their own seconds
+PHASES_BESIDE: dict = {}
+
+
 def _phase_seconds() -> dict:
-    """Each marked phase's seconds: to the next mark, the last to now."""
+    """Each marked phase's seconds: to the next mark, the last to now;
+    then each phase that ran beside them, its own seconds (so these do
+    not add up to the total)."""
     marks = PHASE_MARKS + [("end", time.perf_counter())]
-    return {a: round(t1 - t0, 1) for (a, t0), (_, t1) in zip(marks, marks[1:])}
+    return {**{a: round(t1 - t0, 1)
+               for (a, t0), (_, t1) in zip(marks, marks[1:])},
+            **PHASES_BESIDE}
 
 
 def fail(msg: str) -> None:
@@ -701,6 +735,8 @@ def worker(cfg: dict) -> None:
     from torchft_tpu_torch.ops import quantize_kernels as qk
 
     g, workdir = cfg["group"], cfg["workdir"]
+    marks: dict = {}
+    _mark(marks, "imports")
     device = torch.device(cfg["device"])
     on_card = device.type == "cuda"
     model_cfg = tt.TransformerConfig(**cfg["lm"])
@@ -713,10 +749,12 @@ def worker(cfg: dict) -> None:
         grad_calls[0] += 1
         return model_grad_fn(params, tokens)
 
-    out = {"group": g, "phases": {}}
+    out = {"group": g, "phases": {}, "marks": marks}
+    _mark(marks, "model")
     if cfg["role"] == "flash" and g == 0:
         out["flash_vs_dense"] = _flash_vs_dense(model_cfg, state.params, cfg,
                                                 device)
+        _mark(marks, "flash_vs_dense")
     # Warm up before joining (library init, allocator), and time the
     # forward/backward alone: a step's compute, against which the
     # transaction's overhead is read. Both founders run this at once, so
@@ -729,6 +767,7 @@ def worker(cfg: dict) -> None:
         if on_card:
             torch.cuda.synchronize()
         compute_s.append(time.perf_counter() - t0)
+    _mark(marks, "compute")
     collectives = tft.HostCollectives()
     manager = tft.Manager(
         collectives=collectives, load_state_dict=state.load_state_dict,
@@ -737,6 +776,7 @@ def worker(cfg: dict) -> None:
         replica_id=f"g{g}", region=cfg.get("region"),
         host_label=cfg.get("host"), device=device,
     )
+    _mark(marks, "manager")
     out["compute_s"] = sorted(compute_s[1:])[1]
     n_layers = len(state.params["blocks"])
     n_leaves = n_layers * 6 + 3
@@ -800,10 +840,13 @@ def worker(cfg: dict) -> None:
         drained = manager.observe_op_stats()
         op_stats = _op_stats_rows(drained)
         grad_passes = grad_calls[0] - calls_before
+        _mark(marks, phase)
         if prof:
             prof.__exit__(None, None, None)
             prof.export_chrome_trace(os.path.join(workdir, TRACE_FILE))
+            _mark(marks, f"{phase}_export")
             out["trace"] = _trace_summary(os.path.join(workdir, TRACE_FILE))
+            _mark(marks, f"{phase}_summary")
         cfg["data_offset"] += i
         out["phases"][phase] = {
             "dispatches": dispatches,
@@ -883,7 +926,9 @@ def worker(cfg: dict) -> None:
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
     finally:
         manager.shutdown()
+        _mark(marks, "manager_down")
         collectives.shutdown()
+        _mark(marks, "collectives_down")
     with open(os.path.join(workdir, f"result_{g}.json"), "w") as f:
         json.dump(out, f)
 
@@ -2181,12 +2226,141 @@ def phase_flash_kernels() -> dict:
     return rows
 
 
-def _spawn(cfg: dict, logdir: str) -> subprocess.Popen:
-    logf = open(os.path.join(logdir, f"worker_{cfg['group']}.log"), "w")
-    return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--worker", json.dumps(cfg)],
-        cwd=REPO, stdout=logf, stderr=subprocess.STDOUT,
-    )
+class _WarmPool:
+    """Spare processes of this script that have already paid a process's
+    start on the card's host (``import torch``, 8–11 s there, the CUDA
+    context, under 1 s, and the first flash call, 10–14 s: see
+    ``--start-probe``) and wait on their stdin for the arguments of the
+    worker they become. Each one taken is replaced at once, so the next
+    generation of workers starts while this one runs."""
+
+    def __init__(self, size: int) -> None:
+        self._lock = threading.Lock()
+        self._idle = [self._start() for _ in range(size)]
+        self.warm = self.cold = 0
+
+    @staticmethod
+    def _start() -> subprocess.Popen:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pooled"],
+            cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True)
+
+    def popen(self, argv: list, log_path: "str | None",
+              script: str = __file__,
+              err_path: "str | None" = None) -> subprocess.Popen:
+        """A process running ``script *argv`` (this script's by default)
+        with its stdout in ``log_path`` and its stderr there too, or in
+        ``err_path``: a warm spare if one is alive, else a cold start.
+        ``log_path=None`` keeps its stdin and stdout as pipes to the
+        caller (``proc.stdin`` / ``proc.stdout``)."""
+        with self._lock:
+            self._idle = [p for p in self._idle if p.poll() is None]
+            proc = self._idle.pop(0) if self._idle else None
+            self._idle.append(self._start())
+        script = os.path.abspath(script)
+        if proc is None:
+            self.cold += 1
+            return _cold_popen(script, argv, log_path, err_path)
+        self.warm += 1
+        proc.stdin.write(json.dumps({"script": script, "argv": argv,
+                                     "log": log_path, "err": err_path}) + "\n")
+        proc.stdin.flush()
+        if log_path is not None:
+            proc.stdin.close()
+            proc.stdout.close()
+        proc.args = [sys.executable, script, *argv]
+        return proc
+
+    def close(self) -> None:
+        with self._lock:
+            idle, self._idle = self._idle, []
+        for p in idle:
+            p.kill()
+            p.wait()
+
+
+# the card run's pool (None: every worker starts cold, as on the CPU)
+POOL: "_WarmPool | None" = None
+POOL_SIZE = 4  # the largest generation: four hier dense groups, four ranks
+
+
+# the pool's warm-up model: one flash block, small enough to cost nothing
+POOL_WARM_LM = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=1,
+                    d_ff=256, max_seq_len=128, use_flash=True)
+
+
+def _pooled() -> int:
+    """A spare's life: warm up, wait for its arguments, become that
+    worker (stdout and stderr into the log the parent named). On the
+    card the warm-up runs one forward/backward of a one-block flash LM:
+    a process's first flash call costs 10–14 s there, whatever its shape
+    (the imports of torch's custom-op machinery and the first launches),
+    and the flash LM's first after it under 0.4 s. Launch counts go back
+    to 0 after it, as in a fresh process."""
+    import torchft_tpu_torch  # noqa: F401
+
+    if torch.cuda.is_available():
+        from torchft_tpu_torch.models import transformer as tt
+        from torchft_tpu_torch.ops import reset_launch_counts
+
+        cfg = tt.TransformerConfig(**POOL_WARM_LM)
+        params = tt.TransformerLM(cfg, seed=0, device="cuda").params()
+        tokens = torch.zeros((2, 65), dtype=torch.long, device="cuda")
+        tt.make_grad_fn(cfg)(params, tokens)
+        torch.cuda.synchronize()
+        del params, tokens
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+    line = sys.stdin.readline()
+    if not line:
+        return 0  # closed unused
+    job = json.loads(line)
+    global T_WORK
+    T_WORK = time.perf_counter()
+    for target, path in ((1, job["log"]), (2, job["err"] or job["log"])):
+        if path is None:
+            continue  # stdout stays the pipe to the caller
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+        os.dup2(fd, target)
+        os.close(fd)
+    sys.argv = [job["script"], *job["argv"]]
+    if job["script"] == os.path.abspath(__file__):
+        return main()
+    import runpy
+
+    runpy.run_path(job["script"], run_name="__main__")  # exits by SystemExit
+    return 0
+
+
+def _cold_popen(script: str, argv: list, log_path: "str | None",
+                err_path: "str | None" = None) -> subprocess.Popen:
+    if log_path is None:  # pipes to the caller, stderr to its log
+        return subprocess.Popen(
+            [sys.executable, script, *argv], cwd=REPO, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=open(err_path, "w"), text=True)
+    out = open(log_path, "w")
+    err = open(err_path, "w") if err_path else subprocess.STDOUT
+    return subprocess.Popen([sys.executable, script, *argv], cwd=REPO,
+                            stdout=out, stderr=err)
+
+
+def _popen_worker(argv: list, log_path: "str | None",
+                  script: str = __file__,
+                  err_path: "str | None" = None,
+                  cold: bool = False) -> subprocess.Popen:
+    """This script's worker (or ``script``) through the pool, if any;
+    ``cold``: a fresh interpreter whatever the pool holds (a restart
+    after a SIGKILL, whose kill-to-first-commit includes the start)."""
+    if POOL is not None and not cold:
+        return POOL.popen(argv, log_path, script, err_path)
+    return _cold_popen(os.path.abspath(script), argv, log_path, err_path)
+
+
+def _spawn(cfg: dict, logdir: str, cold: bool = False) -> subprocess.Popen:
+    return _popen_worker(["--worker", json.dumps(cfg)],
+                         os.path.join(logdir, f"worker_{cfg['group']}.log"),
+                         cold=cold)
 
 
 def _join(procs, deadline: float, workdir: str) -> None:
@@ -3174,13 +3348,10 @@ def phase_heal_transport(workdir: str, device: str = "cuda",
     from torchft_tpu_torch import checkpointing as ck
 
     dev = torch.device(device)
-    logf = open(os.path.join(workdir, "heal_donor.log"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--heal-donor",
-         json.dumps({"device": device, "lm": lm})],
-        cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-        stderr=logf, text=True,
-    )
+    log_path = os.path.join(workdir, "heal_donor.log")
+    proc = _popen_worker(
+        ["--heal-donor", json.dumps({"device": device, "lm": lm})], None,
+        err_path=log_path)
     try:
         ref = _heal_state(lm, dev)
         address = _json_line(proc.stdout)["address"] + str(HEAL_STEP)
@@ -3202,15 +3373,13 @@ def phase_heal_transport(workdir: str, device: str = "cuda",
         donor = _json_line(proc.stdout)
         proc.wait(timeout=60)
     except BaseException:
-        logf.flush()
-        with open(logf.name) as f:
+        with open(log_path) as f:
             log(f"  heal donor log: {f.read()[-3000:]}")
         raise
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-        logf.close()
     if proc.returncode != 0:
         fail(f"the heal donor exited {proc.returncode}")
     return {"fetches": fetches, "launches": donor["launches"],
@@ -3366,7 +3535,67 @@ def flash_turns() -> int:
             "ring_windows_ms": trace.get("ring_windows_ms"),
             "card_busy_share": trace.get("card_busy_share"),
             "loop_kernel_ms_total": trace.get("loop_kernel_ms_total"),
-            "signals": fsum["signals"]}), flush=True)
+            "signals": fsum["signals"],
+            "marks": [r.get("marks") for r in res["results"]],
+            "total_s": res["total_s"]}), flush=True)
+    print(_smi(), flush=True)
+    return 0
+
+
+# a fresh process's start, timed from inside it (``start_probe``)
+_START_PROBE = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t = {"import_torch": time.perf_counter() - t0}
+a = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t["cuda_context"] = time.perf_counter() - a
+a = time.perf_counter()
+sys.path.insert(0, sys.argv[2])
+import torchft_tpu_torch
+from torchft_tpu_torch.models import transformer as tt
+t["import_port"] = time.perf_counter() - a
+lms = json.loads(sys.argv[3])
+
+
+def first_pass(name, batch, seq):
+    cfg = tt.TransformerConfig(**lms[name])
+    params = tt.TransformerLM(cfg, seed=0, device="cuda").params()
+    tokens = torch.zeros((batch, seq + 1), dtype=torch.long, device="cuda")
+    for i in (1, 2):
+        a = time.perf_counter()
+        tt.make_grad_fn(cfg)(params, tokens)
+        torch.cuda.synchronize()
+        t[f"{name}_pass{i}"] = time.perf_counter() - a
+
+
+if sys.argv[1] == "warm_first":
+    first_pass("warm", 2, 64)
+first_pass(sys.argv[1] == "dense" and "dense" or "flash",
+           16, 511 if sys.argv[1] == "dense" else 2047)
+print(json.dumps({k: round(v, 3) for k, v in t.items()}))
+"""
+
+
+def start_probe() -> int:
+    """A fresh process's start on the card, from inside it: ``import
+    torch``, the CUDA context, the port's import, and the flash LM's
+    first and second forward/backward, cold or after a one-block flash
+    LM's (the pool's warm-up), and the dense LM's; twice each. The
+    kernels are built first, so no process here builds them."""
+    log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+    lms = json.dumps({"flash": BIG_LM, "dense": LM, "warm": POOL_WARM_LM})
+    for mode in ("cold", "warm_first", "cold", "warm_first", "dense",
+                 "dense"):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", _START_PROBE, mode, REPO,
+                              lms], capture_output=True, text=True)
+        if out.returncode != 0:
+            fail(f"start probe {mode}: {out.stderr[-2000:]}")
+        log(json.dumps({"mode": mode, "process_s": round(
+            time.perf_counter() - t0, 3), **json.loads(out.stdout)}))
     print(_smi(), flush=True)
     return 0
 
@@ -3488,7 +3717,7 @@ DURABLE_MOMENTS = 2 * 51
 # with room for the sync baseline's set
 DURABLE_DISK_BYTES = 3 * (4 + 2 * 2) * 111_166_464
 # serving flash: versions per wire, the snapshot cadence, the wires
-SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 4, 4
+SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 3, 4
 SERVE_WIRES = ("q8", "bf16", "f32")
 
 
@@ -4756,6 +4985,16 @@ def chaos_worker(cfg: dict) -> None:
                            compress="q8", transport="plan", device_pack=True)
     injector = chaos.ChaosInjector(plan)
     prog = open(os.path.join(workdir, f"progress_{g}.jsonl"), "a")
+    if proxy is not None:
+        # armed by a thread of its own, not at the top of the step loop:
+        # when the kill lands while this group waits in a quorum, the
+        # restarted group's heal is served inside that same quorum call
+        def arm() -> None:
+            while not os.path.exists(os.path.join(workdir, "arm_heal")):
+                time.sleep(0.02)
+            proxy.mode = "truncate_body"
+
+        threading.Thread(target=arm, daemon=True).start()
 
     def emit(row: dict) -> None:
         prog.write(json.dumps(row) + "\n")
@@ -4781,9 +5020,6 @@ def chaos_worker(cfg: dict) -> None:
             stop = _read_stop(workdir)
             if stop is not None and attempted >= stop:
                 break
-            if (proxy is not None and proxy.mode is None
-                    and os.path.exists(os.path.join(workdir, "arm_heal"))):
-                proxy.mode = "truncate_body"
             if attempted != armed_for:
                 # a discarded step retries at the same attempted step
                 # without re-arming its one-shot rules
@@ -4866,7 +5102,8 @@ def phase_chaos_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
         t_kill = time.time()
         kill_process(victim.pid)
         victim.wait(30)
-        procs[1] = _spawn({**base, "group": 1, "restart": True}, workdir)
+        procs[1] = _spawn({**base, "group": 1, "restart": True}, workdir,
+                          cold=True)
         first = _wait_progress(workdir, lambda logs: next(iter(
             [r for r in logs[1] if r.get("committed")
              and r["pid"] == procs[1].pid]), None), 300,
@@ -5158,9 +5395,10 @@ def _keep_logs(workdir: str, name: str) -> None:
                 shutil.copy(os.path.join(root, f), dest)
 
 
-def control_phases(by_phase: dict) -> None:
+def control_phases(by_phase: dict, harness: bool = False) -> None:
     """The control dense, chaos flash and policy flash phases: each runs,
-    is checked and logged, and puts its launch counts into ``by_phase``."""
+    is checked and logged, and puts its launch counts into ``by_phase``;
+    ``harness``: the chaos harness phase runs beside the last two."""
     _phase("control dense")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_control_") as workdir:
         try:
@@ -5176,6 +5414,13 @@ def control_phases(by_phase: dict) -> None:
     log(f"  control dense spares (prewarm + warm on the card before the "
         f"gate): {json.dumps(csum['standbys'])}; a CUDA context takes "
         f"{csum['context_bytes']} B of the card per process")
+    if harness:
+        harness_phases(by_phase, beside=lambda: _chaos_policy_phases(by_phase))
+    else:
+        _chaos_policy_phases(by_phase)
+
+
+def _chaos_policy_phases(by_phase: dict) -> None:
     _phase("chaos flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as workdir:
         try:
@@ -5195,6 +5440,189 @@ def control_phases(by_phase: dict) -> None:
             _keep_logs(workdir, "policy_flash")
     by_phase["policy flash"] = psum["launches"]
     log(f"  policy flash {pres['total_s']:.1f} s: {json.dumps(psum)}")
+
+
+# -- the chaos-invariant harness ---------------------------------------------------
+
+HARNESS = os.path.join(REPO, "scripts", "chaos_run_torch.py")
+# the q8 plan schedule: member 1's send bit-flipped at attempted step 1,
+# member 0's dropped at step 2 (the port's CPU gate's plan), on the main
+# path's wire (the q8ef plan, K1a/K1b on the card)
+HARNESS_Q8_PLAN = {"seed": 1031, "events": [
+    {"step": 1, "seam": "ring_send", "kind": "bit_flip", "member": 1,
+     "param": 0},
+    {"step": 2, "seam": "ring_send", "kind": "drop", "member": 0, "param": 0}]}
+HARNESS_TIMEOUT_S = 300
+
+
+def _harness_json(text: str, first_key: str) -> dict:
+    """The record a harness run printed: the JSON object whose first key
+    is ``first_key`` (the dryrun's one line, or a replay's indented
+    object, which runs to the end of stdout)."""
+    start = text.find("{\n  " + json.dumps(first_key))
+    if start < 0:
+        start = text.find("{" + json.dumps(first_key))
+    if start < 0:
+        fail(f"the chaos harness printed no record:\n{text[-2000:]}")
+    obj, _ = json.JSONDecoder().raw_decode(text[start:])
+    return obj
+
+
+def _harness_start(workdir: str, device: str = "cuda",
+                   tree: str = "dense") -> dict:
+    """Starts ``scripts/chaos_run_torch.py --dryrun`` on
+    ``tree`` and, beside it, one plan schedule on the q8 wire: two
+    processes at once (each arms only its own fault engine). A thread a
+    process notes when it ends."""
+    runs = {
+        "dryrun": ["--dryrun", "--tree", tree, "--device", device],
+        "q8 plan": ["--config", "plan", "--seed", "1031", "--tree", tree,
+                    "--wire", "q8", "--device", device,
+                    "--plan", json.dumps(HARNESS_Q8_PLAN)],
+    }
+    run: dict = {"t0": time.perf_counter(), "procs": {}, "ended": {}}
+    for name, argv in runs.items():
+        tag = name.replace(" ", "_")
+        paths = (os.path.join(workdir, f"harness_{tag}.out"),
+                 os.path.join(workdir, f"harness_{tag}.err"))
+        proc = _popen_worker(argv, paths[0], HARNESS, paths[1])
+
+        def watch(name=name, proc=proc) -> None:
+            try:
+                proc.wait(timeout=HARNESS_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            run["ended"][name] = time.perf_counter()
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        run["procs"][name] = (proc, paths, watcher)
+    return run
+
+
+def _harness_finish(run: dict) -> dict:
+    """Waits for the harness's processes; returns their records and the
+    seconds from the start to each one's end."""
+    out: dict = {"seconds": {}}
+    for name, (proc, (log_path, err_path), watcher) in run["procs"].items():
+        watcher.join()
+        out["seconds"][name] = round(run["ended"][name] - run["t0"], 1)
+        with open(log_path) as f:
+            text = f.read()
+        if proc.returncode != 0:
+            with open(err_path) as f:
+                err = f.read()
+            fail(f"the chaos harness's {name} exited {proc.returncode}:\n"
+                 f"{text[-2500:]}\n{err[-2500:]}")
+        out[name] = _harness_json(text, "dryrun" if name == "dryrun"
+                                  else "config")
+    out["total_s"] = max(out["seconds"].values())
+    return out
+
+
+def phase_chaos_harness(workdir: str, device: str = "cuda",
+                        tree: str = "dense") -> dict:
+    """The harness's two processes, started together and waited for."""
+    return _harness_finish(_harness_start(workdir, device, tree))
+
+
+def check_chaos_harness(res: dict, on_card: bool = True) -> dict:
+    """The dryrun's records (a detected corruption, a SIGSTOP stall, a
+    root restart that replayed its WAL, a sharded re-partition, a
+    fleet-loss restore bit-identical to the pre-kill digest, a
+    serving-churn record) and the four invariants on every schedule."""
+    dry, q8 = res["dryrun"], res["q8 plan"]
+    for key in ("detected_corruption_records", "sigstop_stall_records",
+                "root_restart_records", "sharded_reshard_records",
+                "fleet_loss_records", "serving_churn_records"):
+        if dry.get(key, 0) < 1:
+            fail(f"chaos harness dryrun: no {key.replace('_', ' ')}")
+    records = dry["records"] + [q8]
+    for rec in records:
+        name = f"{rec['config']} seed {rec.get('seed')}"
+        if rec.get("silent_commits", 0) != 0:
+            fail(f"chaos harness {name}: silent commits")
+        for key in ("epoch_purity_ok", "bit_identity_ok", "liveness_ok"):
+            if key in rec and rec[key] is not True:
+                fail(f"chaos harness {name}: {key} is not true")
+        if on_card and rec.get("device", "cuda").split(":")[0] != "cuda":
+            fail(f"chaos harness {name} ran on {rec['device']}")
+    if sum(r.get("crc_detections", 0) for r in records) < 1:
+        fail("chaos harness: no CRC detection")
+    outage = [r for r in dry["records"] if r["config"] == "root_outage"]
+    if not any(r["root_restarts"] >= 1 and r["wal_replays_seen"] >= 1
+               for r in outage):
+        fail("chaos harness: no root restart replayed its WAL")
+    fleet = [r for r in dry["records"] if r["config"] == "fleet_loss"]
+    if not any(r["restored_digest"] == r["pre_kill_digest"] for r in fleet):
+        fail("chaos harness: the fleet-loss restore differs from the "
+             "pre-kill digest")
+    launches = dict(dry["launch_counts"])
+    for k, v in q8.get("launches", {}).items():
+        launches[k] = launches.get(k, 0) + v
+    rows = [{
+        "schedule": f"{r['config']} seed {r.get('seed')}"
+        + (f" wire {r['wire']}" if r.get("wire") else ""),
+        "wall_s": r.get("wall_s"),
+        "faults_fired": r.get("faults_fired", r.get("python_faults")),
+        "crc_detections": r.get("crc_detections"),
+        "commits_per_member": r.get("commits_per_member"),
+    } for r in records]
+    return {"launches": launches, "rows": rows, "outage": outage,
+            "fleet": fleet, "iso_probes": dry["iso_probes"]}
+
+
+def harness_phases(by_phase: dict, beside=None) -> None:
+    """The chaos-invariant harness phase: runs, is checked and logged,
+    and puts its launch counts into ``by_phase``. With ``beside`` (a
+    function running other phases), its processes run while that does
+    (they load the host, not the card: the members' trees are 93 MB
+    each), and its own seconds go to the phase_s line apart."""
+    if beside is None:
+        _phase("chaos harness")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as workdir:
+        run = _harness_start(workdir)
+        try:
+            if beside is not None:
+                beside()
+            res = _harness_finish(run)
+            summ = check_chaos_harness(res)
+        finally:
+            for proc, _, _ in run["procs"].values():
+                if proc.poll() is None:  # a phase beside it failed
+                    # SIGINT: the harness's finally blocks stop the roots,
+                    # publisher and fleet members it started
+                    proc.send_signal(signal.SIGINT)
+                    try:
+                        proc.wait(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+            _keep_logs(workdir, "chaos_harness")
+    if beside is not None:
+        PHASES_BESIDE["chaos harness"] = round(res["total_s"], 1)
+    by_phase["chaos harness"] = summ["launches"]
+    log(f"  chaos harness {res['total_s']:.1f} s"
+        + (" (beside the chaos flash and policy flash phases)"
+           if beside is not None else "")
+        + f": scripts/chaos_run_torch.py --dryrun --tree dense "
+        f"and, beside it, a q8 plan schedule, members' trees on the card; "
+        f"each process done at {json.dumps(res['seconds'])} s; "
+        f"launches {json.dumps(summ['launches'])}")
+    for row in summ["rows"]:
+        log(f"  chaos harness schedule {json.dumps(row)}")
+    for r in summ["outage"]:
+        log(f"  chaos harness root outage: takeover_s {r['takeover_s']}, "
+            f"kill_to_next_commit_s {r['kill_to_next_commit_s']}, root "
+            f"epochs {r['root_epochs_seen']}, restarts {r['root_restarts']}, "
+            f"WAL replays seen {r['wal_replays_seen']}")
+    for r in summ["fleet"]:
+        log(f"  chaos harness fleet loss: resumed step {r['resumed_step']} "
+            f"(torn record step {r['torn_record_step']}), kill to restored "
+            f"commit {r['kill_to_restored_commit_s']} s, restored digest "
+            f"equals the pre-kill digest")
+    log(f"  chaos harness iso probes: {json.dumps(summ['iso_probes'])}")
 
 
 # -- the accelerator-native data plane --------------------------------------------
@@ -5884,7 +6312,7 @@ def iso_phases(by_phase: dict, flash_step_ms: "float | None" = None) -> None:
 # two replica groups of two ranks each, one process per rank, all on the
 # one card (gloo groups, card tensors staged through the host)
 PAR_GROUPS, PAR_RANKS = 2, 2
-PAR_WARM, PAR_STEPS = 1, 2      # untimed and timed blocking steps a sub-phase
+PAR_WARM, PAR_STEPS = 1, 1      # untimed and timed blocking steps a sub-phase
 PAR_TAIL_STEPS = 1              # tp flash: steps the groups take after the heal
 PAR_LOSS_RTOL = 3e-3            # sharded against unsharded bf16 (tests/test_moe.py)
 # the sub-phases in launch order (tp flash last: its kill ends the launch)
@@ -6251,11 +6679,12 @@ def parallel_worker(cfg: dict) -> None:
 
 
 def _par_spawn(cfg: dict, workdir: str) -> subprocess.Popen:
+    """A rank process: warm from the pool, but cold for a restart (an
+    incarnation after the first) after the SIGKILL."""
     name = f"parworker_{cfg['group']}_{cfg['rank']}_{cfg['incarnation']}.log"
-    logf = open(os.path.join(workdir, name), "w")
-    return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--worker", json.dumps(cfg)],
-        cwd=REPO, stdout=logf, stderr=subprocess.STDOUT)
+    return _popen_worker(["--worker", json.dumps(cfg)],
+                         os.path.join(workdir, name),
+                         cold=cfg["incarnation"] > 0)
 
 
 def _par_fail(procs: list, workdir: str, why: str) -> None:
@@ -6567,6 +6996,7 @@ def kernel_turns(tree_a: str, tree_b: str) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--worker", help=argparse.SUPPRESS)
+    parser.add_argument("--pooled", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--heal-donor", help=argparse.SUPPRESS)
     parser.add_argument("--control-worker", help=argparse.SUPPRESS)
     parser.add_argument("--flash-turns", action="store_true",
@@ -6574,6 +7004,9 @@ def main() -> int:
                         "phases in turns (flat, hier, hier, flat)")
     parser.add_argument("--shm-probe", action="store_true",
                         help="check only that /dev/shm takes the host tier")
+    parser.add_argument("--start-probe", action="store_true",
+                        help="measure only: a fresh process's start (import "
+                        "torch, CUDA context, first flash pass)")
     parser.add_argument("--window-phases", action="store_true",
                         help="build, then run only the window-strategy and "
                         "AdaptiveDDP phases")
@@ -6586,6 +7019,9 @@ def main() -> int:
     parser.add_argument("--iso-phases", action="store_true",
                         help="build, then run only the NCCL probe, xla "
                         "dense, iso flash and adaptive dense phases")
+    parser.add_argument("--harness-phases", action="store_true",
+                        help="build, then run only the chaos-invariant "
+                        "harness phase (scripts/chaos_run_torch.py)")
     parser.add_argument("--parallel-phases", action="store_true",
                         help="build, then run only the model-parallel "
                         "launch (cnn, cp ulysses, cp ring, pp flash, ep moe, "
@@ -6597,6 +7033,8 @@ def main() -> int:
                         help="measure only: the flash kernel phase of two "
                         "checkouts in turns (a, b, b, a)")
     args = parser.parse_args()
+    if args.pooled:
+        return _pooled()
     if args.worker:
         worker(json.loads(args.worker))
         return 0
@@ -6613,12 +7051,19 @@ def main() -> int:
     import torchft_tpu_torch  # noqa: F401 - fails outside a checkout
 
     t_start = time.perf_counter()
+    if not (args.shm_probe or args.start_probe or args.legacy_turns
+            or args.kernel_turns):
+        global POOL
+        POOL = _WarmPool(POOL_SIZE)
+        atexit.register(POOL.close)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     if args.flash_turns:
         return flash_turns()
     if args.shm_probe:
         return shm_probe()
+    if args.start_probe:
+        return start_probe()
     if args.legacy_turns:
         return legacy_turns(*args.legacy_turns)
     if args.kernel_turns:
@@ -6645,6 +7090,15 @@ def main() -> int:
         iso_phases(by_phase)
         log(f"  launches by phase: {json.dumps(by_phase)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(_smi(), flush=True)
+        return 0
+    if args.harness_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        harness_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
         print(_smi(), flush=True)
         return 0
     if args.parallel_phases:
@@ -6796,7 +7250,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_phases(by_phase)
     torch.cuda.empty_cache()
-    control_phases(by_phase)
+    control_phases(by_phase, harness=True)
     torch.cuda.empty_cache()
     iso_phases(by_phase, flash_step_ms=fsum["step_ms_p50"])
     torch.cuda.empty_cache()
@@ -6840,6 +7294,7 @@ def main() -> int:
                              "flash_bwd")),
             ("policy flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
                               "flash_fwd", "flash_bwd")),
+            ("chaos harness", ("q8_absmax", "q8_quantize", "q8_dequantize")),
             ("xla dense", ("q8_absmax", "q8_quantize", "q8_dequantize")),
             ("iso flash", ("q8_absmax", "q8_quantize", "q8_dequantize",
                            "flash_fwd", "flash_bwd")),
@@ -6849,6 +7304,8 @@ def main() -> int:
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:
                 fail(f"{name} never launched on the {phase} path")
+    log(f"  worker starts through the pool: {POOL.warm} warm, {POOL.cold} "
+        f"cold (none idle)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"phase_s": _phase_seconds()}), flush=True)

@@ -1306,3 +1306,29 @@ def test_standby_warm_up_launches_on_the_card(cuda_device):
             assert torch.equal(params[k], before[k])
     finally:
         col.shutdown()
+
+
+@pytest.mark.cuda
+def test_chaos_harness_q8_plan_schedule_on_the_card(cuda_device):
+    """scripts/chaos_run_torch.py on the card: three members carrying the
+    dense LM's 39 leaves there run the pinned bit flip on the q8 plan
+    wire; the flip is detected, every invariant holds, and the members'
+    q8ef packs launched K1a/K1b."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import chaos_run_torch
+    from torchft_tpu_torch.chaos import FaultEvent, FaultPlan
+
+    plan = FaultPlan(seed=7, events=(
+        FaultEvent(2, "ring_send", "bit_flip", 0),))
+    rec = chaos_run_torch.run_schedule(
+        7, "plan", groups=3, steps=4, plan=plan, deadline_s=180,
+        device=str(cuda_device), tree="dense", wire="q8")
+    assert rec["crc_detections"] >= 1 and rec["silent_commits"] == 0
+    assert rec["epoch_purity_ok"] and rec["bit_identity_ok"]
+    assert rec["liveness_ok"]
+    assert rec["launches"]["q8_absmax"] >= 3
+    assert rec["launches"]["q8_quantize"] == rec["launches"]["q8_absmax"]

@@ -696,7 +696,7 @@ class PublisherProcess:
     FRESH version history (new nonces over reused version numbers),
     which is exactly the torn-republish case the 400-nonce contract and
     the downstream regression-resync guard. The publisher's weights
-    live on the card.
+    live on ``device`` (``None``: the card).
 
     The deterministic ``seed`` means every incarnation publishes the
     same weight trees (:func:`torchft_tpu_torch.serving.demo_params`), so the
@@ -715,9 +715,11 @@ class PublisherProcess:
         keep: int = 16,
         drip_ms: int = 0,
         extra_env: Optional[Dict[str, str]] = None,
+        device: Optional[str] = None,
     ) -> None:
         self.port = port
         self.wire = wire
+        self.device = device
         self.leaves = leaves
         self.elems = elems
         self.seed = seed
@@ -752,7 +754,7 @@ class PublisherProcess:
             "--publish-every-ms", str(self.publish_every_ms),
             "--snapshot-every", str(self.snapshot_every),
             "--keep", str(self.keep),
-        ]
+        ] + (["--device", self.device] if self.device else [])
 
     def spawn(self) -> None:
         import subprocess
