@@ -237,7 +237,30 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            for rank, and launches its kernels; prints step times, the
            intra-group collectives' ms and MB, each rank's ring, peak
            memory, kill -> first commit, and which gloo ops take a card
-           tensor handed to them (probed in throwaway processes).
+           tensor handed to them (probed in throwaway processes);
+29. quickstart  examples/train_ddp_torch.py as a user runs it: the
+           lighthouse CLI (its dashboard and /status.json read back),
+           then MODEL=lm under python -m torchft_tpu_torch.launcher
+           --num-replica-groups 2 --hot-spare (400 steps, a durable
+           snapshot every 100, the bf16 heal wire) with group 1's primary
+           SIGKILLed at its step 100, and at the same time mlp, cnn and
+           moe as one-group fleets; then group 0 restarted alone on the
+           durable directory (its process started beside the fleet and
+           parked at the trainer's standby gate until the fleet ended).
+           Every trainer starts cold and runs through
+           scripts/train_record_torch.py, which records its launches,
+           commits, the states it served and healed into, and its final
+           params; checks the promoted spare healed from group 0 on the
+           stream path, every heal left the state its peer served
+           (params bit for bit, moments rounded to bf16), K3 bit for bit
+           against its plain version on the opt_state leaves that heal
+           staged, both groups end at NUM_STEPS with equal
+           batches_committed and params within
+           _bf16_heal_drift_bound, the restart restored the last
+           snapshot, every side fleet committed its steps and K3
+           launched; prints kill -> first commit of the promoted spare,
+           the heal's path and bytes, K3's launches, each model's step
+           p50 and a fresh process's seconds to its first commit.
 
 The train, flash train and hier phases drain Manager.observe_op_stats()
 around their timed steps and print, per cell, the native per-bucket
@@ -283,8 +306,8 @@ the serving flash phase, K1a/K1b/K2 in the parameter server phase,
 with exact counts; K1a/K1b/K3 in the control dense phase, K1a/K1b/K4/K5
 in the chaos flash phase and K1a/K1b/K2/K4/K5 in the policy flash
 phase; K1a/K1b/K2 in the xla dense and adaptive dense phases,
-K1a/K1b/K2/K4/K5 in the iso flash phase). The control dense phase
-checks that quorum ids only go up,
+K1a/K1b/K2/K4/K5 in the iso flash phase, K3 in the quickstart phase).
+The control dense phase checks that quorum ids only go up,
 that every heal took the stream path to a state the other group served
 (bit for bit), that the cold run ends bit-identical and the hot run
 (whose bf16 heal wire rounds the AdamW moments) within the drift that
@@ -312,7 +335,8 @@ checks only that the machine's /dev/shm takes the shm host tier;
 phases 21-23 (the launched workers are this script re-run with
 ``--control-worker``), ``--harness-phases`` only the chaos harness,
 ``--iso-phases`` only phases 24-27,
-``--parallel-phases`` only phase 28; ``--legacy-turns A B`` runs the
+``--parallel-phases`` only phase 28, ``--quickstart-phases`` only
+phase 29; ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
 a), each from its own chip_smoke.py and build; ``--kernel-turns A B``
 likewise the flash kernel phase (phase 3), K4's and K5's times compared
@@ -5625,6 +5649,502 @@ def harness_phases(by_phase: dict, beside=None) -> None:
     log(f"  chaos harness iso probes: {json.dumps(summ['iso_probes'])}")
 
 
+# -- the quickstart trainer -------------------------------------------------------
+
+QUICKSTART = os.path.join(REPO, "examples", "train_ddp_torch.py")
+# The lm fleet: two groups under the launcher with a hot spare each, the
+# CLI lighthouse (verify_e2e.sh's short join, tick and heartbeat), a
+# durable snapshot every QS_CKPT_EVERY committed steps and the bf16 heal
+# wire; group 1's primary is SIGKILLed once its log passes QS_KILL_STEP.
+# QS_STEPS leaves the survivor, which trains on alone meanwhile, room to
+# be met by the promoted spare well before the end (it moved 3 steps
+# while the spare took over, at ~33 ms a step: NVIDIA H100 80GB HBM3,
+# 700.00 W).
+QS_STEPS = 400
+QS_CKPT_EVERY = 100
+QS_KILL_STEP = 100
+QS_SIDE_STEPS = 60     # mlp, cnn and moe: one-group fleets beside it
+QS_SIDE_MODELS = ("mlp", "cnn", "moe")
+QS_TIMEOUT_S = 420
+# verify_e2e.sh's short join, tick and heartbeat: the CLI lighthouse's
+# flags and the side fleets' in-process lighthouses
+QS_LIGHTHOUSE = {"min_replicas": 1, "join_timeout_ms": 2000,
+                 "quorum_tick_ms": 50, "heartbeat_timeout_ms": 1000}
+# runs a trainer as a user would and records what the checks read
+# (``python QS_RECORDER OUTDIR SCRIPT``; see its docstring)
+QS_RECORDER = os.path.join(REPO, "scripts", "train_record_torch.py")
+
+
+def _qs_env(device: str, **knobs) -> dict:
+    """The trainer's environment: the card by default (the trainer's
+    own), ``DEVICE=cpu`` and one intra-op thread for a CPU rehearsal."""
+    env = {**os.environ, **{k: str(v) for k, v in knobs.items()}}
+    if device == "cpu":
+        env.update(DEVICE="cpu", OMP_NUM_THREADS="1")
+    return env
+
+
+def _qs_records(outdir: str, kind: str) -> list:
+    rows = []
+    for name in sorted(os.listdir(outdir)):
+        if name.startswith(kind + "_") and name.endswith(".json"):
+            with open(os.path.join(outdir, name)) as f:
+                rows.append(json.load(f))
+    return rows
+
+
+def _qs_trainer(outdir: str, log_path: str, env: dict) -> subprocess.Popen:
+    """One trainer process, started cold: the first step of a fresh
+    process is one of the things this phase measures."""
+    os.makedirs(outdir, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, QS_RECORDER, outdir, QUICKSTART],
+        cwd=REPO, env=env, stdout=open(log_path, "w"),
+        stderr=subprocess.STDOUT)
+
+
+def _qs_wait_http(addr: str, proc: subprocess.Popen, timeout_s: float) -> str:
+    import urllib.request
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            with urllib.request.urlopen(addr + "/", timeout=2) as r:
+                return r.read().decode("utf-8", "replace")
+        except OSError:
+            if proc.poll() is not None:
+                fail(f"the lighthouse CLI exited {proc.returncode}")
+            if time.monotonic() > deadline:
+                fail(f"the lighthouse CLI did not answer at {addr}")
+            time.sleep(0.2)
+
+
+def _qs_killer(run: dict, kill_step: int) -> None:
+    """Waits for group 1's log line past ``kill_step``, then SIGKILLs
+    group 1's primary (the launcher promotes its spare)."""
+    pat = re.compile(r"\[group 1\] step=(\d+) ")
+    deadline = time.monotonic() + QS_TIMEOUT_S
+    while time.monotonic() < deadline and run["launcher"].poll() is None:
+        with open(run["launcher_log"]) as f:
+            steps = [int(s) for s in pat.findall(f.read())]
+        if steps and max(steps) >= kill_step:
+            primary = [r for r in _qs_records(run["lm_dir"], "start")
+                       if r["group"] == 1 and not r["standby"]]
+            if len(primary) != 1:
+                run["kill_error"] = f"group 1 primaries: {primary}"
+                return
+            run["t_kill"] = time.time()
+            run["killed_pid"] = primary[0]["pid"]
+            run["kill_seen_step"] = max(steps)
+            os.kill(primary[0]["pid"], signal.SIGKILL)
+            return
+        time.sleep(0.05)
+    run["kill_error"] = f"group 1 never logged step {kill_step}"
+
+
+def _quickstart_start(workdir: str, device: str = "cuda",
+                      steps: int = QS_STEPS, every: int = QS_CKPT_EVERY,
+                      kill_step: int = QS_KILL_STEP,
+                      side_steps: int = QS_SIDE_STEPS) -> dict:
+    """Starts the lighthouse CLI, reads its dashboard back, then the lm
+    fleet under the launcher (two groups, a hot spare each) and, at the
+    same time, the mlp, cnn and moe one-group fleets, each on an
+    in-process lighthouse of this process, and the durable restart's
+    process, parked; a thread kills group 1's primary mid-run."""
+    from torchft_tpu_torch import _native
+    from torchft_tpu_torch.chaos import free_port
+    from torchft_tpu_torch.lighthouse import fetch_status
+
+    run: dict = {"t0": time.perf_counter(), "device": device, "steps": steps,
+                 "every": every, "side_steps": side_steps,
+                 "lm_dir": os.path.join(workdir, "lm"),
+                 "ckpt_dir": os.path.join(workdir, "ckpt"),
+                 "launcher_log": os.path.join(workdir, "launcher.log"),
+                 "sides": {}, "side_lighthouses": []}
+    os.makedirs(run["lm_dir"])
+    port = free_port()
+    addr = f"http://localhost:{port}"
+    run["lighthouse_addr"] = addr
+    run["lighthouse"] = subprocess.Popen(
+        [sys.executable, "-m", "torchft_tpu_torch.lighthouse", "--bind",
+         f"[::]:{port}",
+         *(a for k, v in QS_LIGHTHOUSE.items() for a in (f"--{k}", str(v)))],
+        cwd=REPO,
+        stdout=open(os.path.join(workdir, "lighthouse.log"), "w"),
+        stderr=subprocess.STDOUT)
+    try:
+        page = _qs_wait_http(addr, run["lighthouse"], 120)
+        if "torchft" not in page.lower():
+            fail(f"the lighthouse's dashboard reads {page[:200]!r}")
+        status = fetch_status(addr)
+        run["dashboard"] = {"page_bytes": len(page),
+                            "status_keys": sorted(status),
+                            "role": status.get("role")}
+        run["t_fleet"] = time.time()
+        run["launcher"] = subprocess.Popen(
+            [sys.executable, "-m", "torchft_tpu_torch.launcher",
+             "--num-replica-groups", "2", "--hot-spare", "--lighthouse", addr,
+             "--", sys.executable, QS_RECORDER, run["lm_dir"], QUICKSTART],
+            cwd=REPO, env=_qs_env(device, MODEL="lm", NUM_STEPS=steps,
+                                  CKPT_DIR=run["ckpt_dir"], CKPT_EVERY=every,
+                                  TORCHFT_HEAL_WIRE="bf16"),
+            stdout=open(run["launcher_log"], "w"), stderr=subprocess.STDOUT)
+        for model in QS_SIDE_MODELS:
+            lh = _native.Lighthouse(bind="[::]:0", **QS_LIGHTHOUSE)
+            run["side_lighthouses"].append(lh)
+            env = _qs_env(device, MODEL=model, DATA="synthetic",
+                          NUM_STEPS=side_steps, NUM_REPLICA_GROUPS=1,
+                          REPLICA_GROUP_ID=0, TORCHFT_LIGHTHOUSE=lh.address())
+            run["sides"][model] = (
+                time.time(), _qs_trainer(os.path.join(workdir, model),
+                                         os.path.join(workdir, f"{model}.log"),
+                                         env))
+        # the durable restart's process, started now and parked at the
+        # trainer's standby gate until the fleet has ended (the launcher's
+        # hot-spare path): its start overlaps the fleet's run
+        run["restart_dir"] = os.path.join(workdir, "restart")
+        run["restart_log"] = os.path.join(workdir, "restart.log")
+        run["restart_go"] = os.path.join(workdir, "restart_go")
+        run["restart"] = _qs_trainer(run["restart_dir"], run["restart_log"],
+                                     _qs_env(device, MODEL="lm",
+                                             NUM_STEPS=steps + 2,
+                                             CKPT_DIR=run["ckpt_dir"],
+                                             CKPT_EVERY=every,
+                                             REPLICA_GROUP_ID=0,
+                                             NUM_REPLICA_GROUPS=2,
+                                             TORCHFT_LIGHTHOUSE=addr,
+                                             TORCHFT_STANDBY_FILE=run["restart_go"]))
+        run["killer"] = threading.Thread(target=_qs_killer,
+                                         args=(run, kill_step), daemon=True)
+        run["killer"].start()
+    except BaseException:
+        _qs_stop(run)
+        raise
+    return run
+
+
+def _qs_stop(run: dict) -> None:
+    """Stops whatever of the phase still runs: the launcher (SIGINT: it
+    terminates its groups and kills its parked spares; if it does not
+    exit, it is killed, and so is every trainer that wrote a start
+    record), the side fleets, the restart and the lighthouses."""
+    launcher = run.get("launcher")
+    if launcher is not None and launcher.poll() is None:
+        launcher.send_signal(signal.SIGINT)
+        try:
+            launcher.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            launcher.kill()
+            launcher.wait()
+            for r in _qs_records(run["lm_dir"], "start"):
+                try:
+                    os.kill(r["pid"], signal.SIGKILL)
+                except OSError:
+                    pass  # gone already
+    procs = [p for _, p in run.get("sides", {}).values()]
+    if run.get("restart") is not None:
+        procs.append(run["restart"])
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if run.get("lighthouse") is not None and run["lighthouse"].poll() is None:
+        run["lighthouse"].terminate()
+        try:
+            run["lighthouse"].wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            run["lighthouse"].kill()
+            run["lighthouse"].wait()
+    for lh in run.get("side_lighthouses", []):
+        lh.shutdown()
+    run["side_lighthouses"] = []
+
+
+def _qs_states(outdir: str, kind: str) -> list:
+    """The states the recorder saved in ``outdir``: ``served`` (each a
+    process handed a healing peer) or ``healed`` (each a heal left)."""
+    return [{**torch.load(os.path.join(outdir, name)),
+             "pid": int(name.split("_")[1])}
+            for name in sorted(os.listdir(outdir))
+            if name.startswith(kind + "_") and name.endswith(".pt")]
+
+
+def _qs_handover(served: list, healed: dict) -> dict:
+    """A heal against the state a peer served at its step: every leaf the
+    bf16 wire ships raw (the params) bit for bit, each leaf it narrows
+    (the f32 opt_state moments) equal to the served one rounded to bf16
+    (round to nearest even) and widened back. Returns the served state."""
+    peers = [x for x in served if x["step"] == healed["step"]
+             and x["pid"] != healed["pid"]]
+    if not peers:
+        fail(f"quickstart: pid {healed['pid']} healed at step "
+             f"{healed['step']}, a state no peer served")
+    donor = peers[-1]
+    if (donor["paths"], donor["narrow"]) != (healed["paths"], healed["narrow"]):
+        fail(f"quickstart: the heal at step {healed['step']} has another "
+             "tree than the state served")
+    for path, a, b, narrow in zip(donor["paths"], donor["leaves"],
+                                  healed["leaves"], donor["narrow"]):
+        want = a.to(torch.bfloat16).float() if narrow else a
+        if not _bits_equal(b, want):
+            fail(f"quickstart: the heal at step {healed['step']} left {path} "
+                 f"other than the served state{' rounded to bf16' * narrow}")
+    return donor
+
+
+def _qs_tail(path: str, n: int = 3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _quickstart_finish(run: dict, workdir: str) -> dict:
+    """Waits for the fleets, releases the parked restart of group 0 on
+    the durable directory, and returns every process's record."""
+    try:
+        deadline = time.monotonic() + QS_TIMEOUT_S
+        try:
+            rc = run["launcher"].wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            fail(f"the quickstart launcher ran past {QS_TIMEOUT_S} s:\n"
+                 f"{_qs_tail(run['launcher_log'])}")
+        run["killer"].join()
+        if "kill_error" in run:
+            fail(f"quickstart: {run['kill_error']}")
+        if rc != 0:
+            fail(f"the quickstart launcher exited {rc}:\n"
+                 f"{_qs_tail(run['launcher_log'])}")
+        run["t_fleet_end"] = time.perf_counter()
+        # group 0 alone on the same durable directory, two steps past
+        restart_dir, restart_log = run["restart_dir"], run["restart_log"]
+        open(run["restart_go"], "w").close()  # releases its standby gate
+        sides = {}
+        for model, (t_spawn, proc) in run["sides"].items():
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"the {model} quickstart ran past {QS_TIMEOUT_S} s")
+            log_path = os.path.join(workdir, f"{model}.log")
+            if proc.returncode != 0:
+                fail(f"the {model} quickstart exited {proc.returncode}:\n"
+                     f"{_qs_tail(log_path)}")
+            (rec,) = _qs_records(os.path.join(workdir, model), "end")
+            sides[model] = {**rec, "t_spawn": t_spawn}
+        try:
+            run["restart"].wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            fail("the durable restart ran past the phase's time")
+        if run["restart"].returncode != 0:
+            fail(f"the durable restart exited {run['restart'].returncode}:\n"
+                 f"{_qs_tail(restart_log)}")
+        with open(restart_log) as f:
+            restart_text = f.read()
+        (restart,) = _qs_records(restart_dir, "end")
+        with open(run["launcher_log"]) as f:
+            launcher_text = f.read()
+    finally:
+        _qs_stop(run)
+    return {
+        "steps": run["steps"], "every": run["every"],
+        "side_steps": run["side_steps"], "dashboard": run["dashboard"],
+        "t_kill": run["t_kill"], "t_fleet": run["t_fleet"],
+        "killed_pid": run["killed_pid"],
+        "kill_seen_step": run["kill_seen_step"],
+        "lm": _qs_records(run["lm_dir"], "end"),
+        "lm_starts": _qs_records(run["lm_dir"], "start"),
+        "served": _qs_states(run["lm_dir"], "served"),
+        "healed": _qs_states(run["lm_dir"], "healed"),
+        "sides": sides, "restart": restart, "restart_log": restart_text,
+        "launcher_log": launcher_text,
+        "fleet_s": run["t_fleet_end"] - run["t0"],
+        "total_s": time.perf_counter() - run["t0"],
+    }
+
+
+def phase_quickstart(workdir: str, device: str = "cuda", **sizes) -> dict:
+    """The quickstart: the lighthouse CLI, the launcher with hot spares
+    over ``examples/train_ddp_torch.py`` (lm) with a SIGKILL, the mlp,
+    cnn and moe fleets beside it, then a durable restart."""
+    return _quickstart_finish(_quickstart_start(workdir, device, **sizes),
+                              workdir)
+
+
+def _qs_step_p50_ms(rec: dict) -> float:
+    t = [c[1] for c in rec["commits"]]
+    return round(1e3 * _median([b - a for a, b in zip(t, t[1:])]), 3)
+
+
+def _qs_first_step(rec: dict, t_spawn: "float | None" = None) -> dict:
+    """A fresh process's way to its first commit, in seconds."""
+    out = {"imports_model_warmup_s": rec["t_manager"] - rec["t_start"],
+           "manager_to_first_commit_s": rec["commits"][0][1] - rec["t_manager"],
+           "start_to_first_commit_s": rec["commits"][0][1] - rec["t_start"]}
+    if t_spawn is not None:
+        out["interpreter_s"] = rec["t_start"] - t_spawn
+        out["spawn_to_first_commit_s"] = rec["commits"][0][1] - t_spawn
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def check_quickstart(res: dict, on_card: bool = True) -> dict:
+    """Both lm groups at NUM_STEPS with equal batches committed; group
+    1's spare parked until the kill, promoted, healed from group 0 on the
+    stream path and the bf16 wire; every heal left the state its peer
+    served (params bit for bit, moments rounded to bf16); K3 against its
+    plain version, bit for bit, on the opt_state leaves that heal staged;
+    the final params within the drift that wire's rounding allows; the
+    durable restart at the last snapshot; mlp, cnn and moe at their
+    steps; K3 launched on the card."""
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+    from torchft_tpu_torch.ops._lib import _kernels
+
+    steps, every = res["steps"], res["every"]
+    by_role = {}
+    for rec in res["lm"]:
+        if rec.get("rc") != 0:
+            fail(f"quickstart lm pid {rec['pid']}: {rec.get('error')}")
+        by_role[(rec["group"], rec["standby"])] = rec
+    if set(by_role) != {(0, False), (1, True)}:
+        fail(f"quickstart: ended trainers {sorted(by_role)}, want group 0's "
+             "primary and group 1's promoted spare")
+    g0, spare = by_role[(0, False)], by_role[(1, True)]
+    if not any(r["group"] == 1 and not r["standby"]
+               and r["pid"] == res["killed_pid"] for r in res["lm_starts"]):
+        fail("quickstart: the killed process was not group 1's primary")
+    if "promoted standby pid %d" % spare["pid"] not in res["launcher_log"]:
+        fail("quickstart: the launcher never promoted group 1's spare")
+    if spare["t_manager"] < res["t_kill"]:
+        fail("quickstart: group 1's spare left its gate before the kill")
+    for rec in (g0, spare):
+        if rec["step"] != steps:
+            fail(f"quickstart group {rec['group']} ended at step "
+                 f"{rec['step']}, not {steps}")
+    if g0["batches_committed"] != spare["batches_committed"]:
+        fail(f"quickstart: batches committed {g0['batches_committed']} "
+             f"(group 0) != {spare['batches_committed']} (group 1)")
+    heal = spare["heal"] or {}
+    if heal.get("path") != "stream" or heal.get("wire") != "bf16":
+        fail(f"quickstart: the promoted spare's heal {heal}")
+    if spare["counters"].get("heals", 0) < 1:
+        fail("quickstart: the promoted spare never healed")
+    heal_step = spare["commits"][0][0]
+    healed = {x["pid"]: x for x in res["healed"]}
+    if spare["pid"] not in healed:
+        fail("quickstart: no state recorded from the promoted spare's heal")
+    donor = None
+    for x in res["healed"]:  # group 1's initial sync too
+        served = _qs_handover(res["served"], x)
+        if x["pid"] == spare["pid"]:
+            donor = served
+    # K3 over the group the spare's heal staged (the durable pack's
+    # group is the same leaves), against its plain version
+    moments = [l.to("cuda" if on_card else "cpu")
+               for l, n in zip(donor["leaves"], donor["narrow"]) if n]
+    _k3_k2_group_case(qk, f"quickstart heal staging ({len(moments)} "
+                      f"opt_state leaves)", moments, 0,
+                      _kernels.lib().tft_seg_capacity() if on_card else 0)
+    if g0["lr"] != spare["lr"]:
+        fail(f"quickstart: learning rates {g0['lr']} and {spare['lr']}")
+    drift = _param_drift(g0["params"], spare["params"])
+    bound = _bf16_heal_drift_bound(steps - heal_step + 1, lr=g0["lr"])
+    if not drift <= bound:
+        fail(f"quickstart: the groups' params part by {drift}, past the "
+             f"bf16 heal's bound {bound}")
+    snapshot = steps // every * every
+    if every * 2 > steps:
+        fail("quickstart: CKPT_EVERY fires fewer than twice")
+    if f"restored durable ckpt at step {snapshot}" not in res["restart_log"]:
+        fail(f"quickstart: the restart did not restore step {snapshot}")
+    if res["restart"]["step"] != steps + 2:
+        fail(f"quickstart: the restart ended at {res['restart']['step']}")
+    for model, rec in res["sides"].items():
+        if rec["step"] != res["side_steps"] or rec["batches_committed"] != rec["step"]:
+            fail(f"quickstart {model}: step {rec['step']}, batches "
+                 f"{rec['batches_committed']}")
+    launches: dict = {}
+    for rec in [*res["lm"], res["restart"], *res["sides"].values()]:
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if on_card and launches.get("cast_bf16", 0) == 0:
+        fail("quickstart: K3 never launched in the fleet")
+    return {
+        "launches": launches,
+        "kill_to_first_commit_s": round(spare["commits"][0][1] - res["t_kill"], 3),
+        "kill_to_promoted_s": round(spare["t_promoted"] - res["t_kill"], 3),
+        "kill_to_manager_s": round(spare["t_manager"] - res["t_kill"], 3),
+        "handover": {"heals": len(res["healed"]), "step": donor["step"],
+                     "leaves": len(donor["leaves"]),
+                     "moments": len(moments)},
+        "heal": {k: heal.get(k) for k in ("path", "wire", "streams", "bytes",
+                                          "fetch_s", "h2d_s")},
+        "heal_step": heal_step, "kill_seen_step": res["kill_seen_step"],
+        "batches_committed": g0["batches_committed"],
+        "param_drift": drift, "drift_bound": bound,
+        "restored_step": snapshot,
+        "step_ms_p50": {"lm": _qs_step_p50_ms(g0),
+                        **{m: _qs_step_p50_ms(r) for m, r in res["sides"].items()}},
+        "timers_p50_ms": {"lm group 0": g0["timers_p50_ms"],
+                          **{m: r["timers_p50_ms"]
+                             for m, r in res["sides"].items()}},
+        "first_step": {"lm group 0": _qs_first_step(g0),
+                       **{m: _qs_first_step(r, r["t_spawn"])
+                          for m, r in res["sides"].items()}},
+        "dashboard": res["dashboard"],
+        "fleet_s": round(res["fleet_s"], 1),
+    }
+
+
+def quickstart_phases(by_phase: dict, beside=None) -> None:
+    """The quickstart phase: runs, is checked and logged, and puts its
+    launch counts into ``by_phase``. With ``beside`` (a function running
+    other phases), its processes run while that does, and its own
+    seconds go to the phase_s line apart."""
+    if beside is None:
+        _phase("quickstart")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quickstart_") as workdir:
+        try:
+            run = _quickstart_start(workdir)
+            if beside is not None:
+                try:
+                    beside()
+                except BaseException:
+                    _qs_stop(run)
+                    raise
+            res = _quickstart_finish(run, workdir)
+            summ = check_quickstart(res)
+        finally:
+            _keep_logs(workdir, "quickstart")
+    if beside is not None:
+        PHASES_BESIDE["quickstart"] = round(res["total_s"], 1)
+    by_phase["quickstart"] = summ["launches"]
+    log(f"  quickstart {res['total_s']:.1f} s"
+        + (" (beside other phases)" if beside is not None else "")
+        + f": the lighthouse CLI ({json.dumps(summ['dashboard'])}), "
+        f"examples/train_ddp_torch.py MODEL=lm under the launcher with hot "
+        f"spares, {res['steps']} steps, durable every {res['every']}, bf16 "
+        f"heal wire; lm fleet {summ['fleet_s']} s")
+    log(f"  quickstart kill -> first commit of the promoted spare "
+        f"{summ['kill_to_first_commit_s']} s (kill -> the spare's Manager "
+        f"{summ['kill_to_manager_s']} s, -> promoted by the launcher "
+        f"{summ['kill_to_promoted_s']} s; killed at group 1's step "
+        f"{summ['kill_seen_step']}, healed at step {summ['heal_step']})")
+    log(f"  quickstart handover {json.dumps(summ['handover'])}: each heal "
+        f"left the state its peer served, params bit for bit, moments that "
+        f"state's rounded to bf16; K3 bit for bit against its plain version "
+        f"over the spare's heal staging")
+    log(f"  quickstart heal {json.dumps(summ['heal'])}; both groups at step "
+        f"{res['steps']}, batches_committed {summ['batches_committed']}; "
+        f"params apart by {summ['param_drift']:.3g} (bound "
+        f"{summ['drift_bound']:.3g}); durable restart restored step "
+        f"{summ['restored_step']}")
+    log(f"  quickstart K3 launches in the fleet "
+        f"{summ['launches'].get('cast_bf16', 0)}; launches "
+        f"{json.dumps(summ['launches'])}")
+    log(f"  quickstart step p50 ms {json.dumps(summ['step_ms_p50'])}; the "
+        f"manager's timers, p50 ms (quorum overlaps the forward/backward): "
+        f"{json.dumps(summ['timers_p50_ms'])}")
+    log(f"  quickstart a fresh process to its first commit, s: "
+        f"{json.dumps(summ['first_step'])}")
+
+
 # -- the accelerator-native data plane --------------------------------------------
 
 # iso flash: ISO_WARM_STEPS untimed, ISO_STEPS timed fault-free steps; then
@@ -7022,6 +7542,10 @@ def main() -> int:
     parser.add_argument("--harness-phases", action="store_true",
                         help="build, then run only the chaos-invariant "
                         "harness phase (scripts/chaos_run_torch.py)")
+    parser.add_argument("--quickstart-phases", action="store_true",
+                        help="build, then run only the quickstart phase "
+                        "(examples/train_ddp_torch.py under the launcher "
+                        "with hot spares, a SIGKILL and a bf16 heal)")
     parser.add_argument("--parallel-phases", action="store_true",
                         help="build, then run only the model-parallel "
                         "launch (cnn, cp ulysses, cp ring, pp flash, ep moe, "
@@ -7096,6 +7620,15 @@ def main() -> int:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         by_phase = {}
         harness_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
+        print(_smi(), flush=True)
+        return 0
+    if args.quickstart_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        quickstart_phases(by_phase)
         log(f"  launches by phase: {json.dumps(by_phase)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
@@ -7255,6 +7788,8 @@ def main() -> int:
     iso_phases(by_phase, flash_step_ms=fsum["step_ms_p50"])
     torch.cuda.empty_cache()
     parallel_phases(by_phase)
+    torch.cuda.empty_cache()
+    quickstart_phases(by_phase)
     # each kernel's launches over the main paths' runs (the counts each
     # worker, or phase, reset just before a path and read just after)
     for name in rows:
@@ -7300,6 +7835,7 @@ def main() -> int:
                            "flash_fwd", "flash_bwd")),
             ("adaptive dense", ("q8_absmax", "q8_quantize",
                                 "q8_dequantize")),
+            ("quickstart", ("cast_bf16",)),
             *((f"parallel {sub}", names) for sub, names in PAR_KERNELS.items())):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:

@@ -948,7 +948,10 @@ def _iso_probe(kind: str, device: Any = None) -> dict:
         if kind == "sigstop":
             assert stalled, (
                 f"SIGSTOP surfaced as {verdicts}, not a stall verdict")
-            os.kill(victim, signal.SIGCONT)
+            try:
+                os.kill(victim, signal.SIGCONT)
+            except ProcessLookupError:
+                pass  # the stall verdict SIGKILLed and reaped it first (D8)
         t0 = time.monotonic()
         configure("cp1")
         reconfigure_s = time.monotonic() - t0

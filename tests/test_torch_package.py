@@ -62,6 +62,17 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
         "from torchft_tpu_torch import Mesh, make_mesh, pipeline_blocks\n"
         "from torchft_tpu_torch.models import (CNNConfig, MoEConfig, cnn, moe, "
         "param_sharding_rules)\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location("
+        "'train_ddp_torch', 'examples/train_ddp_torch.py')\n"
+        "trainer = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(trainer)\n"
+        "assert callable(trainer.main) and callable(trainer.build_model)\n"
+        "spec = importlib.util.spec_from_file_location("
+        "'train_record_torch', 'scripts/train_record_torch.py')\n"
+        "recorder = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(recorder)\n"
+        "assert callable(recorder.main)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'optax', 'ml_dtypes', 'torchft_tpu'))\n"
         "assert not bad, bad\n"
@@ -131,3 +142,63 @@ def test_checkpoint_wire_is_numpy_through_a_safelist():
 
     with pytest.raises(pickle.UnpicklingError):
         ck.load_state_dict_stream(io.BytesIO(pickle.dumps(Evil())))
+
+
+def test_console_scripts_resolve():
+    """The port's two console scripts, beside the JAX package's two, each
+    a callable ``main``; the port's packages and kernel sources ship."""
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)
+    scripts = project["project"]["scripts"]
+    port = {k: v for k, v in scripts.items() if v.startswith("torchft_tpu_torch.")}
+    assert port == {
+        "torchft-tpu-torch-lighthouse": "torchft_tpu_torch.lighthouse:main",
+        "torchft-tpu-torch-launcher": "torchft_tpu_torch.launcher:main",
+    }
+    assert len(scripts) == 4
+    for target in port.values():
+        module, attr = target.split(":")
+        assert callable(getattr(importlib.import_module(module), attr))
+    setup = project["tool"]["setuptools"]
+    for pkg in ("torchft_tpu_torch", "torchft_tpu_torch.models",
+                "torchft_tpu_torch.ops"):
+        assert pkg in setup["packages"]
+        assert os.path.isdir(os.path.join(REPO, *pkg.split(".")))
+    assert setup["package-data"]["torchft_tpu_torch"] == ["csrc/*.cu"]
+
+
+@pytest.mark.parametrize("module", ["torchft_tpu_torch.lighthouse",
+                                    "torchft_tpu_torch.launcher"])
+def test_module_entry_points_help(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", module, "--help"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert f"usage: {module}" in proc.stdout
+
+
+def test_control_plane_entry_points_start_without_torch():
+    """The lighthouse and launcher CLIs and the standby gate import no
+    torch (the package's names load at first use): a root lighthouse
+    that a supervisor restarts serves in a fraction of a second, not
+    after an ``import torch``."""
+    code = (
+        "import sys, torchft_tpu_torch, torchft_tpu_torch.lighthouse, "
+        "torchft_tpu_torch.launcher\n"
+        "from torchft_tpu_torch.platform import standby_gate\n"
+        "from torchft_tpu_torch import Lighthouse\n"
+        "assert 'torch' not in sys.modules, 'torch was imported'\n"
+        "from torchft_tpu_torch import Manager\n"
+        "assert 'torch' in sys.modules\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -24,114 +24,93 @@ neither JAX nor ``torchft_tpu``.
 Entry points run on the card unless given ``device="cpu"``.
 """
 
-from .checkpointing import CheckpointServer, CheckpointTransport
-from .collectives import (
-    Collectives,
-    DummyCollectives,
-    HostCollectives,
-    ReduceOp,
-    TreeShard,
-    Work,
-)
-from .data import DistributedSampler, StatefulDataLoader
-from .isolated_xla import (
-    ChildDiedError,
-    ChildStalledError,
-    IsolatedXLACollectives,
-)
-from .durable import (
-    CheckpointStore,
-    DurableCheckpointer,
-    LocalDirStore,
-    ManifestLog,
-)
-from .ddp import AdaptiveDDP, DistributedDataParallel, PipelinedDDP, ShardedDDP
-from .local_sgd import AsyncDiLoCo, DiLoCo, LocalSGD
-from .chaos import ChaosInjector, FaultEvent, FaultPlan
-from .manager import Manager, WorldSizeMode
-from .metrics import Metrics
-from .optim import OptimizerWrapper, ShardedOptimizerWrapper
-from .parallel import Mesh, make_mesh
-from .pipeline import pipeline_blocks, stack_blocks
-from .policy import CostKnobs, PolicyEngine, StrategySpec
-from .parameter_server import ParameterServer
-from .profiling import Profiler, span
-from .serving import (
-    StaleWeightsError,
-    WeightPublisher,
-    WeightRelay,
-    WeightSubscriber,
-)
-from .train_state import SGD, AdamW, FTTrainState
-from .xla_collectives import XLACollectives
-from ._native import (
-    LeaseClient,
-    Lighthouse,
-    ManagerClient,
-    QuorumResult,
-    RegionLighthouse,
-    Store,
-    StoreClient,
-    WireCorruption,
-)
+from __future__ import annotations
 
-__all__ = [
-    "AdamW",
-    "AdaptiveDDP",
-    "AsyncDiLoCo",
-    "ChaosInjector",
-    "CheckpointServer",
-    "CheckpointStore",
-    "CheckpointTransport",
-    "ChildDiedError",
-    "ChildStalledError",
-    "Collectives",
-    "CostKnobs",
-    "DiLoCo",
-    "DistributedDataParallel",
-    "DistributedSampler",
-    "DummyCollectives",
-    "DurableCheckpointer",
-    "FTTrainState",
-    "FaultEvent",
-    "FaultPlan",
-    "HostCollectives",
-    "IsolatedXLACollectives",
-    "LeaseClient",
-    "Lighthouse",
-    "LocalDirStore",
-    "LocalSGD",
-    "Manager",
-    "ManagerClient",
-    "ManifestLog",
-    "Mesh",
-    "Metrics",
-    "OptimizerWrapper",
-    "ParameterServer",
-    "PipelinedDDP",
-    "PolicyEngine",
-    "Profiler",
-    "QuorumResult",
-    "ReduceOp",
-    "RegionLighthouse",
-    "SGD",
-    "ShardedDDP",
-    "ShardedOptimizerWrapper",
-    "StaleWeightsError",
-    "StatefulDataLoader",
-    "Store",
-    "StoreClient",
-    "StrategySpec",
-    "TreeShard",
-    "WeightPublisher",
-    "WeightRelay",
-    "WeightSubscriber",
-    "WireCorruption",
-    "Work",
-    "WorldSizeMode",
-    "XLACollectives",
-    "make_mesh",
-    "pipeline_blocks",
-    "span",
-    "stack_blocks",
-]
+import importlib
+from typing import Any, List
+
+# Each public name and the module that defines it, imported at first use:
+# the control-plane entry points (``python -m torchft_tpu_torch.lighthouse``,
+# ``.launcher``, ``platform.standby_gate``) need no torch, and a process
+# that runs only them starts without importing it.
+_EXPORTS = {
+    "AdamW": "train_state",
+    "AdaptiveDDP": "ddp",
+    "AsyncDiLoCo": "local_sgd",
+    "ChaosInjector": "chaos",
+    "CheckpointServer": "checkpointing",
+    "CheckpointStore": "durable",
+    "CheckpointTransport": "checkpointing",
+    "ChildDiedError": "isolated_xla",
+    "ChildStalledError": "isolated_xla",
+    "Collectives": "collectives",
+    "CostKnobs": "policy",
+    "DiLoCo": "local_sgd",
+    "DistributedDataParallel": "ddp",
+    "DistributedSampler": "data",
+    "DummyCollectives": "collectives",
+    "DurableCheckpointer": "durable",
+    "FTTrainState": "train_state",
+    "FaultEvent": "chaos",
+    "FaultPlan": "chaos",
+    "HostCollectives": "collectives",
+    "IsolatedXLACollectives": "isolated_xla",
+    "LeaseClient": "_native",
+    "Lighthouse": "_native",
+    "LocalDirStore": "durable",
+    "LocalSGD": "local_sgd",
+    "Manager": "manager",
+    "ManagerClient": "_native",
+    "ManifestLog": "durable",
+    "Mesh": "parallel",
+    "Metrics": "metrics",
+    "OptimizerWrapper": "optim",
+    "ParameterServer": "parameter_server",
+    "PipelinedDDP": "ddp",
+    "PolicyEngine": "policy",
+    "Profiler": "profiling",
+    "QuorumResult": "_native",
+    "ReduceOp": "collectives",
+    "RegionLighthouse": "_native",
+    "SGD": "train_state",
+    "ShardedDDP": "ddp",
+    "ShardedOptimizerWrapper": "optim",
+    "StaleWeightsError": "serving",
+    "StatefulDataLoader": "data",
+    "Store": "_native",
+    "StoreClient": "_native",
+    "StrategySpec": "policy",
+    "TreeShard": "collectives",
+    "WeightPublisher": "serving",
+    "WeightRelay": "serving",
+    "WeightSubscriber": "serving",
+    "WireCorruption": "_native",
+    "Work": "collectives",
+    "WorldSizeMode": "manager",
+    "XLACollectives": "xla_collectives",
+    "make_mesh": "parallel",
+    "pipeline_blocks": "pipeline",
+    "span": "profiling",
+    "stack_blocks": "pipeline",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str) -> Any:
+    """A public name, or a submodule, on first access."""
+    module = _EXPORTS.get(name)
+    if module is not None:
+        value = getattr(importlib.import_module(f".{module}", __name__), name)
+        globals()[name] = value
+        return value
+    try:
+        return importlib.import_module(f".{name}", __name__)
+    except ModuleNotFoundError as e:
+        if e.name != f"{__name__}.{name}":
+            raise
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__() -> List[str]:
+    return sorted(set(globals()) | set(__all__))
