@@ -106,6 +106,23 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            memory, K4/K5 launches (8 / 16 / 8 and 16 each) and the
            gradients against remat off (bit for bit, or the difference
            printed within REMAT_GRAD_RTOL);
+    experiments  the repository's experiments on the port, in one pooled
+           (warm) process: every row of experiments/mfu_breakdown_torch.py
+           (torch.matmul 8192^3 bf16 as the card's ceiling; the flash
+           LM's make_train_step with AdamW, its gradients alone, its
+           forward alone, the step with attention replaced by x @ wo and
+           with the cross-entropy replaced by the mean logit; K4 + K5
+           alone at the in-model shape) and experiments/
+           flash_sweep_torch.py's attn rows at that shape (the plain
+           version, the kernels at block_k 64 and 32, scaled_dot_product_
+           attention forced to its flash backend), 1 warm-up and 3 timed
+           calls a row (the matmul 32); every K4/K5 call, warm-up and
+           timed, is held against its plain version between calls (the
+           largest and the relative Frobenius difference) and each row's
+           launches are checked (the no-attention step launches
+           neither); prints each row with its launches and readings (the
+           split by subtraction and the MFU come from the full scripts:
+           at this depth they are noise);
 14. async diloco flash  two groups on the big LM on a synchronous-quorum
            manager: inner steps make_train_step(AdamW, bf16_params=True)
            + step_applied(), outer AsyncDiLoCo(SGD(0.7, momentum=0.9,
@@ -306,7 +323,8 @@ the serving flash phase, K1a/K1b/K2 in the parameter server phase,
 with exact counts; K1a/K1b/K3 in the control dense phase, K1a/K1b/K4/K5
 in the chaos flash phase and K1a/K1b/K2/K4/K5 in the policy flash
 phase; K1a/K1b/K2 in the xla dense and adaptive dense phases,
-K1a/K1b/K2/K4/K5 in the iso flash phase, K3 in the quickstart phase).
+K1a/K1b/K2/K4/K5 in the iso flash phase, K3 in the quickstart phase,
+K4/K5 in the experiments phase).
 The control dense phase checks that quorum ids only go up,
 that every heal took the stream path to a state the other group served
 (bit for bit), that the cold run ends bit-identical and the hot run
@@ -336,7 +354,10 @@ phases 21-23 (the launched workers are this script re-run with
 ``--control-worker``), ``--harness-phases`` only the chaos harness,
 ``--iso-phases`` only phases 24-27,
 ``--parallel-phases`` only phase 28, ``--quickstart-phases`` only
-phase 29; ``--legacy-turns A B`` runs the
+phase 29, ``--experiments-phases`` the experiments phase, then the four
+experiments/*_torch.py in full (flash_sweep in both modes, every
+ablation mode), each alone on the card, then experiments/
+verify_e2e_torch.sh on the card; ``--legacy-turns A B`` runs the
 legacy and sharded flash phases of checkouts A and B in turns (a, b, b,
 a), each from its own chip_smoke.py and build; ``--kernel-turns A B``
 likewise the flash kernel phase (phase 3), K4's and K5's times compared
@@ -753,6 +774,9 @@ def worker(cfg: dict) -> None:
         return
     if cfg["role"] == "gloo_probe":
         gloo_probe_worker(cfg)
+        return
+    if cfg["role"] == "experiments":
+        experiments_worker(cfg)
         return
     import torchft_tpu_torch as tft
     from torchft_tpu_torch.models import transformer as tt
@@ -2053,21 +2077,6 @@ def _flash_bound(kind: str, shape, dtype, causal: bool, window) -> tuple:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _flash_tol(name: str, ref: torch.Tensor) -> float:
-    """f32: 2e-5 of the tensor's largest magnitude (at least 1), the JAX
-    package's flash tolerance (the two sides differ in f32 summation
-    order); lse 1e-5 likewise. bf16: two bf16 steps (2**-6) of the
-    tensor's largest magnitude: the kernel rounds p to bf16 against each
-    tile's running max, the plain version against the row's final max, so
-    single elements of p, ds and the outputs may land a step apart."""
-    big = float(ref.float().abs().max())
-    if name == "lse":
-        return 1e-5 * max(1.0, big)
-    if ref.dtype == torch.float32:
-        return 2e-5 * max(1.0, big)
-    return 2.0 ** -6 * big
-
-
 def _delta_off(got: torch.Tensor, want: torch.Tensor, out: torch.Tensor,
                do: torch.Tensor) -> int:
     """Rows of a kernel's delta (B, H, S) f32 off the torch delta by more
@@ -2116,7 +2125,7 @@ def _flash_case(tfa, label: str, shape, dtype, causal=True, window=None,
             if not torch.isfinite(got).all():
                 fail(f"flash {label}: non-finite {name}")
             err[name] = max(err[name], float((got.float() - ref.float()).abs().max()))
-            tol[name] = max(tol[name], _flash_tol(name, ref))
+            tol[name] = max(tol[name], tfa.plain_tolerance(name, ref))
     bad = [n for n in names if err[n] > tol[n]]
     log(f"  flash {label} {tuple(shape)} {str(dtype)[6:]} causal={causal} "
         f"window={window} blocks={cfg.block_q}x{cfg.block_k} fast={cfg.fast}: "
@@ -2272,12 +2281,14 @@ class _WarmPool:
 
     def popen(self, argv: list, log_path: "str | None",
               script: str = __file__,
-              err_path: "str | None" = None) -> subprocess.Popen:
+              err_path: "str | None" = None,
+              env: "dict | None" = None) -> subprocess.Popen:
         """A process running ``script *argv`` (this script's by default)
         with its stdout in ``log_path`` and its stderr there too, or in
-        ``err_path``: a warm spare if one is alive, else a cold start.
-        ``log_path=None`` keeps its stdin and stdout as pipes to the
-        caller (``proc.stdin`` / ``proc.stdout``)."""
+        ``err_path``, and ``env`` added to its environment: a warm spare
+        if one is alive, else a cold start. ``log_path=None`` keeps its
+        stdin and stdout as pipes to the caller (``proc.stdin`` /
+        ``proc.stdout``)."""
         with self._lock:
             self._idle = [p for p in self._idle if p.poll() is None]
             proc = self._idle.pop(0) if self._idle else None
@@ -2285,10 +2296,11 @@ class _WarmPool:
         script = os.path.abspath(script)
         if proc is None:
             self.cold += 1
-            return _cold_popen(script, argv, log_path, err_path)
+            return _cold_popen(script, argv, log_path, err_path, env)
         self.warm += 1
         proc.stdin.write(json.dumps({"script": script, "argv": argv,
-                                     "log": log_path, "err": err_path}) + "\n")
+                                     "log": log_path, "err": err_path,
+                                     "env": env or {}}) + "\n")
         proc.stdin.flush()
         if log_path is not None:
             proc.stdin.close()
@@ -2342,6 +2354,7 @@ def _pooled() -> int:
     job = json.loads(line)
     global T_WORK
     T_WORK = time.perf_counter()
+    os.environ.update(job["env"])
     for target, path in ((1, job["log"]), (2, job["err"] or job["log"])):
         if path is None:
             continue  # stdout stays the pipe to the caller
@@ -2358,27 +2371,33 @@ def _pooled() -> int:
 
 
 def _cold_popen(script: str, argv: list, log_path: "str | None",
-                err_path: "str | None" = None) -> subprocess.Popen:
+                err_path: "str | None" = None,
+                env: "dict | None" = None) -> subprocess.Popen:
+    env = {**os.environ, **env} if env else None
     if log_path is None:  # pipes to the caller, stderr to its log
         return subprocess.Popen(
             [sys.executable, script, *argv], cwd=REPO, stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE, stderr=open(err_path, "w"), text=True)
+            stdout=subprocess.PIPE, stderr=open(err_path, "w"), text=True,
+            env=env)
     out = open(log_path, "w")
     err = open(err_path, "w") if err_path else subprocess.STDOUT
     return subprocess.Popen([sys.executable, script, *argv], cwd=REPO,
-                            stdout=out, stderr=err)
+                            stdout=out, stderr=err, env=env)
 
 
 def _popen_worker(argv: list, log_path: "str | None",
                   script: str = __file__,
                   err_path: "str | None" = None,
-                  cold: bool = False) -> subprocess.Popen:
-    """This script's worker (or ``script``) through the pool, if any;
-    ``cold``: a fresh interpreter whatever the pool holds (a restart
-    after a SIGKILL, whose kill-to-first-commit includes the start)."""
+                  cold: bool = False,
+                  env: "dict | None" = None) -> subprocess.Popen:
+    """This script's worker (or ``script``) through the pool, if any,
+    with ``env`` added to its environment; ``cold``: a fresh interpreter
+    whatever the pool holds (a restart after a SIGKILL, whose
+    kill-to-first-commit includes the start)."""
     if POOL is not None and not cold:
-        return POOL.popen(argv, log_path, script, err_path)
-    return _cold_popen(os.path.abspath(script), argv, log_path, err_path)
+        return POOL.popen(argv, log_path, script, err_path, env)
+    return _cold_popen(os.path.abspath(script), argv, log_path, err_path,
+                       env)
 
 
 def _spawn(cfg: dict, logdir: str, cold: bool = False) -> subprocess.Popen:
@@ -3517,6 +3536,202 @@ def check_remat(res: dict, on_card: bool = True) -> dict:
         for k, v in row["launches"].items():
             launches[k] = launches.get(k, 0) + v
     return {"launches": launches}
+
+
+# -- the repository's experiments on the card ----------------------------------------
+
+EXPERIMENTS = os.path.join(REPO, "experiments")
+# the experiments phase: each row's warm-up and timed calls
+EXP_WARM, EXP_ITERS = 1, 3
+EXP_TIMEOUT_S = 600
+# the rows the phase prints: mfu_breakdown_torch's, then flash_sweep_torch's
+# at the flagship's in-model shape (the sweep's "dense" row is the plain
+# version)
+EXP_MFU_ROWS = ("step_full", "grad_only", "fwd_only", "step_no_attn",
+                "step_mean_loss", "attn_standalone")
+EXP_SWEEP_ROWS = ("dense", "ours bq=64 bk=64", "ours bq=64 bk=32",
+                  "sdpa flash")
+# --experiments-phases: the four experiments in full, each (script, the
+# environment that picks its mode), then verify_e2e_torch.sh
+EXP_FULL_RUNS = (
+    ("mfu_breakdown_torch.py", {}),
+    ("flash_sweep_torch.py", {"EXP_MODE": "attn"}),
+    ("flash_sweep_torch.py", {"EXP_MODE": "model"}),
+    *(("ablate_big_shape_torch.py", {"EXP_ABL": mode})
+      for mode in ("layers", "fused", "loss", "blocks")),
+    ("join_starvation_repro_torch.py", {}),
+)
+VERIFY_E2E = os.path.join(EXPERIMENTS, "verify_e2e_torch.sh")
+EXP_FULL_TIMEOUT_S = 900
+
+
+def experiments_worker(cfg: dict) -> None:
+    """The experiments phase's process: every row of
+    experiments/mfu_breakdown_torch.py, then flash_sweep_torch.py's attn
+    rows at the flagship's in-model shape, ``warm`` warm-up and ``iters``
+    timed calls a row (the matmul yardstick the script's 32: on an H100
+    80GB HBM3 at 700 W, three calls of 1.4 ms timed together on the host
+    clock read 625-636 TFLOP/s, 32 read 783). Each row's launch counts go to 0 just
+    before it and are read just after (and checked there, per call);
+    every K4/K5 call of a row, warm-up and timed, is held against its
+    plain version between calls (``common_torch.PlainCheck``). Writes the
+    result to ``cfg["out"]``."""
+    import importlib
+
+    sys.path.insert(0, EXPERIMENTS)
+    mfu = importlib.import_module("mfu_breakdown_torch")
+    sweep = importlib.import_module("flash_sweep_torch")
+    dev = torch.device(cfg["device"])
+    check = mfu.ct.PlainCheck()
+    res = mfu.run(dev, cfg["size"], cfg["warm"], cfg["iters"], check=check,
+                  log=log)
+    label, shape = sweep.ATTN_SHAPES[cfg["size"]][-1]
+    res["sweep"] = sweep.attn_rows(label, shape, dev, cfg["warm"],
+                                   cfg["iters"], check, log=log)
+    with open(cfg["out"], "w") as f:
+        json.dump(res, f)
+
+
+def phase_experiments(workdir: str, device: str = "cuda",
+                      size: str = "flagship") -> dict:
+    """The experiments worker, in one pooled (warm) process; its result
+    and seconds."""
+    out = os.path.join(workdir, "experiments.json")
+    log_path = os.path.join(workdir, "experiments.log")
+    cfg = {"role": "experiments", "device": device, "size": size,
+           "warm": EXP_WARM, "iters": EXP_ITERS, "out": out}
+    t0 = time.perf_counter()
+    proc = _popen_worker(["--worker", json.dumps(cfg)], log_path)
+    try:
+        proc.wait(timeout=EXP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(log_path) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        fail(f"the experiments worker exited {proc.returncode}:\n{text[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    res["total_s"] = time.perf_counter() - t0
+    return res
+
+
+def check_experiments(res: dict, on_card: bool = True) -> dict:
+    """Every row of both scripts, each with a finite positive time; on the
+    card, as many K4/K5 calls held against their plain versions in each
+    row as it launched, K4/K5 launched in the phase, and step_no_attn
+    launching neither. Returns the phase's launches (the rows' sums) and
+    the rows."""
+    rows = res["rows"] + res["sweep"]
+    mfu_names = [r["row"] for r in res["rows"]][1:]  # after the matmul row
+    sweep_names = [r["row"].split(" ", 2)[2] for r in res["sweep"]]
+    if mfu_names != list(EXP_MFU_ROWS) or sweep_names != list(EXP_SWEEP_ROWS):
+        fail(f"experiments: rows {mfu_names} {sweep_names}")
+    launches: dict = {}
+    for r in rows:
+        if not (_finite(r["ms"]) and r["ms"] > 0):
+            fail(f"experiments {r['row']}: time {r['ms']}")
+        for kernel, name, per in (("K4", "flash_fwd", 1), ("K5", "flash_bwd", 2)):
+            n = r["launches"].get(name, 0)
+            launches[name] = launches.get(name, 0) + n
+            held = r["check"].get(kernel, {}).get("calls", 0)
+            if on_card and held != n // per:
+                fail(f"experiments {r['row']}: {held} {kernel} calls held "
+                     f"against the plain version, the row made {n // per}")
+    if on_card:
+        if any(launches.get(k, 0) == 0 for k in ("flash_fwd", "flash_bwd")):
+            fail(f"experiments: K4/K5 never launched ({launches})")
+        no_attn = next(r for r in rows if r["row"] == "step_no_attn")
+        if no_attn["launches"]:
+            fail(f"experiments step_no_attn launched {no_attn['launches']}")
+    return {"launches": launches, "rows": rows}
+
+
+def experiments_phase(by_phase: dict) -> None:
+    """The experiments phase: runs, is checked, logs each row on a line of
+    its own, and puts its launch counts into ``by_phase``."""
+    _phase("experiments")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as workdir:
+        try:
+            res = phase_experiments(workdir)
+            summ = check_experiments(res)
+        finally:
+            _keep_logs(workdir, "experiments")
+    by_phase["experiments"] = summ["launches"]
+    log(f"  experiments {res['total_s']:.1f} s in one pooled process "
+        f"(experiments/mfu_breakdown_torch.py's rows, flash_sweep_torch.py's "
+        f"at {tuple(res['sweep'][0]['shape'])}; {EXP_WARM} warm-up and "
+        f"{EXP_ITERS} timed calls a row, the matmul 32; every K4/K5 call "
+        f"held against its plain version between calls, off the clock); "
+        f"launches {json.dumps(summ['launches'])}")
+    for r in summ["rows"]:
+        log("  experiments row " + json.dumps(_rounded(
+            {k: r[k] for k in ("row", "ms", "launches", "path", "check")
+             if k in r})))
+
+
+def _rounded(obj, digits: int = 4):
+    """``obj`` with every float to ``digits`` significant digits."""
+    if isinstance(obj, float):
+        return float(f"{obj:.{digits}g}")
+    if isinstance(obj, dict):
+        return {k: _rounded(v, digits) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_rounded(v, digits) for v in obj]
+    return obj
+
+
+def _run_experiment(script: str, argv: list, env: dict,
+                    log_path: str) -> int:
+    """One experiment as a user runs it (a Python one through the pool):
+    prints its output and seconds; returns its exit code."""
+    t0 = time.perf_counter()
+    if script.endswith(".sh"):
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen(["bash", script, *argv], cwd=REPO,
+                                    env={**os.environ, **env}, stdout=out,
+                                    stderr=subprocess.STDOUT)
+    else:
+        proc = _popen_worker(argv, log_path, script, env=env)
+    try:
+        proc.wait(timeout=EXP_FULL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    seconds = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    log(f"  experiment {os.path.relpath(script, REPO)} {json.dumps(env)}: "
+        f"rc {proc.returncode} in {seconds:.1f} s")
+    for line in text.splitlines():
+        log(f"    {line}")
+    return proc.returncode
+
+
+def experiments_phases(by_phase: dict) -> None:
+    """``--experiments-phases``: the default run's experiments phase, then
+    the four experiments in full, each alone on the card (a warm pooled
+    process each), then experiments/verify_e2e_torch.sh on the card.
+    Fails at the end if any of them exited non-zero."""
+    experiments_phase(by_phase)
+    _phase("experiments in full")
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_expfull_") as workdir:
+        try:
+            for i, (script, env) in enumerate(EXP_FULL_RUNS):
+                if _run_experiment(os.path.join(EXPERIMENTS, script), [], env,
+                                   os.path.join(workdir, f"run{i}.log")):
+                    failed.append(f"{script} {env}")
+            _phase("verify e2e")
+            if _run_experiment(VERIFY_E2E, [],
+                               {"WORKDIR": os.path.join(workdir, "verify_e2e")},
+                               os.path.join(workdir, "verify_e2e.log")):
+                failed.append("verify_e2e_torch.sh")
+        finally:
+            _keep_logs(workdir, "experiments_full")
+    if failed:
+        fail(f"experiments exited non-zero: {failed}")
 
 
 def _finite(v: float) -> bool:
@@ -7546,6 +7761,10 @@ def main() -> int:
                         help="build, then run only the quickstart phase "
                         "(examples/train_ddp_torch.py under the launcher "
                         "with hot spares, a SIGKILL and a bf16 heal)")
+    parser.add_argument("--experiments-phases", action="store_true",
+                        help="build, then run only the experiments phase, "
+                        "the four experiments/*_torch.py in full and "
+                        "experiments/verify_e2e_torch.sh")
     parser.add_argument("--parallel-phases", action="store_true",
                         help="build, then run only the model-parallel "
                         "launch (cnn, cp ulysses, cp ring, pp flash, ep moe, "
@@ -7629,6 +7848,15 @@ def main() -> int:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         by_phase = {}
         quickstart_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
+        print(_smi(), flush=True)
+        return 0
+    if args.experiments_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        experiments_phases(by_phase)
         log(f"  launches by phase: {json.dumps(by_phase)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
@@ -7779,6 +8007,7 @@ def main() -> int:
     log(f"  remat on the flash LM (B{BIG_BATCH}, S{BIG_SEQ - 1}, bf16), one "
         f"forward+backward each: {json.dumps(rres['rows'])}")
     torch.cuda.empty_cache()  # the card's memory goes to the workers next
+    experiments_phase(by_phase)
     window_phases(by_phase)
     torch.cuda.empty_cache()
     serving_phases(by_phase)
@@ -7836,6 +8065,7 @@ def main() -> int:
             ("adaptive dense", ("q8_absmax", "q8_quantize",
                                 "q8_dequantize")),
             ("quickstart", ("cast_bf16",)),
+            ("experiments", ("flash_fwd", "flash_bwd")),
             *((f"parallel {sub}", names) for sub, names in PAR_KERNELS.items())):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:

@@ -89,6 +89,35 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
     assert proc.returncode == 0, proc.stderr
 
 
+# the port's tools beside the JAX package's: the experiments (their shared
+# helpers too) and graftlint's path-bound rules over the port
+PORT_TOOLS = sorted(
+    f"experiments/{f}" for f in os.listdir(os.path.join(REPO, "experiments"))
+    if f.endswith("_torch.py")) + ["scripts/graftlint_torch.py"]
+
+
+@pytest.mark.parametrize("path", PORT_TOOLS)
+def test_tool_imports_neither_jax_nor_torchft_tpu(path):
+    """Loading the tool (not running it) pulls in neither JAX nor the JAX
+    package; ``tools.graftlint``, a checker of both packages' sources, is
+    neither."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('tool', {path!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'optax', 'ml_dtypes', 'torchft_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_no_source_file_names_jax():
     pkg = os.path.join(REPO, "torchft_tpu_torch")
     offenders = []

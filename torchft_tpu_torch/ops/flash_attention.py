@@ -190,6 +190,23 @@ def flash_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def plain_tolerance(name: str, ref: torch.Tensor) -> float:
+    """The bound on a kernel output's largest difference from its plain
+    version ``ref`` (``name``: out, lse, dq, dk or dv). f32: 2e-5 of the
+    tensor's largest magnitude (at least 1), the JAX package's flash
+    tolerance (the two sides differ in f32 summation order); lse 1e-5
+    likewise. bf16: two bf16 steps (2**-6) of the tensor's largest
+    magnitude: the kernel rounds p to bf16 against each tile's running
+    max, the plain version against the row's final max, so single
+    elements of p, ds and the outputs may land a step apart."""
+    big = float(ref.float().abs().max())
+    if name == "lse":
+        return 1e-5 * max(1.0, big)
+    if ref.dtype == torch.float32:
+        return 2e-5 * max(1.0, big)
+    return 2.0 ** -6 * big
+
+
 # -- kernels ---------------------------------------------------------------------
 
 
@@ -453,6 +470,7 @@ __all__ = [
     "flash_fwd",
     "flash_fwd_plain",
     "kernel_route",
+    "plain_tolerance",
     "resolve_blocks",
     "save_only_these_names",
 ]
