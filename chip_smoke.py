@@ -123,6 +123,18 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            neither); prints each row with its launches and readings (the
            split by subtraction and the MFU come from the full scripts:
            at this depth they are noise);
+    bench  bench_torch.py's phases at fixed depth, in this process, each
+           ring peer (a zero-contributing replica group) a pooled process
+           on the host CPU: a raw window at bench's dense model; one
+           PipelinedDDP(compress="int8", transport="legacy") ring session
+           at bench's ddp_small LM (S 2048, flash), whose first two
+           steps' int8 payloads (K1a/K1b, K2) and member-wise averages
+           (K2) are held bit for bit against the plain path and whose
+           K4/K5 calls are held by experiments/common_torch.PlainCheck;
+           one blocking and one pipelined f32 session at the dense
+           model; one _DilocoHarness window on the bf16 wire, its warm
+           syncs' K3 casts held bit for bit; checks a ring of 2 with 2
+           participants, every step committed, finite params;
 14. async diloco flash  two groups on the big LM on a synchronous-quorum
            manager: inner steps make_train_step(AdamW, bf16_params=True)
            + step_applied(), outer AsyncDiLoCo(SGD(0.7, momentum=0.9,
@@ -159,7 +171,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            the saved ones; prints each capture's stall_s, write_s,
            commit_s and bytes, and the restore's seconds;
 19. serving flash  a training group (this process) publishes its params
-           through publish_on_commit, 3 versions per wire (q8, bf16,
+           through publish_on_commit, 2 versions per wire (q8, bf16,
            f32; snapshot_every 4): the encode on the card (K1a/K1b, K3)
            and the q8 decode (K2) of the served tree; a WeightRelay and
            two subscribers behind it, a third on the publisher, all
@@ -188,7 +200,8 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            kill-to-first-commit seconds (promoted, cold), the heals'
            fetch_s / h2d_s, the takeover and failover seconds, and each
            spare's warm-up seconds, launches and memory;
-22. chaos flash  two flash groups on PipelinedDDP(q8) blocking steps with
+22. chaos flash  two flash groups (the big LM, depth cut to 4 layers)
+           on PipelinedDDP(q8) blocking steps with
            TORCHFT_WIRE_CRC=1 under a seeded FaultPlan (ring_send
            bit_flip, duplicate, drop, delay, truncate and ring_hdr
            bit_flip, one each at attempted steps 1-6), armed each step
@@ -197,7 +210,8 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            truncates one stream range of the donor (the fallback must
            carry it). Prints the seed and plan, the faults injected and
            detected, the steps discarded and the recovery times;
-23. policy flash  two flash groups on a sync-quorum manager under
+23. policy flash  two flash groups (4 layers, as in chaos flash) on a
+           sync-quorum manager under
            PolicyEngine: ddp_plan (q8) against sharded diloco_q8_h4
            (outer SGD(0.7, 0.9, Nesterov)), a decision every 4 steps,
            CostKnobs(sync_fixed_s=0.5); prints each decision's costs and
@@ -244,7 +258,8 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            Manager(rank=r, world_size=2) and PipelinedDDP(compress="q8")
            blocking steps over parallel.build_grad_step) runs the model-
            parallel sub-phases at full width: cnn (CNNConfig(), groups of
-           one rank), cp ulysses and cp ring (the big LM over {"seq": 2}),
+           one rank), cp ulysses and cp ring (the big LM, depth cut to 4
+           layers, over {"seq": 2}),
            pp flash ({"pipe": 2}, 4 microbatches), ep moe (MoEConfig()
            over {"expert": 2}) and tp flash ({"model": 2}), whose group 1
            is SIGKILLed after its timed steps and restarted from other
@@ -324,7 +339,7 @@ with exact counts; K1a/K1b/K3 in the control dense phase, K1a/K1b/K4/K5
 in the chaos flash phase and K1a/K1b/K2/K4/K5 in the policy flash
 phase; K1a/K1b/K2 in the xla dense and adaptive dense phases,
 K1a/K1b/K2/K4/K5 in the iso flash phase, K3 in the quickstart phase,
-K4/K5 in the experiments phase).
+K4/K5 in the experiments phase, all six in the bench phase).
 The control dense phase checks that quorum ids only go up,
 that every heal took the stream path to a state the other group served
 (bit for bit), that the cold run ends bit-identical and the hot run
@@ -354,7 +369,12 @@ phases 21-23 (the launched workers are this script re-run with
 ``--control-worker``), ``--harness-phases`` only the chaos harness,
 ``--iso-phases`` only phases 24-27,
 ``--parallel-phases`` only phase 28, ``--quickstart-phases`` only
-phase 29, ``--experiments-phases`` the experiments phase, then the four
+phase 29, ``--bench-phases`` the bench phase, then bench_torch.py in
+full as a user runs it (BENCH_ATTEMPT_TIMEOUT_S=1000; every phase must
+be measured, none errored or skipped) and the three experiments that
+import it (ddp_phase_breakdown_torch.py, ddp_modes_torch.py,
+ddp_small_tpu_breakdown_torch.py), ``--experiments-phases`` the
+experiments phase, then the four
 experiments/*_torch.py in full (flash_sweep in both modes, every
 ablation mode), each alone on the card, then experiments/
 verify_e2e_torch.sh on the card; ``--legacy-turns A B`` runs the
@@ -379,6 +399,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2269,15 +2290,18 @@ class _WarmPool:
 
     def __init__(self, size: int) -> None:
         self._lock = threading.Lock()
+        # every spare starts from this environment: a phase that sets a
+        # variable in this process for a while (the bench phase's model
+        # knobs) must not leak it into the replacements started meanwhile
+        self._env = dict(os.environ)
         self._idle = [self._start() for _ in range(size)]
         self.warm = self.cold = 0
 
-    @staticmethod
-    def _start() -> subprocess.Popen:
+    def _start(self) -> subprocess.Popen:
         return subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--pooled"],
             cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            text=True)
+            text=True, env=self._env)
 
     def popen(self, argv: list, log_path: "str | None",
               script: str = __file__,
@@ -3683,7 +3707,7 @@ def _rounded(obj, digits: int = 4):
 
 
 def _run_experiment(script: str, argv: list, env: dict,
-                    log_path: str) -> int:
+                    log_path: str, timeout_s: float = EXP_FULL_TIMEOUT_S) -> int:
     """One experiment as a user runs it (a Python one through the pool):
     prints its output and seconds; returns its exit code."""
     t0 = time.perf_counter()
@@ -3695,7 +3719,7 @@ def _run_experiment(script: str, argv: list, env: dict,
     else:
         proc = _popen_worker(argv, log_path, script, env=env)
     try:
-        proc.wait(timeout=EXP_FULL_TIMEOUT_S)
+        proc.wait(timeout=timeout_s)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
@@ -3732,6 +3756,360 @@ def experiments_phases(by_phase: dict) -> None:
             _keep_logs(workdir, "experiments_full")
     if failed:
         fail(f"experiments exited non-zero: {failed}")
+
+
+# -- bench_torch.py: fault tolerance against a raw loop --------------------------
+
+BENCH = os.path.join(REPO, "bench_torch.py")
+# the default run's bench phase (bench_torch's own functions, fixed
+# steps): the raw window's bound and steps at bench's dense model, the
+# int8 ring session's held steps then its timed ones at ddp_small, the
+# blocking and pipelined f32 sessions' steps at the dense model, the
+# DiLoCo window's warm-up and inner steps; a session's window bound
+# (its steps end it first)
+BENCH_RAW_S, BENCH_RAW_STEPS = 3.0, 10
+BENCH_HELD_STEPS, BENCH_DDP_SMALL_STEPS = 2, 4
+BENCH_DDP_STEPS = 3
+BENCH_DILOCO_WARM, BENCH_DILOCO_STEPS = 2, 4
+BENCH_WINDOW_S = 20.0
+# --bench-phases: bench_torch.py in full as a user runs it, with this
+# attempt budget (its phases take ~700-800 s on the card), then the
+# three experiments that import it
+BENCH_FULL_TIMEOUT_S = 1000
+BENCH_FULL_PHASES = ("raw", "transfer", "ft_diloco", "ft_ddp_small", "ft_ddp",
+                     "big", "big2")
+BENCH_EXPERIMENTS = ("ddp_phase_breakdown_torch.py", "ddp_modes_torch.py",
+                     "ddp_small_tpu_breakdown_torch.py")
+
+
+def _bench_peer_popen(argv: list, log_path: str, env: dict) -> subprocess.Popen:
+    """bench_torch's ring peers through the pool (warm on the card)."""
+    return _popen_worker(argv, log_path, BENCH, env=env)
+
+
+class _Recorder:
+    """Calls ``fn`` and, while ``armed``, keeps each call's arguments and
+    output by reference: the caller holds them before the next step
+    writes over its inputs."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+        self.armed = False
+        self.calls: list = []
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        if self.armed:
+            self.calls.append((args, kw, out))
+        return out
+
+
+def _to_cpu(tree):
+    from torchft_tpu_torch._tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t,
+                    tree)
+
+
+def _tree_bits_held(label: str, got, want) -> int:
+    """Fails unless the trees match leaf for leaf, bit for bit; returns
+    the number of leaves."""
+    from torchft_tpu_torch._tree import flatten
+
+    a, da = flatten(_to_cpu(got))
+    b, db = flatten(want)
+    if da != db or len(a) != len(b):
+        fail(f"bench: {label}: tree structure differs from the plain version")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not _bits_equal(x, y):
+            fail(f"bench: {label}: leaf {i} differs from the plain version")
+    return len(a)
+
+
+def _hold_quantize(calls: list) -> int:
+    """Each recorded ``quantize_with_feedback`` call (the int8 payload of
+    a step) against the plain path on CPU copies of its gradients and
+    carry: codes, scales, decoded values and new carry, bit for bit."""
+    from torchft_tpu_torch.quantize import quantize_with_feedback
+
+    n = 0
+    for (tree, residual), _, out in calls:
+        plain = quantize_with_feedback(_to_cpu(tree), _to_cpu(residual))
+        for k in ("q", "scale", "dq", "res"):
+            n += _tree_bits_held(f"int8 payload {k}", out[k], plain[k])
+    return n
+
+
+def _hold_combine(calls: list) -> int:
+    """Each recorded member-wise average (K2 per member) against the
+    plain path on CPU copies of the gathered entries, bit for bit."""
+    from torchft_tpu_torch.quantize import make_dequant_average
+
+    plain = make_dequant_average()
+    return sum(_tree_bits_held("int8 average", out,
+                               plain(_to_cpu(entries), n))
+               for (entries, n), _, out in calls)
+
+
+def _hold_cast(calls: list) -> int:
+    """Each recorded bf16 cast of a DiLoCo delta (K3) against the plain
+    path on a CPU copy of the delta, bit for bit."""
+    from torchft_tpu_torch.quantize import cast_bf16_tree
+
+    return sum(_tree_bits_held("bf16 delta", out, cast_bf16_tree(_to_cpu(tree)))
+               for (tree,), _, out in calls)
+
+
+def _finite_params(state) -> bool:
+    from torchft_tpu_torch._tree import flatten
+
+    return all(bool(torch.isfinite(l).all()) for l in flatten(state.params)[0])
+
+
+def phase_bench(device: str = "cuda", ddp_small_batch: "int | None" = None,
+                popen=_bench_peer_popen) -> dict:
+    """bench_torch.py's phases at fixed depth, in this process, each ring
+    peer a pooled process on the host CPU: a raw window at bench's dense
+    model; one int8 ``PipelinedDDP`` ring session at ``ddp_small`` (its
+    first steps' payloads, member-wise averages and K4/K5 calls held
+    against their plain versions, then timed steps); one blocking and one
+    pipelined f32 session at the dense model; one ``_DilocoHarness``
+    window on the bf16 wire (its warm syncs' K3 casts held). Launch
+    counts go to 0 just before and are read just after."""
+    import bench_torch as bench
+
+    sys.path.insert(0, EXPERIMENTS)
+    import common_torch as ct
+    from torchft_tpu_torch import AdamW, FTTrainState, PipelinedDDP
+    from torchft_tpu_torch import ddp as ddp_mod
+    from torchft_tpu_torch import local_sgd
+    from torchft_tpu_torch.models import transformer as tt
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    cfg, batch, _ = bench._model_setup("small", dev)
+    tx = AdamW(1e-3)
+    train_step = tt.make_train_step(cfg, tx)
+    qrec = _Recorder(ddp_mod.quantize_with_feedback)
+    krec = _Recorder(local_sgd.cast_bf16_tree)
+    check = ct.PlainCheck()
+    held: dict = {}
+    out: dict = {"device": str(dev)}
+    finite = []
+    ddp_mod.quantize_with_feedback = qrec
+    local_sgd.cast_bf16_tree = krec
+    reset_launch_counts()
+    try:
+        # the peers read their model from BENCH_* (bench.py's contract)
+        with mock.patch.dict(os.environ,
+                             {"BENCH_FORCE_LAYERS": str(cfg.n_layers)}):
+            raw = bench._time_raw_loop(
+                train_step, lambda: tt.init_params(cfg, 0, dev), tx, batch, 2,
+                BENCH_RAW_S, max_steps=BENCH_RAW_STEPS)
+            out["raw"] = {"steps_per_sec": raw}
+            small_env = {"BENCH_MODEL": "ddp_small"}
+            if ddp_small_batch:
+                small_env["BENCH_DDP_SMALL_BATCH"] = str(ddp_small_batch)
+            with mock.patch.dict(os.environ, small_env):
+                scfg, sbatch, _ = bench._model_setup("ddp_small", dev)
+                state = FTTrainState(bench._grad_params(scfg, dev), tx)
+                with bench._ring_session("smoke_ddp_small", "int8", state,
+                                         device=dev, popen=popen) as (
+                        manager, collectives):
+                    ddp = PipelinedDDP(manager, state, tt.make_grad_fn(scfg),
+                                       compress="int8", transport="legacy")
+                    crec = ddp._combine = _Recorder(ddp._combine)
+                    commits, parts = [], []
+
+                    def step():
+                        ddp.step(sbatch)
+                        if ddp.last_commit is not None:
+                            commits.append(ddp.last_commit)
+                            ddp.last_commit = None
+                        parts.append(manager.num_participants())
+
+                    held["int8 payload leaves"] = held["int8 average leaves"] = 0
+                    with check.active("bench ddp_small"):
+                        for _ in range(BENCH_HELD_STEPS):
+                            qrec.armed = crec.armed = True
+                            step()
+                            qrec.armed = crec.armed = False
+                            check.flush()
+                            held["int8 payload leaves"] += _hold_quantize(
+                                qrec.calls)
+                            held["int8 average leaves"] += _hold_combine(
+                                crec.calls)
+                            qrec.calls.clear()
+                            crec.calls.clear()
+                    t1 = time.perf_counter()
+                    n, _ = bench._timed_window(
+                        step, lambda: None, BENCH_WINDOW_S,
+                        max_steps=BENCH_DDP_SMALL_STEPS, rate_hint=0.15)
+                    commits.append(ddp.flush())
+                    bench._barrier(state.params)
+                    out["ddp_small"] = {
+                        "steps_per_sec": n / (time.perf_counter() - t1),
+                        "batch": list(sbatch.shape), "commits": commits,
+                        "participants": parts,
+                        "ring_size": collectives.size()}
+                finite.append(_finite_params(state))
+            held["K4/K5"] = check.summary("bench ddp_small")
+            grad_fn = tt.make_grad_fn(cfg)
+            for mode in ("blocking", "pipelined"):
+                res = bench._ft_ddp_session(
+                    mode, "f32", cfg, tx, grad_fn, batch, BENCH_WINDOW_S, dev,
+                    popen, max_steps=BENCH_DDP_STEPS)
+                finite.append(_finite_params(res.pop("state")))
+                out[mode] = res
+            harness = bench._DilocoHarness(
+                FTTrainState(tt.init_params(cfg, 0, dev), tx), train_step,
+                batch, "bf16", overlap=True, tag="smoke_diloco", device=dev,
+                popen=popen)
+            try:
+                krec.armed = True
+                sync_s = harness.warm(BENCH_DILOCO_WARM)
+                krec.armed = False
+                parts = [harness.manager.num_participants()]
+                held["bf16 delta leaves"] = _hold_cast(krec.calls)
+                krec.calls.clear()
+                win = harness.window(BENCH_WINDOW_S,
+                                     max_steps=BENCH_DILOCO_STEPS)
+                out["diloco"] = {**win, "sync_s": sync_s,
+                                 "commits": list(harness.commits),
+                                 "participants": parts + [
+                                     harness.manager.num_participants()],
+                                 "ring_size": harness.collectives.size()}
+                finite.append(_finite_params(harness.state))
+            finally:
+                harness.close()
+        out["launches"] = {k: v for k, v in launch_counts.items() if v}
+    finally:
+        ddp_mod.quantize_with_feedback = qrec.fn
+        local_sgd.cast_bf16_tree = krec.fn
+    out["held"] = held
+    out["finite"] = finite
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_bench(res: dict, on_card: bool = True) -> dict:
+    """Every session on a ring of 2 with at least 2 participants at some
+    step, every FT step committed, params finite, each wire path held
+    against its plain version at least once (the int8 payloads and
+    averages, the bf16 deltas: bit for bit), and on the card K4/K5 held
+    (``PlainCheck``) and all six kernels launched. Returns the phase's
+    launches."""
+    for name in ("ddp_small", "blocking", "pipelined", "diloco"):
+        r = res[name]
+        if r["ring_size"] != 2 or max(r["participants"], default=0) < 2:
+            fail(f"bench {name}: ring {r['ring_size']}, participants "
+                 f"{r['participants']}")
+        if not r["commits"] or not all(r["commits"]):
+            fail(f"bench {name}: commits {r['commits']}")
+    if not all(res["finite"]):
+        fail(f"bench: non-finite params {res['finite']}")
+    held = res["held"]
+    for k in ("int8 payload leaves", "int8 average leaves", "bf16 delta leaves"):
+        if held.get(k, 0) < 1:
+            fail(f"bench: no {k} held against the plain version")
+    if on_card:
+        for kernel in ("K4", "K5"):
+            if held["K4/K5"].get(kernel, {}).get("calls", 0) < 1:
+                fail(f"bench: {kernel} never held against its plain version")
+        missing = [k for k in ("q8_absmax", "q8_quantize", "q8_dequantize",
+                               "cast_bf16", "flash_fwd", "flash_bwd")
+                   if res["launches"].get(k, 0) == 0]
+        if missing:
+            fail(f"bench: {missing} never launched")
+    return {"launches": res["launches"]}
+
+
+def bench_phase(by_phase: dict) -> None:
+    """The bench phase: runs, is checked, logs each sub-result on a line
+    of its own, and puts its launch counts into ``by_phase``."""
+    _phase("bench")
+    res = phase_bench()
+    summ = check_bench(res)
+    by_phase["bench"] = summ["launches"]
+    log(f"  bench {res['total_s']:.1f} s in this process (bench_torch.py's "
+        f"functions at fixed depth, each ring peer a pooled process on the "
+        f"host CPU); launches {json.dumps(summ['launches'])}")
+    for name in ("raw", "ddp_small", "blocking", "pipelined", "diloco"):
+        log(f"  bench {name} " + json.dumps(_rounded(res[name])))
+    log("  bench held " + json.dumps(_rounded(res["held"])))
+
+
+def _bench_full_check(detail: dict) -> list:
+    """What keeps a full bench_torch.py run from counting: a phase
+    missing, errored or skipped (for time or otherwise), or a window it
+    did not measure."""
+    bad = []
+    for name in BENCH_FULL_PHASES:
+        r = detail.get(name)
+        if not isinstance(r, dict):
+            bad.append(f"{name}: missing")
+        elif "error" in r or "skipped" in r:
+            bad.append(f"{name}: {r.get('error') or r.get('skipped')}")
+    if "skipped_window_1" in (detail.get("ft_diloco") or {}):
+        bad.append("ft_diloco: window 1 skipped")
+    if (detail.get("big") or {}).get("windows_measured") not in (None, 2):
+        bad.append("big: a window skipped")
+    return bad
+
+
+def bench_phases(by_phase: dict) -> None:
+    """``--bench-phases``: the default run's bench phase, then, with the
+    warm pool closed, ``bench_torch.py`` in full as a user runs it
+    (BENCH_ATTEMPT_TIMEOUT_S BENCH_FULL_TIMEOUT_S), then the three
+    experiments that import it, each alone on the card. Fails at the end
+    if any exited non-zero, or bench_torch.py left a phase errored,
+    skipped or unmeasured."""
+    bench_phase(by_phase)
+    # bench_torch.py and the experiments run alone on the card, as a user
+    # runs them, cold: its dense probe of the flash cell's LM takes
+    # nearly all of the card's memory, which the pool's spares share
+    global POOL
+    if POOL is not None:
+        POOL.close()
+        POOL = None
+    torch.cuda.empty_cache()
+    _phase("bench in full")
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_benchfull_") as workdir:
+        try:
+            out = os.path.join(workdir, "bench.json")
+            log_path = os.path.join(workdir, "bench.log")
+            rc = _run_experiment(
+                BENCH, ["--out", out],
+                {"BENCH_ATTEMPT_TIMEOUT_S": str(BENCH_FULL_TIMEOUT_S)},
+                log_path, timeout_s=BENCH_FULL_TIMEOUT_S + 120)
+            with open(log_path) as f:
+                if not any(l.startswith('{"metric": "steps_per_sec_ft"')
+                           for l in f):
+                    failed.append("bench_torch.py printed no metric line")
+            if rc:
+                failed.append(f"bench_torch.py exited {rc}")
+            if os.path.exists(out):
+                with open(out) as f:
+                    detail = json.load(f)
+                for name in ("host", *BENCH_FULL_PHASES):
+                    if name in detail:
+                        log(f"  bench_torch {name} "
+                            + json.dumps(detail[name]))
+                failed += [f"bench_torch.py {b}" for b in
+                           _bench_full_check(detail)]
+            else:
+                failed.append("bench_torch.py wrote no --out JSON")
+            _phase("bench experiments")
+            for i, script in enumerate(BENCH_EXPERIMENTS):
+                if _run_experiment(os.path.join(EXPERIMENTS, script), [], {},
+                                   os.path.join(workdir, f"exp{i}.log")):
+                    failed.append(script)
+        finally:
+            _keep_logs(workdir, "bench_full")
+    if failed:
+        fail(f"bench phases failed: {failed}")
 
 
 def _finite(v: float) -> bool:
@@ -3955,8 +4333,13 @@ DURABLE_MOMENTS = 2 * 51
 # the disk two flash-LM sets at keep=2 take (params f32 + bf16 moments),
 # with room for the sync baseline's set
 DURABLE_DISK_BYTES = 3 * (4 + 2 * 2) * 111_166_464
-# serving flash: versions per wire, the snapshot cadence, the wires
-SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 3, 4
+# serving flash: versions per wire (3 took 52.7 s of the default run
+# with the parameter server's 3.3), the snapshot cadence, the wires. Two
+# versions are a snapshot and one delta: a delta installed over an
+# earlier delta, and the q8 publisher's carry into a second delta, run on
+# the card in tests/test_torch_cuda_kernels.py::
+# test_card_resident_served_tree_matches_the_cpu_publisher (6 versions)
+SERVE_VERSIONS, SERVE_SNAPSHOT_EVERY = 2, 4
 SERVE_WIRES = ("q8", "bf16", "f32")
 
 
@@ -4596,6 +4979,9 @@ CHAOS_KINDS = (("ring_send", "bit_flip"), ("ring_send", "duplicate"),
                ("ring_send", "truncate"), ("ring_hdr", "bit_flip"))
 CHAOS_KILL_STEP = 8
 CHAOS_TAIL_STEPS = 2
+# chaos flash and policy flash run the big LM at this depth (8 layers:
+# 85-101 s for the two)
+CHAOS_LM = {**BIG_LM, "n_layers": 4}
 # a ring op's deadline: a dropped frame can cost one, and the donor's op
 # must outlast the restarted group's heal inside its sync quorum (the
 # 1.33 GB fetch falling back to the striped path, ~6 s on the card)
@@ -5304,7 +5690,7 @@ def chaos_worker(cfg: dict) -> None:
         json.dump(out, f)
 
 
-def phase_chaos_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+def phase_chaos_flash(workdir: str, device: str = "cuda", lm: dict = CHAOS_LM,
                       batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
     """Two flash groups under the seeded plan with TORCHFT_WIRE_CRC=1,
     then a SIGKILL of group 1 at CHAOS_KILL_STEP and its restart, which
@@ -5576,7 +5962,7 @@ def policy_worker(cfg: dict) -> None:
         json.dump(out, f)
 
 
-def phase_policy_flash(workdir: str, device: str = "cuda", lm: dict = BIG_LM,
+def phase_policy_flash(workdir: str, device: str = "cuda", lm: dict = CHAOS_LM,
                        batch: int = BIG_BATCH, seq: int = BIG_SEQ) -> dict:
     return _run_groups(workdir, {"device": device, "role": "policy",
                                  "lm": lm, "batch": batch, "seq": seq},
@@ -7051,15 +7437,18 @@ PAR_WARM, PAR_STEPS = 1, 1      # untimed and timed blocking steps a sub-phase
 PAR_TAIL_STEPS = 1              # tp flash: steps the groups take after the heal
 PAR_LOSS_RTOL = 3e-3            # sharded against unsharded bf16 (tests/test_moe.py)
 # the sub-phases in launch order (tp flash last: its kill ends the launch)
-# and their models at full width: the CNN demo family, bench.py's big LM,
-# the MoE family's defaults
+# and their models at full width: the CNN demo family, bench.py's big LM
+# with its depth cut to PAR_LM_LAYERS (8 took 106-128 s of the default
+# run's launch), the MoE family's defaults
+PAR_LM_LAYERS = 4
+PAR_LM = {**BIG_LM, "n_layers": PAR_LM_LAYERS}
 PAR_SIZES = {
     "cnn": {"model": {}, "batch": 64},
-    "cp ulysses": {"model": BIG_LM, "batch": 8, "seq": 2049},
-    "cp ring": {"model": BIG_LM, "batch": 4, "seq": 2049},
-    "pp flash": {"model": BIG_LM, "batch": 8, "seq": BIG_SEQ, "micro": 4},
+    "cp ulysses": {"model": PAR_LM, "batch": 8, "seq": 2049},
+    "cp ring": {"model": PAR_LM, "batch": 4, "seq": 2049},
+    "pp flash": {"model": PAR_LM, "batch": 8, "seq": BIG_SEQ, "micro": 4},
     "ep moe": {"model": {"use_flash": True}, "batch": 8, "seq": 1024},
-    "tp flash": {"model": BIG_LM, "batch": 4, "seq": BIG_SEQ},
+    "tp flash": {"model": PAR_LM, "batch": 4, "seq": BIG_SEQ},
 }
 PAR_AXES = {"cnn": {"data": 1}, "cp ulysses": {"seq": 2}, "cp ring": {"seq": 2},
             "pp flash": {"pipe": 2}, "ep moe": {"expert": 2},
@@ -7765,6 +8154,10 @@ def main() -> int:
                         help="build, then run only the experiments phase, "
                         "the four experiments/*_torch.py in full and "
                         "experiments/verify_e2e_torch.sh")
+    parser.add_argument("--bench-phases", action="store_true",
+                        help="build, then run only the bench phase, "
+                        "bench_torch.py in full and the three "
+                        "experiments that import it")
     parser.add_argument("--parallel-phases", action="store_true",
                         help="build, then run only the model-parallel "
                         "launch (cnn, cp ulysses, cp ring, pp flash, ep moe, "
@@ -7857,6 +8250,15 @@ def main() -> int:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         by_phase = {}
         experiments_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
+        print(_smi(), flush=True)
+        return 0
+    if args.bench_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        bench_phases(by_phase)
         log(f"  launches by phase: {json.dumps(by_phase)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
@@ -8008,6 +8410,8 @@ def main() -> int:
         f"forward+backward each: {json.dumps(rres['rows'])}")
     torch.cuda.empty_cache()  # the card's memory goes to the workers next
     experiments_phase(by_phase)
+    bench_phase(by_phase)
+    torch.cuda.empty_cache()
     window_phases(by_phase)
     torch.cuda.empty_cache()
     serving_phases(by_phase)
@@ -8066,6 +8470,8 @@ def main() -> int:
                                 "q8_dequantize")),
             ("quickstart", ("cast_bf16",)),
             ("experiments", ("flash_fwd", "flash_bwd")),
+            ("bench", ("q8_absmax", "q8_quantize", "q8_dequantize",
+                       "cast_bf16", "flash_fwd", "flash_bwd")),
             *((f"parallel {sub}", names) for sub, names in PAR_KERNELS.items())):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:

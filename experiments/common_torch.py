@@ -15,7 +15,6 @@ from __future__ import annotations
 import contextlib
 import importlib
 import os
-import subprocess
 import sys
 import time
 from typing import Callable, Dict, List, Optional
@@ -28,6 +27,8 @@ if REPO not in sys.path:
 
 from torchft_tpu_torch._device import resolve_device  # noqa: E402,F401
 from torchft_tpu_torch.ops import launch_counts, reset_launch_counts  # noqa: E402
+# the card's datasheet rate and its nvidia-smi line: one copy, bench_torch's
+from bench_torch import DATASHEET_BF16, card  # noqa: E402,F401
 
 # the module (the package's own ``flash_attention`` is the function)
 tfa = importlib.import_module("torchft_tpu_torch.ops.flash_attention")
@@ -44,11 +45,6 @@ BATCH = {"flagship": (16, 2048), "tiny": (2, 65)}
 # the K4/K5 launches of one layer's forward and backward (K5: dq with
 # delta, then dk/dv)
 FWD_LAUNCHES, BWD_LAUNCHES = 1, 2
-# The dense bf16 tensor-core rate of the card (NVIDIA H100 Tensor Core GPU
-# datasheet, SXM5 part: 1,979 TFLOP/s with sparsity, 989 without). The
-# SXM5 part names itself "NVIDIA H100 80GB HBM3"; the PCIe and NVL parts
-# have other rates and names, and get none here.
-DATASHEET_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
 
 
 def add_device_args(parser) -> None:
@@ -57,20 +53,6 @@ def add_device_args(parser) -> None:
                         "raises without one)")
     parser.add_argument("--size", choices=sorted(SIZES), default="flagship",
                         help="flagship widths, or tiny ones for the CPU")
-
-
-def card() -> Dict[str, Optional[str]]:
-    """The card's name and power limit as nvidia-smi gives them (None on a
-    host without one)."""
-    try:
-        line = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return {"smi": None, "name": None}
-    return {"smi": line, "name": line.split(",")[0].strip()}
 
 
 def drain(device: torch.device) -> None:

@@ -13,7 +13,8 @@ of them read fixed paths there; this script calls the same rules'
   methods (``__init__``, ``configure``, ``_plan_for``,
   ``_sharded_plan_for``);
 - ``env_docs``: every ``TORCHFT_*`` knob the port package,
-  ``scripts/*_torch.py`` and ``examples/train_ddp_torch.py`` read is in
+  ``scripts/*_torch.py``, ``experiments/*_torch.py``,
+  ``examples/train_ddp_torch.py`` and ``bench_torch.py`` read is in
   ``docs/OPERATIONS.md``.
 
 (``capi_sync``'s port counterpart is ``tests/test_torch_capi_sync.py``.)
@@ -57,7 +58,10 @@ def env_scan_files(root: Path) -> List[Path]:
     files = sorted(p.relative_to(root) for p in (root / PORT).rglob("*.py"))
     files += sorted(p.relative_to(root)
                     for p in (root / "scripts").glob("*_torch.py"))
-    return files + [Path("examples/train_ddp_torch.py")]
+    files += sorted(p.relative_to(root)
+                    for p in (root / "experiments").glob("*_torch.py"))
+    return files + [Path("examples/train_ddp_torch.py"),
+                    Path("bench_torch.py")]
 
 
 def check_env_docs(root: Path) -> List[Violation]:
@@ -70,9 +74,9 @@ def check_env_docs(root: Path) -> List[Violation]:
             link = Path(view) / rel
             link.parent.mkdir(parents=True, exist_ok=True)
             os.symlink(root / rel, link)
+        # the view holds only the scanned files: all of it is scanned
         return env_docs.check(Path(view), docs_path=root / env_docs.DOCS,
-                              scan_dirs=[PORT, Path("scripts"),
-                                         Path("examples")])
+                              scan_dirs=[Path(".")])
 
 
 RULES: Dict[str, Callable[[Path], List[Violation]]] = {

@@ -100,6 +100,20 @@ def test_env_docs_bites(tmp_path, rel):
     assert "TORCHFT_SEEDED_UNDOCUMENTED" in found[0].message
 
 
+@pytest.mark.parametrize("rel", ["bench_torch.py",
+                                 "experiments/ddp_modes_torch.py"])
+def test_env_docs_scans_the_bench_harness(tmp_path, rel):
+    """``bench_torch.py`` and the experiments are in the rule's scan (the
+    knob they set, ``TORCHFT_HC_PIPELINE_CHUNKS``, is documented), and a
+    knob read there undocumented fails it."""
+    assert Path(rel) in glt.env_scan_files(REPO)
+    root = _copy_tree(tmp_path)
+    with open(root / rel, "a") as f:
+        f.write('\n_SEEDED = os.environ.get("TORCHFT_SEEDED_UNDOCUMENTED")\n')
+    found = glt.run(root)
+    assert [(v.rule, v.file) for v in found] == [("env_docs", rel)]
+
+
 def test_cli_exits_1_on_a_violation(tmp_path):
     root = _copy_tree(tmp_path)
     _insert_first(root / "torchft_tpu_torch/collectives.py", "HostCollectives",
