@@ -135,6 +135,18 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            model; one _DilocoHarness window on the bf16 wire, its warm
            syncs' K3 casts held bit for bit; checks a ring of 2 with 2
            participants, every step committed, finite params;
+    churn  bench_churn_torch.py --dryrun as a user runs it (group 0 on the
+           card, group 1 on the host CPU, TORCHFT_HEAL_WIRE=bf16: healthy,
+           churn and hot-spare phases of 48 steps, SIGKILLs of group 1 and
+           heals from group 0, which narrows its moments with K3 for each
+           heal it serves); checks churn_dryrun_ok, a stream heal on the
+           bf16 wire in each churn phase (in the hot-spare one by a
+           promoted spare) and group 0's launches (K3 alone); then run_durable_phase in this process on the card (1M
+           elements, 2 checkpoints, W 3 -> 2): K3's exact launches
+           (durable_k3_launches), every member restored bit-identical,
+           its w bit for bit the saved one and its moments K3's plain
+           version of the saved ones; then --durable --dryrun as a user
+           runs it;
 14. async diloco flash  two groups on the big LM on a synchronous-quorum
            manager: inner steps make_train_step(AdamW, bf16_params=True)
            + step_applied(), outer AsyncDiLoCo(SGD(0.7, momentum=0.9,
@@ -200,7 +212,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            kill-to-first-commit seconds (promoted, cold), the heals'
            fetch_s / h2d_s, the takeover and failover seconds, and each
            spare's warm-up seconds, launches and memory;
-22. chaos flash  two flash groups (the big LM, depth cut to 4 layers)
+22. chaos flash  two flash groups (the big LM, depth cut to 2 layers)
            on PipelinedDDP(q8) blocking steps with
            TORCHFT_WIRE_CRC=1 under a seeded FaultPlan (ring_send
            bit_flip, duplicate, drop, delay, truncate and ring_hdr
@@ -210,7 +222,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            truncates one stream range of the donor (the fallback must
            carry it). Prints the seed and plan, the faults injected and
            detected, the steps discarded and the recovery times;
-23. policy flash  two flash groups (4 layers, as in chaos flash) on a
+23. policy flash  two flash groups (2 layers, as in chaos flash) on a
            sync-quorum manager under
            PolicyEngine: ddp_plan (q8) against sharded diloco_q8_h4
            (outer SGD(0.7, 0.9, Nesterov)), a decision every 4 steps,
@@ -258,7 +270,7 @@ leaves, 23,337,472 parameters, dense attention), and bench.py's "big" LM
            Manager(rank=r, world_size=2) and PipelinedDDP(compress="q8")
            blocking steps over parallel.build_grad_step) runs the model-
            parallel sub-phases at full width: cnn (CNNConfig(), groups of
-           one rank), cp ulysses and cp ring (the big LM, depth cut to 4
+           one rank), cp ulysses and cp ring (the big LM, depth cut to 2
            layers, over {"seq": 2}),
            pp flash ({"pipe": 2}, 4 microbatches), ep moe (MoEConfig()
            over {"expert": 2}) and tp flash ({"model": 2}), whose group 1
@@ -339,7 +351,8 @@ with exact counts; K1a/K1b/K3 in the control dense phase, K1a/K1b/K4/K5
 in the chaos flash phase and K1a/K1b/K2/K4/K5 in the policy flash
 phase; K1a/K1b/K2 in the xla dense and adaptive dense phases,
 K1a/K1b/K2/K4/K5 in the iso flash phase, K3 in the quickstart phase,
-K4/K5 in the experiments phase, all six in the bench phase).
+K4/K5 in the experiments phase, all six in the bench phase, K3 in the
+churn phase (group 0's) and in the churn durable run (exact)).
 The control dense phase checks that quorum ids only go up,
 that every heal took the stream path to a state the other group served
 (bit for bit), that the cold run ends bit-identical and the hot run
@@ -373,8 +386,10 @@ phase 29, ``--bench-phases`` the bench phase, then bench_torch.py in
 full as a user runs it (BENCH_ATTEMPT_TIMEOUT_S=1000; every phase must
 be measured, none errored or skipped) and the three experiments that
 import it (ddp_phase_breakdown_torch.py, ddp_modes_torch.py,
-ddp_small_tpu_breakdown_torch.py), ``--experiments-phases`` the
-experiments phase, then the four
+ddp_small_tpu_breakdown_torch.py), ``--churn-phases`` the churn phase,
+then bench_churn_torch.py in full on the card (4 groups, 1200 steps, a
+kill every 100, hot spares) and --durable, each with measurement_ok,
+``--experiments-phases`` the experiments phase, then the four
 experiments/*_torch.py in full (flash_sweep in both modes, every
 ablation mode), each alone on the card, then experiments/
 verify_e2e_torch.sh on the card; ``--legacy-turns A B`` runs the
@@ -4112,6 +4127,320 @@ def bench_phases(by_phase: dict) -> None:
         fail(f"bench phases failed: {failed}")
 
 
+# -- bench_churn_torch.py: throughput under kills, the durable tier -------------
+
+CHURN = os.path.join(REPO, "bench_churn_torch.py")
+CHURN_LOGS = os.path.join(REPO, ".bench_churn_torch_logs")
+CHURN_PHASES = ("healthy", "churn", "churn_hot")
+# the default run's churn phase: --dryrun (three phases of 48 steps, each
+# under a 300 s deadline) on the bf16 heal wire, where group 0 (on the
+# card) is the only donor and narrows its moments with K3 for each heal
+# it serves; then run_durable_phase in this process at the dryrun's size
+CHURN_ENV = {"TORCHFT_HEAL_WIRE": "bf16"}
+CHURN_DRYRUN_TIMEOUT_S = 600
+CHURN_DURABLE_ELEMS, CHURN_DURABLE_CHECKPOINTS = 1_000_000, 2
+# --churn-phases: the tool in full on the card, as a user runs it
+CHURN_FULL_ARGS = ["--groups", "4", "--steps", "1200", "--kill-every", "100",
+                   "--hot-spare"]
+CHURN_FULL_TIMEOUT_S = 1500
+DURABLE_FULL_TIMEOUT_S = 300
+
+
+def durable_k3_launches(n_elems: int, checkpoints: int,
+                        world_old: int) -> int:
+    """K3's launches in ``run_durable_phase``: one a snapshot for each
+    member whose shard holds bytes of the narrowed moments.
+
+    A snapshot stages ``{"user": {"opt_state": {"m", "v"}, "params":
+    {"w"}}, "torchft": <ints>}``, its leaves in sorted-key order: the
+    moments first, narrowed to bf16 (``2 * n`` bytes each), then ``w``
+    raw (``4 * n``), so the stream is ``8 * n`` bytes with the moments in
+    ``[0, 4 * n)``. A member of rank r stages only ``[8n r // W,
+    8n (r + 1) // W)`` (``durable.shard_bounds``) and narrows what of the
+    moments falls there with one K3 launch
+    (``checkpointing._StreamStaging._copy_in``: one ``cast_bf16_group``
+    over at most 64 leaves), none when nothing does. The sync baseline's
+    one member (W = 1) narrows both moments at every snapshot; of the
+    async members at W = 3 ranks 0 and 1 meet the moments and rank 2
+    holds only ``w``: 3 launches a checkpoint."""
+    total, moments = 8 * n_elems, 4 * n_elems
+    async_members = sum(
+        1 for r in range(world_old)
+        if total * r // world_old < min(moments, total * (r + 1) // world_old))
+    return checkpoints * (1 + async_members)
+
+
+def _run_churn_tool(argv: list, env: dict, log_path: str,
+                    timeout_s: float) -> tuple:
+    """``bench_churn_torch.py *argv`` as a user runs it (through the pool
+    when there is one): ``(rc, seconds, its metric line or None)``; prints
+    its exit, seconds and metric line, and on a failure its log's tail."""
+    t0 = time.perf_counter()
+    proc = _popen_worker(argv, log_path, CHURN, env=env)
+    try:
+        proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    seconds = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    metric = None
+    for line in text.splitlines():
+        if line.startswith('{"metric"'):
+            metric = json.loads(line)
+    log(f"  bench_churn_torch.py {' '.join(argv)} {json.dumps(env)}: rc "
+        f"{proc.returncode} in {seconds:.1f} s; {json.dumps(metric)}")
+    if proc.returncode:
+        log("    " + text[-3000:].replace("\n", "\n    "))
+    return proc.returncode, seconds, metric
+
+
+def _keep_churn_logs(workdir: str, name: str) -> None:
+    """:func:`_keep_logs` of ``workdir`` with the tool's own logs in it."""
+    if os.path.isdir(CHURN_LOGS):
+        import shutil
+
+        shutil.copytree(CHURN_LOGS, os.path.join(workdir, "logs"),
+                        dirs_exist_ok=True)
+    _keep_logs(workdir, name)
+
+
+def _churn_logs() -> dict:
+    """The dryrun's records by phase and group, and group 0's kernel
+    launches by phase (the launch counts its worker wrote at its end)."""
+    import bench_churn_torch as bct
+
+    out: dict = {"records": {}, "launches": {}}
+    for phase in CHURN_PHASES:
+        for g in range(2):
+            out["records"][(phase, g)] = bct._read_log(
+                os.path.join(CHURN_LOGS, f"{phase}_g{g}.jsonl"))
+        path = os.path.join(CHURN_LOGS, f"{phase}_g0.jsonl.launches.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out["launches"][phase] = json.load(f)
+    return out
+
+
+def phase_churn(device: str = "cuda",
+                durable_elems: int = CHURN_DURABLE_ELEMS,
+                durable_checkpoints: int = CHURN_DURABLE_CHECKPOINTS) -> dict:
+    """``bench_churn_torch.py --dryrun`` as a user runs it, group 0 on the
+    card and the bf16 heal wire; ``run_durable_phase`` in this process at
+    the dryrun's size (launch counts 0 just before, read just after), its
+    restored state kept; then ``--durable --dryrun`` as a user runs it.
+    On the CPU (a rehearsal) both runs take ``--device cpu``."""
+    import bench_churn_torch as bct
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    dev_args = ["--device", "cpu"] if device == "cpu" else []
+    out: dict = {"device": device}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_churn_") as workdir:
+        try:
+            rc, secs, metric = _run_churn_tool(
+                ["--dryrun", *dev_args], CHURN_ENV,
+                os.path.join(workdir, "dryrun.log"), CHURN_DRYRUN_TIMEOUT_S)
+            out["dryrun"] = {"rc": rc, "s": secs, "metric": metric,
+                             **_churn_logs()}
+            reset_launch_counts()
+            states: dict = {}
+            t1 = time.perf_counter()
+            record = bct.run_durable_phase(
+                n_elems=durable_elems, checkpoints=durable_checkpoints,
+                device=device, states=states)
+            out["durable"] = {
+                "record": record, "states": states,
+                "launches": {k: v for k, v in launch_counts.items() if v},
+                "s": time.perf_counter() - t1}
+            rc, secs, metric = _run_churn_tool(
+                ["--durable", "--dryrun", *dev_args], {},
+                os.path.join(workdir, "durable_dryrun.log"),
+                CHURN_DRYRUN_TIMEOUT_S)
+            out["durable_dryrun"] = {"rc": rc, "s": secs, "metric": metric}
+        finally:
+            _keep_churn_logs(workdir, "churn")
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def _heal_rows(records: list) -> list:
+    """A group log's heal records, each with ``restart``: whether a
+    restarted incarnation logged it (after the log's second boot record
+    or later; the first incarnation's heal is the step-0 weight sync)."""
+    rows, boots = [], 0
+    for r in records:
+        boots += "boot" in r
+        if "heal" in r:
+            rows.append({**r["heal"], "restart": boots > 1})
+    return rows
+
+
+def check_churn(res: dict, on_card: bool = True) -> dict:
+    """The dryrun exited 0 with ``churn_dryrun_ok`` 1; the churn and the
+    hot-spare phase each logged a heal on the stream path and the bf16
+    wire; on the card the hot-spare phase one by a promoted spare, and
+    group 0 launched K3 (it served those heals) and nothing else. The in-process durable run: every member restored the
+    last committed step bit-identical, its ``w`` bit for bit the saved
+    one and its moments bit for bit K3's plain version of the saved ones,
+    and on the card K3 launched exactly :func:`durable_k3_launches` times
+    and nothing else did. ``--durable --dryrun`` exited 0 with
+    ``durable_dryrun_ok`` 1. Returns the launches and the figures the
+    phase prints."""
+    from torchft_tpu_torch.ops import quantize_kernels as qk
+
+    dry = res["dryrun"]
+    if dry["rc"] != 0 or (dry["metric"] or {}).get("metric") != \
+            "churn_dryrun_ok" or dry["metric"].get("value") != 1:
+        fail(f"churn: --dryrun exited {dry['rc']} with {dry['metric']}")
+    heals = {}
+    for phase in ("churn", "churn_hot"):
+        rows = [h for g in range(2)
+                for h in _heal_rows(dry["records"][(phase, g)])]
+        good = [h for h in rows
+                if h.get("path") == "stream" and h.get("wire") == "bf16"]
+        if not good:
+            fail(f"churn: no stream heal on the bf16 wire in the {phase} "
+                 f"phase: {rows}")
+        heals[phase] = {"heals": len(rows), "stream_bf16": len(good),
+                        "after_restart": sum(h["restart"] for h in good),
+                        "fetch_s": _median([h["fetch_s"] for h in good])}
+    # on the card a promoted spare joins within a few of group 0's steps,
+    # so the hot-spare phase heals after its kills; a cold restart may
+    # not (group 0's solo steps outrun it to the next kill, 10 steps on),
+    # so the cold phase's count is printed, not required. A CPU rehearsal
+    # under load may see neither.
+    if on_card and not heals["churn_hot"]["after_restart"]:
+        fail("churn: no promoted spare healed on the stream path and the "
+             f"bf16 wire: {heals}")
+    launches = {}
+    if on_card:
+        for phase in CHURN_PHASES:
+            if phase not in dry["launches"]:
+                fail(f"churn: group 0 wrote no launch counts in {phase}")
+        for name in {k for c in dry["launches"].values() for k in c}:
+            launches[name] = sum(c.get(name, 0)
+                                 for c in dry["launches"].values())
+        launches = {k: v for k, v in launches.items() if v}
+        if set(launches) != {"cast_bf16"}:
+            fail(f"churn: group 0 launched {launches}; K3 alone expected")
+
+    dur = res["durable"]
+    rec = dur["record"]
+    restore = rec["durable_restore"]
+    n, ckpts = rec["config"]["n_elems"], rec["config"]["checkpoints"]
+    if restore["restored_step"] != ckpts or not restore[
+            "members_bit_identical"] or not rec["shard_scaling_ok"]:
+        fail(f"churn durable: restore {json.dumps(_rounded(restore))}, "
+             f"scaling {rec['shard_scaling_ok']}")
+    saved = dur["states"]["saved"]
+    for i, st in enumerate(dur["states"]["restored"]):
+        if not _bits_equal(st["params"]["w"].cpu(), saved["params"]["w"]):
+            fail(f"churn durable: member {i}'s restored w differs from the "
+                 "saved one")
+        for k in ("m", "v"):
+            want = qk._cast_bf16_plain(saved["opt_state"][k]).float()
+            if not _bits_equal(st["opt_state"][k].cpu(), want):
+                fail(f"churn durable: member {i}'s restored {k} is not K3's "
+                     "plain version of the saved one")
+    durable_launches = dur["launches"]
+    want_k3 = durable_k3_launches(n, ckpts, rec["config"]["world_old"])
+    if on_card and durable_launches != {"cast_bf16": want_k3}:
+        fail(f"churn durable: launches {durable_launches}, expected "
+             f"{{'cast_bf16': {want_k3}}}")
+    dd = res["durable_dryrun"]
+    if dd["rc"] != 0 or (dd["metric"] or {}).get("metric") != \
+            "durable_dryrun_ok" or dd["metric"].get("value") != 1:
+        fail(f"churn: --durable --dryrun exited {dd['rc']} with "
+             f"{dd['metric']}")
+    return {"launches": launches, "durable_launches": durable_launches,
+            "durable_k3_expected": want_k3, "heals": heals,
+            "stall_ratio_vs_sync": rec["stall_ratio_vs_sync"],
+            "restore": {k: restore[k] for k in (
+                "manifest_read_s", "shard_fetch_s", "reshard_s", "h2d_s",
+                "compile_s", "wall_s")}}
+
+
+def churn_phase(by_phase: dict) -> None:
+    """The churn phase: runs, is checked, logs its figures, and puts
+    group 0's launches (``churn``) and the in-process durable run's
+    (``churn durable``) into ``by_phase``."""
+    _phase("churn")
+    res = phase_churn()
+    summ = check_churn(res)
+    by_phase["churn"] = summ["launches"]
+    by_phase["churn durable"] = summ["durable_launches"]
+    dry = res["dryrun"]
+    log(f"  churn {res['total_s']:.1f} s: --dryrun {dry['s']:.1f} s "
+        f"(group 0 on the card, bf16 heal wire) {json.dumps(dry['metric'])}; "
+        f"heals {json.dumps(_rounded(summ['heals']))}; group 0's launches "
+        f"{json.dumps(summ['launches'])}")
+    log(f"  churn durable in process {res['durable']['s']:.1f} s at "
+        f"{CHURN_DURABLE_ELEMS} elements x {CHURN_DURABLE_CHECKPOINTS} "
+        f"checkpoints: K3 {summ['durable_launches'].get('cast_bf16', 0)} "
+        f"launches (expected {summ['durable_k3_expected']}), stall ratio "
+        f"{summ['stall_ratio_vs_sync']}, restore "
+        f"{json.dumps(_rounded(summ['restore']))}; --durable --dryrun "
+        f"{res['durable_dryrun']['s']:.1f} s "
+        f"{json.dumps(res['durable_dryrun']['metric'])}")
+
+
+def _headline(record: dict) -> dict:
+    """A bench_churn_torch.py result without its per-row detail (the
+    durable snapshots' rows, the restore's per-member stats)."""
+    out = dict(record)
+    if "async_sharded" in out:
+        out["async_sharded"] = {k: v for k, v in out["async_sharded"].items()
+                                if k != "rows"}
+        out["durable_restore"] = {
+            k: v for k, v in out["durable_restore"].items()
+            if k != "per_member"}
+    out.pop("note", None)
+    return out
+
+
+def churn_phases(by_phase: dict) -> None:
+    """``--churn-phases``: the default run's churn phase, then, with the
+    warm pool closed, ``bench_churn_torch.py`` in full on the card as a
+    user runs it (``CHURN_FULL_ARGS``), then ``--durable``; prints each
+    result's headline keys. Fails at the end if either exited non-zero or
+    measured with ``measurement_ok`` false."""
+    churn_phase(by_phase)
+    global POOL
+    if POOL is not None:
+        POOL.close()
+        POOL = None
+    torch.cuda.empty_cache()
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_churnfull_") as workdir:
+        try:
+            for name, argv, timeout_s in (
+                    ("churn in full", CHURN_FULL_ARGS, CHURN_FULL_TIMEOUT_S),
+                    ("durable in full", ["--durable"],
+                     DURABLE_FULL_TIMEOUT_S)):
+                _phase(name)
+                tag = name.split()[0]
+                out = os.path.join(workdir, f"{tag}.json")
+                rc, _, _ = _run_churn_tool(
+                    [*argv, "--out", out], {},
+                    os.path.join(workdir, f"{tag}.log"), timeout_s)
+                if rc:
+                    failed.append(f"{name}: exit {rc}")
+                if not os.path.exists(out):
+                    failed.append(f"{name}: no --out JSON")
+                    continue
+                with open(out) as f:
+                    record = json.load(f)
+                log(f"  {name} " + json.dumps(_headline(record)))
+                if not record.get("measurement_ok"):
+                    failed.append(f"{name}: measurement_ok false")
+        finally:
+            _keep_churn_logs(workdir, "churn_full")
+    if failed:
+        fail(f"churn phases failed: {failed}")
+
+
 def _finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -4980,8 +5309,8 @@ CHAOS_KINDS = (("ring_send", "bit_flip"), ("ring_send", "duplicate"),
 CHAOS_KILL_STEP = 8
 CHAOS_TAIL_STEPS = 2
 # chaos flash and policy flash run the big LM at this depth (8 layers:
-# 85-101 s for the two)
-CHAOS_LM = {**BIG_LM, "n_layers": 4}
+# 85-101 s for the two, 4 layers 70-93 s)
+CHAOS_LM = {**BIG_LM, "n_layers": 2}
 # a ring op's deadline: a dropped frame can cost one, and the donor's op
 # must outlast the restarted group's heal inside its sync quorum (the
 # 1.33 GB fetch falling back to the striped path, ~6 s on the card)
@@ -7439,8 +7768,8 @@ PAR_LOSS_RTOL = 3e-3            # sharded against unsharded bf16 (tests/test_moe
 # the sub-phases in launch order (tp flash last: its kill ends the launch)
 # and their models at full width: the CNN demo family, bench.py's big LM
 # with its depth cut to PAR_LM_LAYERS (8 took 106-128 s of the default
-# run's launch), the MoE family's defaults
-PAR_LM_LAYERS = 4
+# run's launch, 4 took 73-95 s), the MoE family's defaults
+PAR_LM_LAYERS = 2
 PAR_LM = {**BIG_LM, "n_layers": PAR_LM_LAYERS}
 PAR_SIZES = {
     "cnn": {"model": {}, "batch": 64},
@@ -8158,6 +8487,11 @@ def main() -> int:
                         help="build, then run only the bench phase, "
                         "bench_torch.py in full and the three "
                         "experiments that import it")
+    parser.add_argument("--churn-phases", action="store_true",
+                        help="build, then run only the churn phase, then "
+                        "bench_churn_torch.py in full (4 groups, 1200 "
+                        "steps, a kill every 100, hot spares) and "
+                        "--durable")
     parser.add_argument("--parallel-phases", action="store_true",
                         help="build, then run only the model-parallel "
                         "launch (cnn, cp ulysses, cp ring, pp flash, ep moe, "
@@ -8259,6 +8593,15 @@ def main() -> int:
         log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
         by_phase = {}
         bench_phases(by_phase)
+        log(f"  launches by phase: {json.dumps(by_phase)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
+        print(_smi(), flush=True)
+        return 0
+    if args.churn_phases:
+        log(f"  built: {json.dumps({k: round(v, 2) for k, v in phase_build().items()})}")
+        by_phase = {}
+        churn_phases(by_phase)
         log(f"  launches by phase: {json.dumps(by_phase)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_s": _phase_seconds()}), flush=True)
@@ -8412,6 +8755,8 @@ def main() -> int:
     experiments_phase(by_phase)
     bench_phase(by_phase)
     torch.cuda.empty_cache()
+    churn_phase(by_phase)
+    torch.cuda.empty_cache()
     window_phases(by_phase)
     torch.cuda.empty_cache()
     serving_phases(by_phase)
@@ -8472,6 +8817,8 @@ def main() -> int:
             ("experiments", ("flash_fwd", "flash_bwd")),
             ("bench", ("q8_absmax", "q8_quantize", "q8_dequantize",
                        "cast_bf16", "flash_fwd", "flash_bwd")),
+            ("churn", ("cast_bf16",)),
+            ("churn durable", ("cast_bf16",)),
             *((f"parallel {sub}", names) for sub, names in PAR_KERNELS.items())):
         for name in names:
             if rows[name]["launches_by_phase"][phase] == 0:

@@ -14,7 +14,8 @@ of them read fixed paths there; this script calls the same rules'
   ``_sharded_plan_for``);
 - ``env_docs``: every ``TORCHFT_*`` knob the port package,
   ``scripts/*_torch.py``, ``experiments/*_torch.py``,
-  ``examples/train_ddp_torch.py`` and ``bench_torch.py`` read is in
+  ``examples/train_ddp_torch.py``, ``bench_torch.py`` and
+  ``bench_churn_torch.py`` read is in
   ``docs/OPERATIONS.md``.
 
 (``capi_sync``'s port counterpart is ``tests/test_torch_capi_sync.py``.)
@@ -61,7 +62,7 @@ def env_scan_files(root: Path) -> List[Path]:
     files += sorted(p.relative_to(root)
                     for p in (root / "experiments").glob("*_torch.py"))
     return files + [Path("examples/train_ddp_torch.py"),
-                    Path("bench_torch.py")]
+                    Path("bench_torch.py"), Path("bench_churn_torch.py")]
 
 
 def check_env_docs(root: Path) -> List[Violation]:

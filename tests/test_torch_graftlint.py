@@ -100,12 +100,13 @@ def test_env_docs_bites(tmp_path, rel):
     assert "TORCHFT_SEEDED_UNDOCUMENTED" in found[0].message
 
 
-@pytest.mark.parametrize("rel", ["bench_torch.py",
+@pytest.mark.parametrize("rel", ["bench_torch.py", "bench_churn_torch.py",
                                  "experiments/ddp_modes_torch.py"])
 def test_env_docs_scans_the_bench_harness(tmp_path, rel):
-    """``bench_torch.py`` and the experiments are in the rule's scan (the
-    knob they set, ``TORCHFT_HC_PIPELINE_CHUNKS``, is documented), and a
-    knob read there undocumented fails it."""
+    """The bench harnesses and the experiments are in the rule's scan (the
+    knobs they read or set, ``TORCHFT_HC_PIPELINE_CHUNKS``,
+    ``TORCHFT_ZYGOTE`` and ``TORCHFT_STANDBY_FILE`` among them, are
+    documented), and a knob read there undocumented fails it."""
     assert Path(rel) in glt.env_scan_files(REPO)
     root = _copy_tree(tmp_path)
     with open(root / rel, "a") as f:

@@ -91,11 +91,11 @@ def test_import_pulls_in_neither_jax_nor_torchft_tpu():
 
 # the port's tools beside the JAX package's: the experiments (their shared
 # helpers too), graftlint's path-bound rules over the port and the bench
-# harness
+# harnesses
 PORT_TOOLS = sorted(
     f"experiments/{f}" for f in os.listdir(os.path.join(REPO, "experiments"))
     if f.endswith("_torch.py")) + ["scripts/graftlint_torch.py",
-                                   "bench_torch.py"]
+                                   "bench_torch.py", "bench_churn_torch.py"]
 
 
 @pytest.mark.parametrize("path", PORT_TOOLS)

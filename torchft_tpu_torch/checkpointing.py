@@ -549,19 +549,29 @@ def rebuild_from_packed(
     its leaves on ``device`` (``None``: the card). On the CPU a leaf is a
     view of ``buf`` (a copy of it when ``buf`` is read-only); on the card
     the whole buffer goes up in one copy and the leaves are views of it.
-    Wire-narrowed leaves (the bf16 opt-state) widen back to their dtype
-    (exact)."""
+    ``buf`` may also be a 1-D uint8 tensor, on the host or already on
+    ``device`` (the durable restore uploads it first, to time the upload
+    apart). Wire-narrowed leaves (the bf16 opt-state) widen back to their
+    dtype (exact)."""
     device = resolve_device(device)
     total = int(meta["total"])
-    view = memoryview(buf).cast("B")
-    if view.nbytes < total:
-        raise ValueError(
-            f"packed buffer holds {view.nbytes} bytes, layout needs {total}")
-    if view.readonly:
-        view = memoryview(bytearray(view[:total]))
-    host = (torch.frombuffer(view, dtype=torch.uint8, count=total)
-            if total else torch.empty(0, dtype=torch.uint8))
-    base = host if device.type == "cpu" else host.to(device)
+    if isinstance(buf, torch.Tensor):
+        if buf.dtype != torch.uint8 or buf.dim() != 1 or buf.numel() < total:
+            raise ValueError(
+                f"packed buffer {buf.dtype} {tuple(buf.shape)}, layout "
+                f"needs {total} uint8 bytes")
+        base = buf[:total].to(device)
+    else:
+        view = memoryview(buf).cast("B")
+        if view.nbytes < total:
+            raise ValueError(
+                f"packed buffer holds {view.nbytes} bytes, layout needs "
+                f"{total}")
+        if view.readonly:
+            view = memoryview(bytearray(view[:total]))
+        host = (torch.frombuffer(view, dtype=torch.uint8, count=total)
+                if total else torch.empty(0, dtype=torch.uint8))
+        base = host if device.type == "cpu" else host.to(device)
     slots, treedef = flatten(meta["skeleton"])
     out: List[Any] = []
     for slot in slots:
